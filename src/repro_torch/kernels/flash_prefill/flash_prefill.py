@@ -1,0 +1,104 @@
+"""Paged flash-prefill with the fused K/V scatter: the wrapper of the CUDA
+kernel in ``repro_torch/csrc/paged_prefill.cu``.
+
+Port of ``repro.kernels.flash_prefill.flash_prefill.paged_flash_prefill``
+(fp pool branch).  The pools are updated IN PLACE — the reference package
+aliases them with ``input_output_aliases`` instead — and returned, so the
+call keeps the reference's return signature.  A CUDA tensor launches the
+kernel, or the call raises; the plain PyTorch version
+(``ref.prefill_attention_ref``) runs only for tensors on the CPU.
+``paged_flash_prefill.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_prefill.ref import prefill_attention_ref
+
+HEAD_DIMS = (64, 128)
+ROWS = 64  # query rows per thread block: rep must divide it
+
+
+def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
+                  start, prefix):
+    B, S, H, D = q.shape
+    N, bs, Hk, Dk = k_pool.shape
+    dev = q.device
+    rest = [k_new, v_new, k_pool, v_pool, lengths, block_tables]
+    if start is not None:
+        rest.append(start)
+    if any(t.device != dev for t in rest):
+        raise ValueError("paged_flash_prefill: all inputs must be on one "
+                         "device")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise TypeError("paged_flash_prefill: q/k_new/v_new must share a "
+                        "bf16 or fp32 dtype")
+    if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
+        raise TypeError("paged_flash_prefill: the pool must be bf16")
+    ints = [lengths, block_tables] + ([start] if start is not None else [])
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("paged_flash_prefill: lengths/tables/start must be "
+                        "int32")
+    if k_new.shape != (B, S, Hk, D) or v_new.shape != k_new.shape \
+            or v_pool.shape != k_pool.shape or Dk != D or D not in HEAD_DIMS:
+        raise ValueError(f"paged_flash_prefill: bad shapes q {tuple(q.shape)}"
+                         f" k_new {tuple(k_new.shape)} pool "
+                         f"{tuple(k_pool.shape)} (D in {HEAD_DIMS})")
+    if H % Hk or ROWS % (H // Hk):
+        raise ValueError(f"paged_flash_prefill: H={H} Hk={Hk} unsupported")
+    if lengths.shape != (B,) or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B \
+            or (start is not None and start.shape != (B,)):
+        raise ValueError("paged_flash_prefill: lengths/start (B,), tables "
+                         "(B, T)")
+    if not 0 <= prefix <= S:
+        raise ValueError(f"paged_flash_prefill: prefix {prefix} not in "
+                         f"[0, {S}]")
+    if not all(t.is_contiguous() for t in [q] + rest):
+        raise ValueError("paged_flash_prefill: inputs must be contiguous")
+
+
+def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
+                        block_tables, start=None, prefix: int = 0):
+    """Chunked-prefill attention + fused K/V scatter on the paged pool.
+
+    q:             (B, S, H, D) rotated chunk queries (S = prefix + P,
+                   prompt tokens LEFT-padded to P), bf16 or fp32;
+    k_new/v_new:   (B, S, Hk, D) the chunk's rotated K/V, q's dtype;
+    k_pool/v_pool: (N, bs, Hk, D) bf16 shared block pool, updated in place;
+    lengths:       (B,) int32 true chunk token count per row (<= P);
+    block_tables:  (B, T) int32 per-lane tables;
+    start:         None for a first chunk (no cached context: the table
+                   walk is skipped), else (B,) int32 cached positions;
+    prefix:        patch-prefix length (first chunk only).
+
+    Returns (attn_out (B, S, H*D), k_pool, v_pool).  Cached KV bytes are
+    read block by block through the table, never gathered, and the new
+    K/V lands in the pool inside the same launch.
+    """
+    if q.device.type == "cpu":
+        return prefill_attention_ref(q, k_new, v_new, k_pool, v_pool,
+                                     lengths, block_tables, start=start,
+                                     prefix=prefix)
+    _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
+                  start, prefix)
+    B, S, H, D = q.shape
+    _, bs, Hk, _ = k_pool.shape
+    out = torch.empty((B, S, H * D), dtype=q.dtype, device=q.device)
+    lib = _build.load("paged_prefill")
+    code = lib.repro_paged_prefill(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), lengths.data_ptr(),
+        None if start is None else start.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(),
+        B, S, H, Hk, D, bs, block_tables.shape[1], prefix,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "paged_flash_prefill")
+    paged_flash_prefill.launches += 1
+    return out, k_pool, v_pool
+
+
+paged_flash_prefill.launches = 0

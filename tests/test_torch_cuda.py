@@ -1,0 +1,128 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: they skip without a CUDA device (the kernels have no CPU
+or interpret mode).  Run them on a card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_cuda.py
+
+Tolerance 2e-2 on bf16 outputs (the kernels score in fp32 where the plain
+versions round scores to the compute dtype first), 1e-4 in fp32; pools
+after the prefill scatter bit for bit.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels.flash_decode.flash_decode import \
+    paged_flash_decode  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import \
+    paged_decode_ref  # noqa: E402
+from repro_torch.kernels.flash_prefill.flash_prefill import \
+    paged_flash_prefill  # noqa: E402
+from repro_torch.kernels.flash_prefill.ref import \
+    prefill_attention_ref  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _tables(gen, B, T, N, used, bs):
+    tbl = (1 + torch.randperm(N - 1, generator=gen, device="cuda")
+           [:B * T]).reshape(B, T).int()
+    for b in range(B):
+        tbl[b, -(-int(used[b]) // bs):] = 0
+    return tbl
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64), (16, 2, 128)])
+def test_decode_kernel_matches_plain(gen, dtype, H, Hk, D):
+    B, bs, T = 5, 16, 8
+    N = B * T + 1
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([1, 33, 128, 0, 70], dtype=torch.int32,
+                        device="cuda")
+    tbl = _tables(gen, B, T, N, lens, bs)
+    tbl[3] = 0
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(q, kp, vp, lens, tbl)
+    assert paged_flash_decode.launches == before + 1
+    ref = paged_decode_ref(q, kp, vp, lens, tbl)
+    live = lens > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_ctx", [False, True])
+def test_prefill_kernel_matches_plain(gen, dtype, with_ctx):
+    B, S, H, Hk, D, bs, T = 4, 24, 32, 4, 64, 16, 8
+    N = B * T + 1
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    kp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([24, 1, 13, 7], dtype=torch.int32, device="cuda")
+    start = torch.tensor([0, 5, 16, 40], dtype=torch.int32,
+                         device="cuda") if with_ctx else None
+    used = lens + (start if with_ctx else 0)
+    tbl = _tables(gen, B, T, N, used, bs)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    out, _, _ = paged_flash_prefill(q, kn, vn, k1, v1, lens, tbl,
+                                    start=start)
+    ref, _, _ = prefill_attention_ref(q, kn, vn, k2, v2, lens, tbl,
+                                      start=start)
+    real = torch.arange(S, device="cuda")[None] >= (S - lens)[:, None]
+    torch.testing.assert_close(out[real].float(), ref[real].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(k1.view(torch.int16), k2.view(torch.int16))
+    assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = torch.zeros(2, 8, 32, device="cuda", dtype=torch.bfloat16)
+    pool = torch.zeros(3, 4, 1, 32, device="cuda", dtype=torch.bfloat16)
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    tbl = torch.ones(2, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="D in"):
+        paged_flash_decode(q, pool, pool, lens, tbl)
+    q = torch.zeros(2, 8, 64, device="cuda", dtype=torch.bfloat16)
+    pool = torch.zeros(3, 4, 1, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="int32"):
+        paged_flash_decode(q, pool, pool, lens.long(), tbl)
+
+
+def test_engine_runs_through_the_kernels(gen):
+    """A small dense model with tinyllama's head geometry served on the
+    card: both kernels launch once per layer per step or chunk."""
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              num_heads=8, num_kv_heads=1, head_dim=64,
+                              d_model=128)
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=64, eos_id=-1,
+                        block_size=8, prefill_chunk=16, attn_kernel="on")
+    d0, p0 = paged_flash_decode.launches, paged_flash_prefill.launches
+    rng = np.random.default_rng(0)
+    uids = [eng.submit(rng.integers(1, 256, size=n), max_new_tokens=5)
+            for n in (3, 20, 9)]
+    out = eng.run()
+    assert all(len(out[u]) == 5 for u in uids)
+    L = cfg.num_layers
+    assert paged_flash_decode.launches - d0 == L * eng.stats.decode_steps
+    assert paged_flash_prefill.launches - p0 == L * eng.stats.prefill_chunks
