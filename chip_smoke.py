@@ -7,23 +7,32 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, or when run
 outside the repository.  Phases, each of which raises on failure:
 
   1. device report: the card's name and power limit;
-  2. build: both paged attention kernels, from ``src/repro_torch/csrc``;
-  3. kernel checks: each kernel against its plain PyTorch version at the
+  2. build: every kernel source in ``src/repro_torch/csrc``, one ``nvcc``
+     each, all started together;
+  3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
-     64-entry tables, mixed lengths, dead lanes, a shared block), bf16:
-     outputs within 2e-2 element by element, prefill pools bit for bit;
-     kernel, plain and
+     64-entry tables, mixed lengths, dead lanes, a shared block), bf16
+     compute, outputs within |out - ref| <= 2e-2 + 2e-2 |ref| element by
+     element: paged decode and paged prefill on a bf16 pool and on int8
+     and fp8 SCLAD pools (prefill pools and scales bit for bit), and the
+     dense decode of the wave path; kernel, plain and
      ``scaled_dot_product_attention`` times (the last a yardstick only,
-     on a pre-gathered dense copy; the port never calls it);
-  4. model check: full-width tinyllama-1.1b with seeded random bf16
+     on a pre-gathered, pre-dequantized dense copy; the port never calls
+     it) beside each kernel's bound;
+  4. model checks: full-width tinyllama-1.1b with seeded random bf16
      weights, ``prefill_slots`` and ``decode_step`` logits with the
-     kernels on vs off, and a control that reads one wrong block, which
-     the same limit must catch;
-  5. engine run: the port's ``ServingEngine`` serving 12 requests (16-600
-     prompt tokens, a shared 64-token system prefix on half of them, 32
-     new tokens each at temperature 0.8) with the kernels' launch counts
-     set to 0 just before and read just after; then three decode steps
-     of 8 lanes under ``torch.profiler`` (device-busy share, top kernels);
+     kernels on vs off on bf16, int8 and fp8 pools, a control that reads
+     one wrong block, which the same limit must catch, and the int8/fp8
+     pools vs the bf16 pool within the quantization gates;
+  5. engine runs, each with the kernels' launch counts set to 0 just
+     before and read just after: the port's ``ServingEngine`` serving 12
+     requests (16-600 prompt tokens, a shared 64-token system prefix on
+     half of them, 32 new tokens each at temperature 0.8) on a bf16, an
+     int8 and an fp8 pool, and in ``mode="wave"`` (dense stripes, the
+     dense decode kernel); a bf16 / int8 pair at the same pool bytes with
+     16 lanes (blocks, block bytes, mean live lanes, preemptions, decode
+     tok/s of each); then three decode steps of 8 lanes under
+     ``torch.profiler`` (device-busy share, top kernels);
   6. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +54,9 @@ B, BS, T = 8, 16, 64          # lanes, tokens per block, table width
 MAX_LEN = BS * T              # 1024 tokens of context per lane
 CHUNK = 128                   # prefill chunk
 TOL = 2e-2                    # kernel vs plain, bf16 outputs
+#: Quantized vs bf16 pool, as a share of the logit range: the JAX
+#: package's LOGIT_ERR_GATE (int8 0.15, fp8 0.35) over its span of ~3.
+QUANT_GATE = {"int8": 0.05, "fp8": 0.12}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
 WARMUP, ITERS = 3, 20
@@ -105,8 +118,43 @@ def assert_close(torch, what, out, ref):
     return (out.float() - ref.float()).abs().max().item()
 
 
-def check_decode(torch, cfg, gen):
-    """Kernel 1 vs its plain version at the decode step's shapes."""
+def row_bytes(kv_dtype: str, D: int) -> int:
+    """Pool bytes of one (position, kv head) row: the D-vector's payload
+    plus, for a SCLAD pool, its fp32 scale."""
+    return D * 2 if kv_dtype == "bf16" else D + 4
+
+
+def make_pool(torch, gen, N, Hk, D, kv_dtype):
+    """A random K (or V) pool: bf16, or bf16 values quantized by the
+    port's codec -> (payload, scales or None)."""
+    from repro_torch.models import kv_quant
+    x = torch.randn(N, BS, Hk, D, generator=gen, device="cuda").bfloat16()
+    if kv_dtype == "bf16":
+        return x, None
+    return kv_quant.quantize(x, kv_dtype)
+
+
+def dense_copy(torch, pool, scale, tbl, dtype):
+    """The (B, T*bs, Hk, D) per-lane copy of a pool through its tables,
+    dequantized to ``dtype``: the SDPA yardstick's input."""
+    from repro_torch.models import kv_quant
+    t = tbl.long()
+    x = kv_quant.raw(pool)[t].view(pool.dtype)
+    x = x.reshape(t.shape[0], -1, *pool.shape[2:])
+    if scale is None:
+        return x.to(dtype)
+    return kv_quant.dequantize(x, scale[t].reshape(t.shape[0], -1,
+                                                   pool.shape[2]), dtype)
+
+
+def same_bits(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def check_decode(torch, cfg, gen, kv_dtype="bf16"):
+    """Kernel 1 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
+    plain version at the decode step's shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.flash_decode import \
         paged_flash_decode
@@ -115,8 +163,9 @@ def check_decode(torch, cfg, gen):
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     N = B * T + 1
     q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
-    kp = torch.randn(N, BS, Hk, D, generator=gen, device=dev).bfloat16()
-    vp = torch.randn(N, BS, Hk, D, generator=gen, device=dev).bfloat16()
+    kp, ks = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    scales = None if ks is None else (ks, vs)
     lens = torch.tensor([1, 17, 600, 1024, 700, 333, 64, 5],
                         dtype=torch.int32, device=dev)
     tbl = (1 + torch.randperm(N - 1, generator=gen, device=dev)[:B * T]) \
@@ -128,16 +177,20 @@ def check_decode(torch, cfg, gen):
     live = torch.ones(B, dtype=torch.bool, device=dev)
     live[4] = False
 
-    out = paged_flash_decode(q, kp, vp, lens, tbl)
+    out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=scales)
     torch.cuda.synchronize()
-    ref = paged_decode_ref(q, kp, vp, lens, tbl)
-    err = assert_close(torch, "paged decode kernel", out[live], ref[live])
+    ref = paged_decode_ref(q, kp, vp, lens, tbl, kv_scales=scales)
+    err = assert_close(torch, f"paged decode kernel ({kv_dtype} pool)",
+                       out[live], ref[live])
 
-    ms = cuda_ms(lambda: paged_flash_decode(q, kp, vp, lens, tbl))
-    plain_ms = cuda_ms(lambda: paged_decode_ref(q, kp, vp, lens, tbl))
-    # Yardstick: one SDPA call on a pre-gathered dense (B, Hk, T*bs, D).
-    kd = kp[tbl.long()].reshape(B, T * BS, Hk, D).transpose(1, 2)
-    vd = vp[tbl.long()].reshape(B, T * BS, Hk, D).transpose(1, 2)
+    ms = cuda_ms(lambda: paged_flash_decode(q, kp, vp, lens, tbl,
+                                            kv_scales=scales))
+    plain_ms = cuda_ms(lambda: paged_decode_ref(q, kp, vp, lens, tbl,
+                                                kv_scales=scales))
+    # Yardstick: one SDPA call on a pre-gathered, pre-dequantized dense
+    # (B, Hk, T*bs, D) copy.
+    kd = dense_copy(torch, kp, ks, tbl, q.dtype).transpose(1, 2)
+    vd = dense_copy(torch, vp, vs, tbl, q.dtype).transpose(1, 2)
     mask = (torch.arange(T * BS, device=dev)[None] < lens[:, None]
             )[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -146,10 +199,10 @@ def check_decode(torch, cfg, gen):
 
     # Bytes: each pool row the lanes reach counted once (the dead lane's
     # walk reaches only the trash block, the shared block counts once),
-    # q and the output, lengths and the table entries walked.  Operations:
-    # QK^T and PV over the live lanes' keys.
+    # payload plus scale, q and the output, lengths and the table entries
+    # walked.  Operations: QK^T and PV over the live lanes' keys.
     n = lens.clamp(max=T * BS)
-    nbytes = (2 * distinct_rows(torch, tbl, n) * Hk * D * 2
+    nbytes = (2 * distinct_rows(torch, tbl, n) * Hk * row_bytes(kv_dtype, D)
               + 2 * q.numel() * 2 + lens.numel() * 4
               + 4 * (-(-n // BS)).sum().item())
     ops = 4 * H * D * n[live].double().sum().item()
@@ -158,25 +211,35 @@ def check_decode(torch, cfg, gen):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_prefill(torch, cfg, gen):
-    """Kernel 2 vs its plain version: a first chunk and a continuation
-    (with a block-straddling start and a shared context block) at the
-    prefill chunk's shapes; pools bit for bit."""
+def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
+    """Kernel 2 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
+    plain version: a first chunk and a continuation (with a
+    block-straddling start and a shared context block) at the prefill
+    chunk's shapes; pools (and scales) bit for bit."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
     from repro_torch.kernels.flash_prefill.ref import prefill_attention_ref
+    from repro_torch.models import kv_quant
     dev = "cuda"
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     N, S = B * T + 1, CHUNK
-    kp = torch.randn(N, BS, Hk, D, generator=gen, device=dev).bfloat16()
-    vp = torch.randn(N, BS, Hk, D, generator=gen, device=dev).bfloat16()
+    kp, ks = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    pool = [kp, vp] + ([] if ks is None else [ks, vs])
+    kvd = None if ks is None else kv_dtype
     q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
     kn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
     vn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
     lens = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50],
                         dtype=torch.int32, device=dev)
     real = torch.arange(S, device=dev)[None] >= (S - lens)[:, None]
+
+    def call(fn, p, start, tbl):
+        sc = None if len(p) == 2 else (p[2], p[3])
+        return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
+                  kv_scales=sc, kv_dtype=kvd)[0]
+
     results = {}
     for name, start in (
             ("first", None),
@@ -190,33 +253,36 @@ def check_prefill(torch, cfg, gen):
             tbl[b, -(-int(st[b] + lens[b]) // BS):] = 0
         if start is not None:
             tbl[0, 0] = tbl[6, 0]  # a shared, read-only context block
-        k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-        out, _, _ = paged_flash_prefill(q, kn, vn, k1, v1, lens, tbl,
-                                        start=start)
+        p1 = [x.clone() for x in pool]
+        p2 = [x.clone() for x in pool]
+        out = call(paged_flash_prefill, p1, start, tbl)
         torch.cuda.synchronize()
-        ref, _, _ = prefill_attention_ref(q, kn, vn, k2, v2, lens, tbl,
-                                          start=start)
-        err = assert_close(torch, f"paged prefill kernel ({name})",
-                           out[real], ref[real])
-        if not (torch.equal(k1.view(torch.int16), k2.view(torch.int16))
-                and torch.equal(v1.view(torch.int16), v2.view(torch.int16))):
-            raise AssertionError(f"paged prefill pools ({name}) differ "
-                                 f"from the plain scatter")
+        ref = call(prefill_attention_ref, p2, start, tbl)
+        what = f"paged prefill kernel ({name}, {kv_dtype} pool)"
+        err = assert_close(torch, what, out[real], ref[real])
+        if not all(same_bits(torch, a, b) for a, b in zip(p1, p2)):
+            raise AssertionError(f"{what}: pools differ from the plain "
+                                 f"scatter")
+        if same_bits(torch, p1[0], kp):
+            raise AssertionError(f"{what}: the scatter wrote nothing")
 
-        k1, v1 = kp.clone(), vp.clone()
-        ms = cuda_ms(lambda: paged_flash_prefill(q, kn, vn, k1, v1, lens,
-                                                 tbl, start=start))
-        plain_ms = cuda_ms(lambda: prefill_attention_ref(
-            q, kn, vn, k1, v1, lens, tbl, start=start))
-        # Yardstick: one SDPA call on the pre-gathered [context | chunk].
+        p1 = [x.clone() for x in pool]
+        ms = cuda_ms(lambda: call(paged_flash_prefill, p1, start, tbl))
+        plain_ms = cuda_ms(lambda: call(prefill_attention_ref, p1, start,
+                                        tbl))
+        # Yardstick: one SDPA call on the pre-gathered, pre-dequantized
+        # [context | chunk] (the chunk fake-quantized on a SCLAD pool).
         ctx = T * BS if start is not None else 0
         kd, vd = kn, vn
+        if kvd is not None:
+            kd = kv_quant.fake_quant(kn, kvd)
+            vd = kv_quant.fake_quant(vn, kvd)
         sidx = torch.arange(S, device=dev)
         mask = (sidx[None, None] <= sidx[None, :, None]) \
             & (sidx[None] >= (S - lens)[:, None])[:, None, :]
         if ctx:
-            kd = torch.cat([kp[tbl.long()].reshape(B, ctx, Hk, D), kn], 1)
-            vd = torch.cat([vp[tbl.long()].reshape(B, ctx, Hk, D), vn], 1)
+            kd = torch.cat([dense_copy(torch, kp, ks, tbl, q.dtype), kd], 1)
+            vd = torch.cat([dense_copy(torch, vp, vs, tbl, q.dtype), vd], 1)
             cmask = (torch.arange(ctx, device=dev)[None] < st[:, None])
             mask = torch.cat([cmask[:, None].expand(B, S, ctx), mask], -1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kd, vd))
@@ -224,12 +290,14 @@ def check_prefill(torch, cfg, gen):
             qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
 
         # Bytes of the real rows only (pad rows' outputs are junk by
-        # contract): q and the output, k/v_new read and scattered into the
-        # pool, and the context rows counted once each through the tables.
+        # contract): q and the output, k/v_new read and stored into the
+        # pool (payload plus scale on a SCLAD pool), and the context rows
+        # counted once each through the tables.
         n_new = lens.double().sum().item()
-        nbytes = (2 * n_new * H * D * 2                  # q, output
-                  + 2 * 2 * n_new * Hk * D * 2           # k/v_new, scatter
-                  + 2 * distinct_rows(torch, tbl, st) * Hk * D * 2
+        nbytes = (2 * n_new * H * D * 2                      # q, output
+                  + 2 * n_new * Hk * (D * 2 + row_bytes(kv_dtype, D))
+                  + 2 * distinct_rows(torch, tbl, st) * Hk
+                  * row_bytes(kv_dtype, D)
                   + 4 * (2 * lens.numel()
                          + (-(-(st + lens) // BS)).sum().item()))
         # Visible (query, key) pairs of the real rows.
@@ -243,14 +311,44 @@ def check_prefill(torch, cfg, gen):
     return results
 
 
-def check_model(torch, cfg, params):
-    """prefill_slots (first chunk, continuation) and decode_step logits
-    with the kernels on vs off, full width.  Tolerance: 5% of the logits'
-    range — 22 bf16 layers amplify the kernels' fp32-vs-bf16 rounding
-    differences in the attention outputs.  A control shows the limit is
-    tight enough to matter: the plain path's decode step with one table
-    entry of one lane pointed at the trash block (16 of its 80 keys read
-    from the wrong block) must differ from the right one by more than it."""
+def check_dense_decode(torch, cfg, gen):
+    """Kernel 3 (dense stripes, the wave path's decode) vs its plain
+    version: 8 rows of (1024, 4, 64) bf16 stripes, mixed lengths."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.ref import decode_ref
+    dev = "cuda"
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = MAX_LEN
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    kc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
+    lens = torch.tensor([1, 17, 600, 1024, 0, 333, 64, 5],
+                        dtype=torch.int32, device=dev)
+    live = lens > 0
+    out = flash_decode(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    ref = decode_ref(q, kc, vc, lens)
+    err = assert_close(torch, "dense decode kernel", out[live], ref[live])
+    ms = cuda_ms(lambda: flash_decode(q, kc, vc, lens))
+    plain_ms = cuda_ms(lambda: decode_ref(q, kc, vc, lens))
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None]
+            )[:, None, None, :]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
+    n = lens.clamp(max=S).double().sum().item()
+    nbytes = 2 * n * Hk * D * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * H * D * n)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
+    """Full-width logits of a first chunk, a continuation's last position
+    and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``;
+    ``wrong`` points one of lane 0's table entries at the trash block for
+    the decode step."""
     from dataclasses import replace
     from repro_torch.models import model as M
     dev = "cuda"
@@ -267,109 +365,216 @@ def check_model(torch, cfg, params):
                        device=dev)
     tok1 = torch.randint(1, cfg.vocab_size, (nb, 1), generator=rng,
                          device=dev)
-    wrong = tbl.clone()
-    wrong[0, 0] = 0
-    logits = {}
-    for mode in ("on", "off", "wrong"):
-        c = replace(cfg, attn_kernel="off" if mode == "wrong" else mode)
-        cache = M.init_paged_cache(c, N, BS, device=dev)
-        a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl)
-        b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl,
-                                   start=lens, all_logits=True)
-        d, cache = M.decode_step(c, params, cache, tok1, lens + l2,
-                                 block_tables=wrong if mode == "wrong"
-                                 else tbl)
-        torch.cuda.synchronize()
-        logits[mode] = (a.float(), b[:, -1].float(), d[:, 0].float())
-    errs = []
-    for name, on, off in zip(("prefill", "continuation", "decode"),
-                             logits["on"], logits["off"]):
-        if not torch.isfinite(on).all():
-            raise AssertionError(f"model {name} logits are not finite")
-        span = (off.max() - off.min()).item()
-        err = (on - off).abs().max().item()
-        agree = (on.argmax(-1) == off.argmax(-1)).float().mean().item()
-        print(f"model check {name}: max|on-off| {err:.4g} of range "
-              f"{span:.4g} (limit {0.05 * span:.4g}); argmax agreement "
-              f"{agree:.2f}")
-        if err > 0.05 * span:
-            raise AssertionError(f"model {name}: kernels on vs off differ "
-                                 f"by {err} (range {span})")
-        errs.append(err)
-    off, bad = logits["off"][2], logits["wrong"][2]
-    span = (off.max() - off.min()).item()
-    err = (bad - off).abs().max().item()
-    print(f"model check control (decode reading one wrong block): "
-          f"max|wrong-off| {err:.4g} of range {span:.4g} (must exceed "
-          f"{0.05 * span:.4g})")
-    if err <= 0.05 * span:
-        raise AssertionError("model check cannot see a decode that reads "
-                             "one wrong block: its limit is too loose")
-    return max(errs)
+    dtbl = tbl.clone()
+    if wrong:
+        dtbl[0, 0] = 0
+    c = replace(cfg, attn_kernel=mode, kv_dtype=kv_dtype)
+    cache = M.init_paged_cache(c, N, BS, device=dev)
+    a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl)
+    b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl, start=lens,
+                               all_logits=True)
+    d, cache = M.decode_step(c, params, cache, tok1, lens + l2,
+                             block_tables=dtbl)
+    torch.cuda.synchronize()
+    return a.float(), b[:, -1].float(), d[:, 0].float()
 
 
-def run_engine(torch, cfg, params, card):
-    """The main path: ServingEngine over the kernels, counts read."""
+def compare_logits(torch, what, got, want, share, card):
+    """Each of the three logit sets within ``share`` of want's range."""
+    worst = 0.0
+    for name, x, y in zip(("prefill", "continuation", "decode"), got, want):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{what} {name} logits are not finite")
+        span = (y.max() - y.min()).item()
+        err = (x - y).abs().max().item()
+        agree = (x.argmax(-1) == y.argmax(-1)).float().mean().item()
+        print(f"model check {what} {name} [{card}]: max|diff| {err:.4g} of "
+              f"range {span:.4g} (limit {share * span:.4g}); argmax "
+              f"agreement {agree:.2f}")
+        if err > share * span:
+            raise AssertionError(f"model {what} {name}: differ by {err} "
+                                 f"(range {span}, limit {share * span})")
+        worst = max(worst, err / span)
+    return worst
+
+
+def check_model(torch, cfg, params, card):
+    """prefill_slots (first chunk, continuation) and decode_step logits
+    with the kernels on vs off, full width, on bf16, int8 and fp8 pools.
+    Tolerance: 5% of the logits' range — 22 bf16 layers amplify the
+    kernels' fp32-vs-bf16 rounding differences in the attention outputs.
+    A control shows the limit is tight enough to matter: the plain path's
+    decode step with one table entry of one lane pointed at the trash
+    block (16 of its 80 keys read from the wrong block) must differ from
+    the right one by more than it.  Then the int8 / fp8 pools against the
+    bf16 pool, kernels on, within QUANT_GATE of the range."""
+    on = {}
+    for kv_dtype in ("bf16", "int8", "fp8"):
+        on[kv_dtype] = model_logits(torch, cfg, params, kv_dtype, "on")
+        off = model_logits(torch, cfg, params, kv_dtype, "off")
+        compare_logits(torch, f"{kv_dtype} pool, kernels on vs off",
+                       on[kv_dtype], off, 0.05, card)
+        if kv_dtype == "bf16":
+            bad = model_logits(torch, cfg, params, "bf16", "off",
+                               wrong=True)
+            span = (off[2].max() - off[2].min()).item()
+            err = (bad[2] - off[2]).abs().max().item()
+            print(f"model check control (decode reading one wrong block) "
+                  f"[{card}]: max|wrong-off| {err:.4g} of range {span:.4g} "
+                  f"(must exceed {0.05 * span:.4g})")
+            if err <= 0.05 * span:
+                raise AssertionError("model check cannot see a decode that "
+                                     "reads one wrong block: its limit is "
+                                     "too loose")
+    for kv_dtype in ("int8", "fp8"):
+        compare_logits(torch, f"{kv_dtype} vs bf16 pool", on[kv_dtype],
+                       on["bf16"], QUANT_GATE[kv_dtype], card)
+
+
+def trace(cfg, n=12):
+    """The 12-request trace: 16-600 prompt tokens, a shared 64-token
+    system prefix on every other request."""
     import numpy as np
-    from repro_torch.kernels.flash_decode.flash_decode import \
-        paged_flash_decode
+    rng = np.random.default_rng(0)
+    system = rng.integers(1, cfg.vocab_size, size=64)
+    reqs = []
+    for i in range(n):
+        p = rng.integers(1, cfg.vocab_size, size=int(rng.integers(16, 601)))
+        if i % 2:
+            p = np.concatenate([system, p])[:600]
+        reqs.append(p)
+    return reqs
+
+
+def launch_counts():
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        flash_decode, paged_flash_decode)
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
+    return {"paged_flash_decode": paged_flash_decode,
+            "paged_flash_prefill": paged_flash_prefill,
+            "flash_decode": flash_decode}
+
+
+def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto"):
+    """One path of the main path: ServingEngine over the kernels on the
+    12-request trace, launch counts set to 0 before and read after."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.sampler import SamplerConfig
 
     eng = ServingEngine(
         cfg, params, max_batch=B, max_len=MAX_LEN, eos_id=-1,
         block_size=BS, prefill_chunk=CHUNK, attn_kernel="auto", seed=0,
-        sampler=SamplerConfig(temperature=0.8, top_k=50), device="cuda")
-    rng = np.random.default_rng(0)
-    system = rng.integers(1, cfg.vocab_size, size=64)
-    reqs = []
-    for i in range(12):
-        n = int(rng.integers(16, 601))
-        p = rng.integers(1, cfg.vocab_size, size=n)
-        if i % 2:
-            p = np.concatenate([system, p])[:600]
-        reqs.append(p)
-    # Both prefill forms are certain: the first admission into the empty
-    # pool is a first chunk, and a prompt longer than one chunk (or a
-    # prefix-cache hit, asserted below) continues from cached context.
+        sampler=SamplerConfig(temperature=0.8, top_k=50), device="cuda",
+        kv_dtype=kv_dtype, mode=mode)
+    reqs = trace(cfg)
+    # Both prefill forms are certain on the continuous path: the first
+    # admission into the empty pool is a first chunk, and a prompt longer
+    # than one chunk (or a prefix-cache hit, asserted below) continues from
+    # cached context.
     if max(len(p) for p in reqs) <= CHUNK:
         raise AssertionError("no prompt spans more than one prefill chunk")
     torch.cuda.reset_peak_memory_stats()
-    paged_flash_decode.launches = 0
-    paged_flash_prefill.launches = 0
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     uids = [eng.submit(p, max_new_tokens=32) for p in reqs]
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_flash_decode": paged_flash_decode.launches,
-                "paged_flash_prefill": paged_flash_prefill.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     s = eng.stats
     L = cfg.num_layers
+    what = f"engine ({eng.mode}, {kv_dtype})"
     for u in uids:
         toks = out[u]
         if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"request {u} returned {toks}")
-    if launches["paged_flash_decode"] != L * s.decode_steps or \
-            s.decode_steps == 0:
-        raise AssertionError(f"decode launches {launches} vs "
-                             f"{s.decode_steps} steps x {L} layers")
-    if launches["paged_flash_prefill"] != L * s.prefill_chunks:
-        raise AssertionError(f"prefill launches {launches} vs "
-                             f"{s.prefill_chunks} chunks x {L} layers")
-    if s.cached_prompt_tokens <= 0:
-        raise AssertionError("no prefix-cache hits on the shared prefix")
-    print(f"engine [{card}]: {len(uids)} requests, wall {wall:.2f} s; "
+            raise AssertionError(f"{what}: request {u} returned {toks}")
+    if eng.mode == "wave":
+        # Every decode step but each wave's last (which only samples);
+        # waves group the requests by prompt length, B at most.
+        sizes = {}
+        for p in reqs:
+            sizes[len(p)] = sizes.get(len(p), 0) + 1
+        waves = sum(-(-n // B) for n in sizes.values())
+        want = {"flash_decode": L * (s.decode_steps - waves),
+                "paged_flash_decode": 0, "paged_flash_prefill": 0}
+        if launches != want or want["flash_decode"] <= 0:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+    else:
+        want = {"paged_flash_decode": L * s.decode_steps,
+                "paged_flash_prefill": L * s.prefill_chunks,
+                "flash_decode": 0}
+        if launches != want or s.decode_steps == 0:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+        if s.cached_prompt_tokens <= 0:
+            raise AssertionError(f"{what}: no prefix-cache hits on the "
+                                 f"shared prefix")
+    kv = "" if eng.mode == "wave" else (
+        f"; KV block {s.kv_block_bytes} B, peak pool "
+        f"{s.peak_pool_bytes / 2**20:.1f} MiB")
+    print(f"{what} [{card}]: {len(uids)} requests, wall {wall:.2f} s; "
           f"decode {s.tokens_per_s:.1f} tok/s ({s.decode_steps} steps, "
           f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step); prefill "
           f"{s.prefill_tokens_per_s:.1f} tok/s ({s.prefill_tokens} tokens, "
           f"{s.prefill_chunks} chunks); cached prompt tokens "
           f"{s.cached_prompt_tokens}; preemptions {s.preemptions}; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"engine launches: {launches}")
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{kv}")
+    print(f"{what} launches [{card}]: {launches}")
     return launches, eng
+
+
+def run_same_bytes_pair(torch, cfg, params, card):
+    """A bf16 pool and an int8 pool of the same device bytes (the bf16
+    pool holds 8 lanes of ~600-token requests), 16 lanes, 24 requests:
+    the SCLAD pool's extra blocks become extra live lanes."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    rng = np.random.default_rng(2)
+    reqs = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(500, 601)))
+            for _ in range(24)]
+    bf16_blocks = 8 * (-(-(600 + 32) // BS))
+    rows = {}
+    wrappers = launch_counts()
+    for kv_dtype in ("bf16", "int8"):
+        probe = ServingEngine(cfg, params, max_batch=1, max_len=BS,
+                              block_size=BS, num_blocks=1, device="cuda",
+                              kv_dtype=kv_dtype)
+        block_bytes = probe.kv_block_bytes
+        del probe
+        if kv_dtype == "bf16":
+            pool_bytes = bf16_blocks * block_bytes
+        blocks = pool_bytes // block_bytes
+        eng = ServingEngine(
+            cfg, params, max_batch=16, max_len=MAX_LEN, eos_id=-1,
+            block_size=BS, num_blocks=blocks, prefill_chunk=CHUNK,
+            attn_kernel="auto", seed=0, kv_dtype=kv_dtype, device="cuda",
+            sampler=SamplerConfig(temperature=0.8, top_k=50))
+        for w in wrappers.values():
+            w.launches = 0
+        for p in reqs:
+            eng.submit(p, max_new_tokens=32)
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        s = eng.stats
+        if len(out) != len(reqs) or any(len(t) != 32 for t in out.values()):
+            raise AssertionError(f"same-bytes {kv_dtype} run lost requests")
+        rows[kv_dtype] = s
+        print(f"same-bytes pair {kv_dtype} [{card}]: {blocks} blocks x "
+              f"{s.kv_block_bytes} B = {blocks * s.kv_block_bytes / 2**20:.1f}"
+              f" MiB pool; mean live lanes {s.mean_active_requests:.2f} "
+              f"(peak {s.peak_decode_lanes}); preemptions {s.preemptions}; "
+              f"decode {s.tokens_per_s:.1f} tok/s ({s.decode_steps} steps, "
+              f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step); wall "
+              f"{wall:.2f} s; launches {launches}")
+    if rows["int8"].peak_decode_lanes <= rows["bf16"].peak_decode_lanes:
+        raise AssertionError("the int8 pool held no more lanes than the "
+                             "bf16 pool of the same bytes")
 
 
 def profile_decode(torch, eng, cfg, card):
@@ -415,6 +620,14 @@ def profile_decode(torch, eng, cfg, card):
         print(f"  {ms / steps:8.3f} ms/step  {name[:90]}")
 
 
+def kernel_entry(name, source, replaces, launches, r, err=None):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=r["err"] if err is None
+                else err, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -432,60 +645,92 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. Build.
+    # 2. Build, and what ptxas reports: registers (fewest-most over the
+    # template instances) and spill bytes.
     t0 = time.perf_counter()
     secs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s "
+    print(f"build [{card}]: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())})")
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log").read_text()
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
+        print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+              f"registers, {spills} bytes of spills")
 
     # 3. Kernel checks.
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dec = check_decode(torch, cfg, gen)
-    pre = check_prefill(torch, cfg, gen)
-    for name, r in [("paged_flash_decode", dec)] + [
-            (f"paged_flash_prefill[{k}]", v) for k, v in pre.items()]:
+    dec = {kd: check_decode(torch, cfg, gen, kd)
+           for kd in ("bf16", "int8", "fp8")}
+    pre = {kd: check_prefill(torch, cfg, gen, kd)
+           for kd in ("bf16", "int8", "fp8")}
+    dense = check_dense_decode(torch, cfg, gen)
+    rows = [(f"paged_flash_decode[{kd}]", r) for kd, r in dec.items()]
+    rows += [(f"paged_flash_prefill[{kd}, {k}]", v)
+             for kd, res in pre.items() for k, v in res.items()]
+    rows.append(("flash_decode[dense]", dense))
+    for name, r in rows:
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
 
-    # 4. Model check, full width.
+    # 4. Model checks, full width.
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     print(f"params: {M.param_count(cfg) / 1e9:.3f} B bf16 in "
           f"{time.perf_counter() - t0:.1f} s")
-    check_model(torch, cfg, params)
+    check_model(torch, cfg, params, card)
 
-    # 5. The main path, then a profile of its decode step.
-    launches, eng = run_engine(torch, cfg, params, card)
-    profile_decode(torch, eng, cfg, card)
+    # 5. The main path, one run per pool encoding and mode, then the
+    # same-bytes pair and a profile of the bf16 engine's decode step.
+    launches = {}
+    for kv_dtype, mode in (("bf16", "auto"), ("int8", "auto"),
+                           ("fp8", "auto"), ("bf16", "wave")):
+        launches[kv_dtype, mode], eng = run_engine(
+            torch, cfg, params, card, kv_dtype=kv_dtype, mode=mode)
+        if (kv_dtype, mode) == ("bf16", "auto"):
+            bf16_engine = eng
+    run_same_bytes_pair(torch, cfg, params, card)
+    profile_decode(torch, bf16_engine, cfg, card)
 
-    # 6. Result lines.
-    cont = pre["continuation"]
+    # 6. Result lines.  The quantized bodies report their int8 times (fp8
+    # on the lines above) and the launches of both the int8 and fp8 runs.
+    def runs(kernel, *keys):
+        return sum(launches[k][kernel] for k in keys)
+
+    quant = (("int8", "auto"), ("fp8", "auto"))
+    dec_src = "src/repro_torch/csrc/paged_decode.cu"
+    pre_src = "src/repro_torch/csrc/paged_prefill.cu"
+    dec_tpu = "src/repro/kernels/flash_decode/flash_decode.py"
+    pre_tpu = "src/repro/kernels/flash_prefill/flash_prefill.py"
     kernels = [
-        dict(name="paged_flash_decode", route="cuda",
-             source="src/repro_torch/csrc/paged_decode.cu",
-             replaces="src/repro/kernels/flash_decode/flash_decode.py:183",
-             launches=launches["paged_flash_decode"],
-             max_abs_err=dec["err"], ms=dec["ms"],
-             plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
-             bound_by=dec["bound_by"], library_ms=dec["library_ms"]),
-        dict(name="paged_flash_prefill", route="cuda",
-             source="src/repro_torch/csrc/paged_prefill.cu",
-             replaces="src/repro/kernels/flash_prefill/flash_prefill.py:231",
-             launches=launches["paged_flash_prefill"],
-             max_abs_err=max(r["err"] for r in pre.values()),
-             ms=cont["ms"], plain_ms=cont["plain_ms"],
-             bound_ms=cont["bound_ms"], bound_by=cont["bound_by"],
-             library_ms=cont["library_ms"]),
+        kernel_entry("paged_flash_decode", dec_src, f"{dec_tpu}:183",
+                     runs("paged_flash_decode", ("bf16", "auto")),
+                     dec["bf16"]),
+        kernel_entry("paged_flash_decode[int8/fp8 pool]", dec_src,
+                     f"{dec_tpu}:151",
+                     runs("paged_flash_decode", *quant), dec["int8"],
+                     err=max(dec["int8"]["err"], dec["fp8"]["err"])),
+        kernel_entry("paged_flash_prefill", pre_src, f"{pre_tpu}:231",
+                     runs("paged_flash_prefill", ("bf16", "auto")),
+                     pre["bf16"]["continuation"],
+                     err=max(r["err"] for r in pre["bf16"].values())),
+        kernel_entry("paged_flash_prefill[int8/fp8 pool]", pre_src,
+                     f"{pre_tpu}:202",
+                     runs("paged_flash_prefill", *quant),
+                     pre["int8"]["continuation"],
+                     err=max(r["err"] for kd in ("int8", "fp8")
+                             for r in pre[kd].values())),
+        kernel_entry("flash_decode", "src/repro_torch/csrc/dense_decode.cu",
+                     f"{dec_tpu}:78", runs("flash_decode", ("bf16", "wave")),
+                     dense),
     ]
     for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launches on the main "
+                                 f"path")
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{k['name']}: {key} is {v}")

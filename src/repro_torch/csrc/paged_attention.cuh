@@ -1,13 +1,16 @@
-// Shared pieces of the two paged attention kernels (paged_decode.cu,
-// paged_prefill.cu): element conversions, warp reductions, the shared-
-// memory layout of one thread block, and the step that folds one tile of
-// up to 32 keys into a block's fp32 online-softmax state.
+// Shared pieces of the attention kernels (paged_decode.cu, paged_prefill.cu,
+// dense_decode.cu): element conversions, the SCLAD payload codecs, warp
+// reductions, the shared-memory layout of one thread block, the tile
+// loaders, and the step that folds one tile of up to 32 keys into a
+// block's fp32 online-softmax state.
 //
 // A thread block owns ROWS query rows (the GQA heads that share one kv
 // head, times some query positions) and walks its keys tile by tile:
-//   1. the tile's K and V rows are loaded to shared memory as fp32 (each
+//   1. a loader puts the tile's K and V rows in shared memory as fp32 (each
 //      key row's element offset is resolved by the caller, through the
-//      block table for pool keys);
+//      block table for pool keys): exact values of a bf16/fp32 source, a
+//      SCLAD payload dequantized as models/kv_quant.py does, or a chunk's
+//      own rows fake-quantized;
 //   2. scores s = q . k for every (row, key) of the tile, -1e30 where the
 //      caller's mask says the key is not visible;
 //   3. one warp per row updates the running max m and denominator l and
@@ -17,11 +20,20 @@
 // This loop replaces the sequential innermost grid axis and VMEM scratch
 // of the TPU kernels: here nothing carries from one thread block to
 // another.
+//
+// The SCLAD arithmetic must match models/kv_quant.py bit for bit, so the
+// build keeps IEEE division (no --use_fast_math), int8 rounds with rintf
+// (half to even, as torch.round) and fp8 converts with round to nearest
+// even, saturating (|x / scale| never reaches 464, where torch's cast
+// would give NaN, so the two agree).
 #pragma once
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -29,9 +41,17 @@ namespace repro_torch {
 constexpr float kNegInf = -1e30f;
 constexpr int kTileKeys = 32;  // keys per tile: one per lane of a warp
 
+using fp8_e4m3 = __nv_fp8_e4m3;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(fp8_e4m3 x) {
+  return static_cast<float>(x);  // exact: every e4m3 value is a half
 }
 
 template <typename T>
@@ -43,6 +63,46 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even, as torch does
 }
 
+// `x` rounded to the compute type T and widened back: the cast chain of
+// kv_quant.dequantize(..., dtype=T).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// SCLAD payload codecs (kv_quant.quantize): the payload type, its qmax,
+// and the encoding of an already scaled value.
+template <typename P>
+struct Codec;
+template <>
+struct Codec<int8_t> {
+  static constexpr double kQmax = 127.0;
+  __device__ static int8_t encode(float q) {
+    return static_cast<int8_t>(rintf(q));  // |q| <= 127.00002: no clip
+  }
+};
+template <>
+struct Codec<fp8_e4m3> {
+  static constexpr double kQmax = 448.0;
+  __device__ static fp8_e4m3 encode(float q) {
+    fp8_e4m3 r;
+    r.__x = __nv_cvt_float_to_fp8(q, __NV_SATFINITE, __NV_E4M3);
+    return r;
+  }
+};
+
+template <typename P>
+constexpr bool kQuantized =
+    std::is_same<P, int8_t>::value || std::is_same<P, fp8_e4m3>::value;
+
+// amax * float32(1 / qmax), or 1 for an all-zero row: kv_quant.quantize's
+// scale, bit for bit (a multiply by the rounded constant, not a division).
+template <typename P>
+__device__ __forceinline__ float row_scale(float amax) {
+  constexpr float kInv = static_cast<float>(1.0 / Codec<P>::kQmax);
+  return amax > 0.f ? amax * kInv : 1.f;
+}
+
 // Two neighbouring elements as fp32 (one 4-byte load for bf16, one 8-byte
 // load for fp32; rows are at least that aligned since D is even).
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
@@ -50,6 +110,27 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+// One payload byte as fp32 (exact).
+template <typename P>
+__device__ __forceinline__ float byte_to_float(uint32_t byte);
+template <>
+__device__ __forceinline__ float byte_to_float<int8_t>(uint32_t byte) {
+  return static_cast<float>(static_cast<int8_t>(byte & 0xffu));
+}
+template <>
+__device__ __forceinline__ float byte_to_float<fp8_e4m3>(uint32_t byte) {
+  fp8_e4m3 x;
+  x.__x = static_cast<__nv_fp8_storage_t>(byte & 0xffu);
+  return to_float(x);
+}
+// Four neighbouring one-byte payload elements as fp32 (one 4-byte load;
+// D is a multiple of 4, so rows are 4-byte aligned).
+template <typename P>
+__device__ __forceinline__ float4 load_quad(const P* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float4(byte_to_float<P>(w), byte_to_float<P>(w >> 8),
+                     byte_to_float<P>(w >> 16), byte_to_float<P>(w >> 24));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -89,25 +170,18 @@ struct TileSmem {
         corr(l + ROWS) {}
 };
 
-// Fold one tile of `nk` keys into the block's softmax state.  `row_off[t]`
-// is the element offset of key t's D-vector in kbase/vbase.  `visible(r,
-// t)` masks (row, key) pairs.  `acc` holds this thread's elements e = tid
-// + i * NT of the row-major (ROWS, D) accumulator.  Starts by reading
-// row_off (written by the caller before a __syncthreads) and ends with a
-// __syncthreads, so the caller may overwrite row_off right after.
-template <int D, int ROWS, int NT, typename KT, typename Visible>
-__device__ __forceinline__ void attend_tile(const TileSmem<D, ROWS>& sm,
-                                            const KT* __restrict__ kbase,
-                                            const KT* __restrict__ vbase,
-                                            const long long* row_off, int nk,
-                                            int rows, Visible visible,
-                                            float (&acc)[ROWS * D / NT]) {
+// ---- Tile loaders: K/V rows t < nk of a tile into sm.k / sm.v (fp32).
+// `row_off[t]` is the element offset of key t's D-vector in the source.
+
+// bf16 or fp32 rows, exact.
+template <int D, int ROWS, int NT, typename KT>
+__device__ __forceinline__ void load_tile(const TileSmem<D, ROWS>& sm,
+                                          const KT* __restrict__ kbase,
+                                          const KT* __restrict__ vbase,
+                                          const long long* row_off, int nk) {
   constexpr int kStride = TileSmem<D, ROWS>::kStride;
   constexpr int kPairs = D / 2;
-  const int tid = threadIdx.x;
-
-  // 1. K/V rows of the tile -> shared memory (fp32).
-  for (int e = tid; e < nk * kPairs; e += NT) {
+  for (int e = threadIdx.x; e < nk * kPairs; e += NT) {
     const int t = e / kPairs, c = 2 * (e % kPairs);
     const long long off = row_off[t] + c;
     const float2 kk = load_pair(kbase + off);
@@ -117,6 +191,109 @@ __device__ __forceinline__ void attend_tile(const TileSmem<D, ROWS>& sm,
     sm.v[t * kStride + c] = vv.x;
     sm.v[t * kStride + c + 1] = vv.y;
   }
+}
+
+// SCLAD pool rows: payload * scale in fp32, rounded to the compute type CT
+// (kv_quant.dequantize(payload, scale, CT)).  The (N, bs, Hk) scales share
+// the pool's row index, so row t's scale sits at row_off[t] / D.
+template <int D, int ROWS, int NT, typename CT, typename P>
+__device__ __forceinline__ void load_tile_dequant(
+    const TileSmem<D, ROWS>& sm, const P* __restrict__ kbase,
+    const P* __restrict__ vbase, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const long long* row_off, int nk) {
+  constexpr int kStride = TileSmem<D, ROWS>::kStride;
+  constexpr int kQuads = D / 4;
+  for (int e = threadIdx.x; e < nk * kQuads; e += NT) {
+    const int t = e / kQuads, c = 4 * (e % kQuads);
+    const long long row = row_off[t];
+    const float ks = kscale[row / D], vs = vscale[row / D];
+    const float4 kk = load_quad(kbase + row + c);
+    const float4 vv = load_quad(vbase + row + c);
+    float* kd = sm.k + t * kStride + c;
+    float* vd = sm.v + t * kStride + c;
+    kd[0] = round_to<CT>(kk.x * ks);
+    kd[1] = round_to<CT>(kk.y * ks);
+    kd[2] = round_to<CT>(kk.z * ks);
+    kd[3] = round_to<CT>(kk.w * ks);
+    vd[0] = round_to<CT>(vv.x * vs);
+    vd[1] = round_to<CT>(vv.y * vs);
+    vd[2] = round_to<CT>(vv.z * vs);
+    vd[3] = round_to<CT>(vv.w * vs);
+  }
+}
+
+// Fake-quantize rows t < nk of the tile in place (kv_quant.fake_quant in
+// the compute type CT): one warp per row, amax over D by a warp reduction.
+// The caller has loaded the tile and synchronized.
+template <int D, int ROWS, int NT, typename CT, typename P>
+__device__ __forceinline__ void fake_quant_tile(const TileSmem<D, ROWS>& sm,
+                                                int nk) {
+  constexpr int kStride = TileSmem<D, ROWS>::kStride;
+  constexpr int kPer = D / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t < 2 * nk; t += NT / 32) {
+    float* row = (t < nk ? sm.k + t * kStride : sm.v + (t - nk) * kStride);
+    float x[kPer];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      x[i] = row[lane + 32 * i];
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    const float scale = row_scale<P>(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      row[lane + 32 * i] =
+          round_to<CT>(to_float(Codec<P>::encode(x[i] / scale)) * scale);
+  }
+}
+
+// Store one (D,) row of compute-type values `src` into a pool row `dst`,
+// by one warp: bf16 pools take the value rounded to bf16; SCLAD pools
+// take kv_quant.quantize's payload, and lane 0 writes the row's scale.
+template <int D, typename P, typename T>
+__device__ __forceinline__ void store_row(P* __restrict__ dst,
+                                          float* __restrict__ dst_scale,
+                                          const T* __restrict__ src,
+                                          int lane) {
+  constexpr int kPer = D / 32;
+  if constexpr (kQuantized<P>) {
+    float x[kPer];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      x[i] = to_float(src[lane + 32 * i]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    const float scale = row_scale<P>(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      dst[lane + 32 * i] = Codec<P>::encode(x[i] / scale);
+    if (lane == 0) *dst_scale = scale;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      dst[lane + 32 * i] = from_float<P>(to_float(src[lane + 32 * i]));
+  }
+}
+
+// Fold one tile of `nk` keys into the block's softmax state.  `load()`
+// fills sm.k / sm.v for keys t < nk (it may synchronize inside, and reads
+// whatever offsets the caller wrote before its __syncthreads).
+// `visible(r, t)` masks (row, key) pairs.  `acc` holds this thread's
+// elements e = tid + i * NT of the row-major (ROWS, D) accumulator.  Ends
+// with a __syncthreads, so the caller may overwrite its offsets right
+// after.
+template <int D, int ROWS, int NT, typename Load, typename Visible>
+__device__ __forceinline__ void attend_tile(const TileSmem<D, ROWS>& sm,
+                                            Load load, int nk, int rows,
+                                            Visible visible,
+                                            float (&acc)[ROWS * D / NT]) {
+  constexpr int kStride = TileSmem<D, ROWS>::kStride;
+  const int tid = threadIdx.x;
+
+  // 1. K/V rows of the tile -> shared memory (fp32).
+  load();
   __syncthreads();
 
   // 2. Scores.
@@ -177,6 +354,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
   if (err == cudaSuccess) done = true;
   return err;
 }
+
+// Pool payload codes of the C entry points.
+enum KvKind : int { kKvBf16 = 0, kKvInt8 = 1, kKvFp8 = 2 };
 
 }  // namespace repro_torch
 

@@ -1,10 +1,11 @@
-// Paged flash-prefill for Hopper (sm_90a), with the chunk's K/V scatter.
+// Paged flash-prefill for Hopper (sm_90a), with the chunk's K/V scatter,
+// bf16 or SCLAD (int8/fp8) pool.
 //
-// Replaces the TPU kernel `paged_flash_prefill` (body `_prefill_kernel`) of
-// src/repro/kernels/flash_prefill/flash_prefill.py.  One prompt chunk per
-// row: queries (B, S, H, D), the chunk's own K/V (B, S, Hk, D), S = prefix +
-// P with the P prompt tokens LEFT-padded, lengths[b] real tokens, start[b]
-// positions already cached.
+// Replaces the TPU kernel `paged_flash_prefill` (body `_prefill_kernel`,
+// fp and `kv_dtype` branches) of src/repro/kernels/flash_prefill/
+// flash_prefill.py.  One prompt chunk per row: queries (B, S, H, D), the
+// chunk's own K/V (B, S, Hk, D), S = prefix + P with the P prompt tokens
+// LEFT-padded, lengths[b] real tokens, start[b] positions already cached.
 //
 // Phase 1, attention (fp32 online softmax, paged_attention.cuh): the
 // cached context [0, start[b]) is read through the row's block table, then
@@ -15,13 +16,26 @@
 //
 // Phase 2, the scatter: position start + j takes padded chunk row j (patch
 // prefix) or j + pad (prompt tokens), for j < prefix + lengths[b], stored
-// directly through the table.  The TPU kernel's one-hot (bs, S) placement
-// matmul and its read-then-write grid order are TPU devices; here the
-// stores are plain indexed stores, and the pool bytes equal the plain
-// version's bit for bit.  The blocks of query tile 0 do the stores.  There
-// is no race: the stores touch only positions >= start, every read of the
-// pool is of a position < start, and the engine's copy-on-write barrier
-// makes every block a row writes exclusive to that row.
+// directly through the table, one warp per (row, kv head) D-vector.  The
+// TPU kernel's one-hot (bs, S) placement matmul and its read-then-write
+// grid order are TPU devices; here the stores are plain indexed stores,
+// and the pool bytes equal the plain version's bit for bit.  The blocks of
+// query tile 0 do the stores.  There is no race: the stores touch only
+// positions >= start, every read of the pool is of a position < start,
+// and the engine's copy-on-write barrier makes every block a row writes
+// exclusive to that row.  Rows past the chunk's length are not stored, so
+// they keep their old payload and their old scale.
+//
+// SCLAD pool (int8 or fp8 payload + fp32 (N, bs, Hk) scales).  Context
+// rows are dequantized on load (payload * scale in fp32, rounded to q's
+// type).  The chunk's own K/V tile is fake-quantized in shared memory
+// right after it is loaded — one warp per key row computes the row's amax
+// over D and round-trips it through the codec — so a key scores the same
+// in-chunk as it will when a later chunk or decode step reads it from the
+// pool.  Every query tile of a row redoes this for the chunk keys it
+// reads (cheap next to the scores).  The scatter quantizes each stored row
+// the same way and writes its payload and, from lane 0, its scale.  All of
+// it is kv_quant.quantize / fake_quant operation for operation.
 //
 // Design.  One thread block per (query tile, kv head, row).  A tile holds
 // 64 query rows: 64 / rep query positions times the rep query heads that
@@ -29,13 +43,14 @@
 // chunk passes no start (the context phase is skipped).
 //
 // Bound on this card.  The work must read the context K/V,
-// 2 * sum_b(start_b) * Hk * D * 2 bytes, plus the chunk's q, K, V and the
-// output, and write the new K/V; it does 4 * H * D operations per visible
-// (query, key) pair.  At the main path's shapes (chunks of 128 tokens over
-// a few hundred cached positions) that is ~10-100 operations per byte:
-// bandwidth-bound on paper.  This version re-reads the context once per
-// query tile (from L2) and multiplies on the CUDA cores in fp32; tensor
-// cores (wgmma) and TMA loads are later work.
+// 2 * sum_b(start_b) * Hk * (D * payload_bytes + scale_bytes) bytes, plus
+// the chunk's q, K, V and the output, and write the new K/V (and scales);
+// it does 4 * H * D operations per visible (query, key) pair.  At the main
+// path's shapes (chunks of 128 tokens over a few hundred cached positions)
+// that is ~10-100 operations per byte: bandwidth-bound on paper.  This
+// version re-reads the context once per query tile (from L2) and multiplies
+// on the CUDA cores in fp32; tensor cores (wgmma) and TMA loads are later
+// work.
 #include "paged_attention.cuh"
 
 namespace repro_torch {
@@ -44,12 +59,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 64;  // query rows per block: positions * rep
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 __global__ void __launch_bounds__(kThreads)
     paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
-                         const T* __restrict__ v_new,
-                         __nv_bfloat16* __restrict__ k_pool,
-                         __nv_bfloat16* __restrict__ v_pool,
+                         const T* __restrict__ v_new, P* __restrict__ k_pool,
+                         P* __restrict__ v_pool, float* __restrict__ k_scale,
+                         float* __restrict__ v_scale,
                          const int* __restrict__ lengths,
                          const int* __restrict__ starts,
                          const int* __restrict__ tables, T* __restrict__ out,
@@ -95,7 +110,14 @@ __global__ void __launch_bounds__(kThreads)
       row_off[threadIdx.x] = ((blk * bs + pos % bs) * Hk + h) * D;
     }
     __syncthreads();
-    attend_tile<D, kRows, kThreads>(sm, k_pool, v_pool, row_off, nk, rows,
+    auto load = [&]() {
+      if constexpr (kQuantized<P>)
+        load_tile_dequant<D, kRows, kThreads, T>(sm, k_pool, v_pool, k_scale,
+                                                 v_scale, row_off, nk);
+      else
+        load_tile<D, kRows, kThreads>(sm, k_pool, v_pool, row_off, nk);
+    };
+    attend_tile<D, kRows, kThreads>(sm, load, nk, rows,
                                     [](int, int) { return true; }, acc);
   }
 
@@ -108,8 +130,15 @@ __global__ void __launch_bounds__(kThreads)
       row_off[threadIdx.x] =
           ((static_cast<long long>(b) * S + k0 + threadIdx.x) * Hk + h) * D;
     __syncthreads();
+    auto load = [&]() {
+      load_tile<D, kRows, kThreads>(sm, k_new, v_new, row_off, nk);
+      if constexpr (kQuantized<P>) {
+        __syncthreads();
+        fake_quant_tile<D, kRows, kThreads, T, P>(sm, nk);
+      }
+    };
     attend_tile<D, kRows, kThreads>(
-        sm, k_new, v_new, row_off, nk, rows,
+        sm, load, nk, rows,
         [=](int r, int t) {
           const int kj = k0 + t, qi = q0 + r / rep;
           return kj <= qi && (kj < prefix || kj >= prefix + pad);
@@ -128,69 +157,99 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // Phase 2: the chunk's left-compacted K/V into the pool.
+  // Phase 2: the chunk's left-compacted K/V into the pool, a warp a row.
   if (qt == 0) {
     const int n_w = prefix + length;
-    for (int e = threadIdx.x; e < n_w * D; e += kThreads) {
-      const int j = e / D, d = e % D;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int j = warp; j < n_w; j += kThreads / 32) {
       const int src_row = j < prefix ? j : j + pad;
       const int dest = start + j;
       const long long blk = table[min(dest / bs, T_ - 1)];
-      const long long dst = ((blk * bs + dest % bs) * Hk + h) * D + d;
+      const long long dst = (blk * bs + dest % bs) * Hk + h;  // (N, bs, Hk) row
       const long long src =
-          ((static_cast<long long>(b) * S + src_row) * Hk + h) * D + d;
-      k_pool[dst] = from_float<__nv_bfloat16>(to_float(k_new[src]));
-      v_pool[dst] = from_float<__nv_bfloat16>(to_float(v_new[src]));
+          ((static_cast<long long>(b) * S + src_row) * Hk + h) * D;
+      store_row<D>(k_pool + dst * D, k_scale ? k_scale + dst : nullptr,
+                   k_new + src, lane);
+      store_row<D>(v_pool + dst * D, v_scale ? v_scale + dst : nullptr,
+                   v_new + src, lane);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename P>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
-           void* v_pool, const int* lengths, const int* starts,
-           const int* tables, void* out, int B, int S, int H, int Hk, int bs,
-           int T_, int prefix, cudaStream_t stream) {
+           void* v_pool, float* k_scale, float* v_scale, const int* lengths,
+           const int* starts, const int* tables, void* out, int B, int S,
+           int H, int Hk, int bs, int T_, int prefix, cudaStream_t stream) {
   static bool smem_set = false;
   const size_t smem = TileSmem<D, kRows>::kFloats * sizeof(float);
-  cudaError_t err = allow_smem(paged_prefill_kernel<T, D>, smem, smem_set);
+  cudaError_t err = allow_smem(paged_prefill_kernel<T, D, P>, smem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const int qpos = kRows / (H / Hk);
   const dim3 grid((S + qpos - 1) / qpos, Hk, B);
-  paged_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<T, D, P><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<__nv_bfloat16*>(k_pool),
-      static_cast<__nv_bfloat16*>(v_pool), lengths, starts, tables,
+      static_cast<const T*>(v_new), static_cast<P*>(k_pool),
+      static_cast<P*>(v_pool), k_scale, v_scale, lengths, starts, tables,
       static_cast<T*>(out), S, H, Hk, bs, T_, prefix, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_kv(int kv_kind, const void* q, const void* k_new,
+              const void* v_new, void* k_pool, void* v_pool, float* k_scale,
+              float* v_scale, const int* lengths, const int* starts,
+              const int* tables, void* out, int B, int S, int H, int Hk,
+              int bs, int T_, int prefix, cudaStream_t s) {
+  switch (kv_kind) {
+    case kKvBf16:
+      return launch<T, D, __nv_bfloat16>(q, k_new, v_new, k_pool, v_pool,
+                                         nullptr, nullptr, lengths, starts,
+                                         tables, out, B, S, H, Hk, bs, T_,
+                                         prefix, s);
+    case kKvInt8:
+      return launch<T, D, int8_t>(q, k_new, v_new, k_pool, v_pool, k_scale,
+                                  v_scale, lengths, starts, tables, out, B, S,
+                                  H, Hk, bs, T_, prefix, s);
+    case kKvFp8:
+      return launch<T, D, fp8_e4m3>(q, k_new, v_new, k_pool, v_pool, k_scale,
+                                    v_scale, lengths, starts, tables, out, B,
+                                    S, H, Hk, bs, T_, prefix, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // q: (B, S, H, D); k_new, v_new: (B, S, Hk, D), all bf16 (q_bf16 = 1) or
-// fp32; pools: (N, bs, Hk, D) bf16, updated in place; lengths: (B,) int32;
-// starts: (B,) int32, or null for a first chunk; tables: (B, T) int32;
-// out: (B, S, H * D) in q's type.  Returns a cudaError_t code.
+// fp32; pools: (N, bs, Hk, D) bf16 (kv_kind 0), int8 (1) or fp8 e4m3 (2),
+// updated in place; k_scale, v_scale: (N, bs, Hk) fp32, updated in place,
+// for kv_kind 1-2, else null; lengths: (B,) int32; starts: (B,) int32, or
+// null for a first chunk; tables: (B, T) int32; out: (B, S, H * D) in q's
+// type.  Returns a cudaError_t code.
 extern "C" int repro_paged_prefill(const void* q, const void* k_new,
                                    const void* v_new, void* k_pool,
-                                   void* v_pool, const int* lengths,
+                                   void* v_pool, float* k_scale,
+                                   float* v_scale, const int* lengths,
                                    const int* starts, const int* tables,
                                    void* out, int B, int S, int H, int Hk,
                                    int D, int bs, int T, int prefix,
-                                   int q_bf16, void* stream) {
+                                   int q_bf16, int kv_kind, void* stream) {
   using namespace repro_torch;
   if (Hk <= 0 || H % Hk != 0 || kRows % (H / Hk) != 0 || bs <= 0 || T <= 0 ||
-      S <= 0 || prefix < 0 || prefix > S)
+      S <= 0 || prefix < 0 || prefix > S ||
+      (kv_kind != kKvBf16 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64 && q_bf16)
-    return launch<__nv_bfloat16, 64>(q, k_new, v_new, k_pool, v_pool, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<__nv_bfloat16, 64>(kv_kind, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
   if (D == 128 && q_bf16)
-    return launch<__nv_bfloat16, 128>(q, k_new, v_new, k_pool, v_pool, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<__nv_bfloat16, 128>(kv_kind, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
   if (D == 64 && !q_bf16)
-    return launch<float, 64>(q, k_new, v_new, k_pool, v_pool, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<float, 64>(kv_kind, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
   if (D == 128 && !q_bf16)
-    return launch<float, 128>(q, k_new, v_new, k_pool, v_pool, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<float, 128>(kv_kind, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
@@ -29,14 +31,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
+    "dense_decode": "dense_decode.cu",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> (C entry point, argument types).  Every pointer and the
 #: stream are c_void_p: a bare Python int would be cut to 32 bits.
 ENTRY_POINTS = {
-    "paged_decode": ("repro_paged_decode", [_P] * 6 + [_I] * 7 + [_P]),
-    "paged_prefill": ("repro_paged_prefill", [_P] * 9 + [_I] * 9 + [_P]),
+    "paged_decode": ("repro_paged_decode", [_P] * 8 + [_I] * 8 + [_P]),
+    "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 10 + [_P]),
+    "dense_decode": ("repro_dense_decode", [_P] * 5 + [_I] * 6 + [_P]),
 }
+#: Pool payload dtype -> the ``kv_kind`` code of the paged entry points.
+KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 HEADERS = ("paged_attention.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -126,6 +132,26 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def kv_kind(what: str, k_pool, kv_scales) -> int:
+    """The ``kv_kind`` code of a pool for the paged entry points; raises
+    unless the pool is bf16 without scales, or int8 / float8_e4m3fn with
+    contiguous fp32 (N, bs, Hk) scales on the pool's device."""
+    kind = KV_KINDS.get(k_pool.dtype)
+    if kind is None:
+        raise TypeError(f"{what}: pool dtype {k_pool.dtype} not bf16, int8 "
+                        f"or float8_e4m3fn")
+    if (kind != 0) != (kv_scales is not None):
+        raise TypeError(f"{what}: an int8/fp8 pool needs kv_scales, a bf16 "
+                        f"pool takes none")
+    for s in kv_scales or ():
+        if s.dtype != torch.float32 or s.shape != k_pool.shape[:3] \
+                or s.device != k_pool.device or not s.is_contiguous():
+            raise ValueError(f"{what}: scales must be contiguous fp32 "
+                             f"{tuple(k_pool.shape[:3])} on the pool's "
+                             f"device")
+    return kind
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1,74 +1,93 @@
-"""Paged flash-decode: the wrapper of the CUDA kernel in
-``repro_torch/csrc/paged_decode.cu``.
+"""Flash-decode wrappers of the CUDA kernels in ``repro_torch/csrc``.
 
-Port of ``repro.kernels.flash_decode.flash_decode.paged_flash_decode`` (fp
-pool branch).  A CUDA tensor launches the kernel, or the call raises; the
-plain PyTorch version (``ref.paged_decode_ref``) runs only for tensors on
-the CPU.  ``paged_flash_decode.launches`` counts kernel launches.
+* ``paged_flash_decode`` (``csrc/paged_decode.cu``) — port of
+  ``repro.kernels.flash_decode.flash_decode.paged_flash_decode``, for a
+  bf16 pool and for a SCLAD int8/fp8 pool with its fp32 scales;
+* ``flash_decode`` (``csrc/dense_decode.cu``) — port of
+  ``repro.kernels.flash_decode.flash_decode.flash_decode``: decode over
+  dense (B, S, Hk, D) bf16 stripes (the wave path's cache).
+
+A CUDA tensor launches the kernel, or the call raises; the plain PyTorch
+versions (``ref.paged_decode_ref``, ``ref.decode_ref``) run only for
+tensors on the CPU.  ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode.ref import paged_decode_ref
+from repro_torch.kernels.flash_decode.ref import decode_ref, paged_decode_ref
 
 HEAD_DIMS = (64, 128)
 MAX_REP = 32  # query heads per kv head the kernel holds in one block
 
 
-def _check_inputs(q, k_pool, v_pool, lengths, block_tables):
-    B, H, D = q.shape
-    N, bs, Hk, Dk = k_pool.shape
+def _check_q(what, q, Hk, D):
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: q dtype {q.dtype} not bf16/fp32")
+    if q.dim() != 3 or q.shape[2] != D or D not in HEAD_DIMS:
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)}, head dim "
+                         f"{D} (D in {HEAD_DIMS})")
+    H = q.shape[1]
+    if Hk <= 0 or H % Hk or H // Hk > MAX_REP:
+        raise ValueError(f"{what}: H={H} Hk={Hk} unsupported")
+
+
+def _check_inputs(q, k_pool, v_pool, lengths, block_tables, kv_scales):
+    B = q.shape[0]
     dev = q.device
     if any(t.device != dev for t in (k_pool, v_pool, lengths, block_tables)):
         raise ValueError("paged_flash_decode: all inputs must be on one device")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"paged_flash_decode: q dtype {q.dtype} not bf16/fp32")
-    if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
-        raise TypeError("paged_flash_decode: the pool must be bf16")
+    if v_pool.dtype != k_pool.dtype or v_pool.shape != k_pool.shape \
+            or k_pool.dim() != 4:
+        raise ValueError("paged_flash_decode: k/v pools must match, "
+                         "(N, bs, Hk, D)")
+    _check_q("paged_flash_decode", q, k_pool.shape[2], k_pool.shape[3])
+    kind = _build.kv_kind("paged_flash_decode", k_pool, kv_scales)
     if lengths.dtype != torch.int32 or block_tables.dtype != torch.int32:
         raise TypeError("paged_flash_decode: lengths/tables must be int32")
-    if v_pool.shape != k_pool.shape or Dk != D or D not in HEAD_DIMS:
-        raise ValueError(f"paged_flash_decode: bad shapes q {tuple(q.shape)} "
-                         f"pool {tuple(k_pool.shape)} (D in {HEAD_DIMS})")
-    if H % Hk or H // Hk > MAX_REP:
-        raise ValueError(f"paged_flash_decode: H={H} Hk={Hk} unsupported")
     if lengths.shape != (B,) or block_tables.dim() != 2 \
             or block_tables.shape[0] != B:
         raise ValueError("paged_flash_decode: lengths (B,), tables (B, T)")
     if not all(t.is_contiguous()
                for t in (q, k_pool, v_pool, lengths, block_tables)):
         raise ValueError("paged_flash_decode: inputs must be contiguous")
+    return kind
 
 
-def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables):
+def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
+                       kv_scales=None):
     """Decode attention straight out of the paged KV block pool.
 
     q:            (B, H, D) one new token per row, bf16 or fp32;
-    k_pool/v_pool:(N, bs, Hk, D) bf16, the shared block pool (trash block
-                  included);
+    k_pool/v_pool:(N, bs, Hk, D) the shared block pool (trash block
+                  included): bf16, or a SCLAD int8 / float8_e4m3fn payload;
     lengths:      (B,) int32 valid cache positions per row (dead lanes'
                   lengths only cover trash blocks; their output is junk
                   the caller's active mask discards);
     block_tables: (B, T) int32 per-lane tables; unallocated entries point
-                  at the trash block.
+                  at the trash block;
+    kv_scales:    (k_scale, v_scale) (N, bs, Hk) fp32, with a SCLAD pool
+                  only: the payload is dequantized on load.
 
     Returns (B, H, D) in q.dtype.  KV bytes are read once per token, block
     by block through the table, never gathered into a per-lane copy.
     """
     if q.device.type == "cpu":
-        return paged_decode_ref(q, k_pool, v_pool, lengths, block_tables)
-    _check_inputs(q, k_pool, v_pool, lengths, block_tables)
+        return paged_decode_ref(q, k_pool, v_pool, lengths, block_tables,
+                                kv_scales=kv_scales)
+    kind = _check_inputs(q, k_pool, v_pool, lengths, block_tables, kv_scales)
     B, H, D = q.shape
     _, bs, Hk, _ = k_pool.shape
+    ks, vs = (None, None) if kv_scales is None \
+        else (kv_scales[0].data_ptr(), kv_scales[1].data_ptr())
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     code = lib.repro_paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
         B, H, Hk, D, bs, block_tables.shape[1],
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), kind,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_flash_decode")
     paged_flash_decode.launches += 1
@@ -76,3 +95,43 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables):
 
 
 paged_flash_decode.launches = 0
+
+
+def flash_decode(q, k_cache, v_cache, lengths):
+    """Decode attention over dense per-row K/V stripes.
+
+    q:        (B, H, D) one new token per row, bf16 or fp32;
+    k_cache/v_cache: (B, S, Hk, D) bf16 stripes (row b's position j at
+              [b, j]);
+    lengths:  (B,) int32 valid positions per row (read up to min(len, S)).
+
+    Returns (B, H, D) in q.dtype.
+    """
+    if q.device.type == "cpu":
+        return decode_ref(q, k_cache, v_cache, lengths)
+    B = q.shape[0]
+    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode: all inputs must be on one device")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16 \
+            or v_cache.shape != k_cache.shape or k_cache.dim() != 4 \
+            or k_cache.shape[0] != B:
+        raise TypeError("flash_decode: k/v caches must be bf16 (B, S, Hk, D)")
+    _, S, Hk, D = k_cache.shape
+    _check_q("flash_decode", q, Hk, D)
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise TypeError("flash_decode: lengths must be (B,) int32")
+    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode: inputs must be contiguous")
+    out = torch.empty_like(q)
+    lib = _build.load("dense_decode")
+    code = lib.repro_dense_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, S, q.shape[1], Hk, D,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -1,15 +1,18 @@
 """Paged flash-prefill with the fused K/V scatter: the wrapper of the CUDA
 kernel in ``repro_torch/csrc/paged_prefill.cu``.
 
-Port of ``repro.kernels.flash_prefill.flash_prefill.paged_flash_prefill``
-(fp pool branch).  The pools are updated IN PLACE — the reference package
-aliases them with ``input_output_aliases`` instead — and returned, so the
-call keeps the reference's return signature.  A CUDA tensor launches the
+Port of ``repro.kernels.flash_prefill.flash_prefill.paged_flash_prefill``,
+for a bf16 pool and for a SCLAD int8/fp8 pool with its fp32 scales.  The
+pools (and scales) are updated IN PLACE — the reference package aliases
+them with ``input_output_aliases`` instead — and returned, so the call
+keeps the reference's return signature.  A CUDA tensor launches the
 kernel, or the call raises; the plain PyTorch version
 (``ref.prefill_attention_ref``) runs only for tensors on the CPU.
 ``paged_flash_prefill.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -21,7 +24,7 @@ ROWS = 64  # query rows per thread block: rep must divide it
 
 
 def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
-                  start, prefix):
+                  start, prefix, kv_scales, kv_dtype):
     B, S, H, D = q.shape
     N, bs, Hk, Dk = k_pool.shape
     dev = q.device
@@ -35,8 +38,13 @@ def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
             or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError("paged_flash_prefill: q/k_new/v_new must share a "
                         "bf16 or fp32 dtype")
-    if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
-        raise TypeError("paged_flash_prefill: the pool must be bf16")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError("paged_flash_prefill: k/v pools must share a dtype")
+    kind = _build.kv_kind("paged_flash_prefill", k_pool, kv_scales)
+    want = {0: None, 1: "int8", 2: "fp8"}[kind]
+    if kv_dtype != want:
+        raise TypeError(f"paged_flash_prefill: kv_dtype {kv_dtype!r} does "
+                        f"not name a {k_pool.dtype} pool")
     ints = [lengths, block_tables] + ([start] if start is not None else [])
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("paged_flash_prefill: lengths/tables/start must be "
@@ -58,46 +66,60 @@ def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
                          f"[0, {S}]")
     if not all(t.is_contiguous() for t in [q] + rest):
         raise ValueError("paged_flash_prefill: inputs must be contiguous")
+    return kind
 
 
 def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
-                        block_tables, start=None, prefix: int = 0):
+                        block_tables, start=None, prefix: int = 0,
+                        kv_scales=None, kv_dtype: Optional[str] = None):
     """Chunked-prefill attention + fused K/V scatter on the paged pool.
 
     q:             (B, S, H, D) rotated chunk queries (S = prefix + P,
                    prompt tokens LEFT-padded to P), bf16 or fp32;
     k_new/v_new:   (B, S, Hk, D) the chunk's rotated K/V, q's dtype;
-    k_pool/v_pool: (N, bs, Hk, D) bf16 shared block pool, updated in place;
+    k_pool/v_pool: (N, bs, Hk, D) shared block pool, updated in place: bf16,
+                   or a SCLAD int8 / float8_e4m3fn payload;
     lengths:       (B,) int32 true chunk token count per row (<= P);
     block_tables:  (B, T) int32 per-lane tables;
     start:         None for a first chunk (no cached context: the table
                    walk is skipped), else (B,) int32 cached positions;
-    prefix:        patch-prefix length (first chunk only).
+    prefix:        patch-prefix length (first chunk only);
+    kv_scales:     (k_scale, v_scale) (N, bs, Hk) fp32, updated in place,
+                   and ``kv_dtype`` ("int8"/"fp8"), with a SCLAD pool only:
+                   the context is dequantized on load, the chunk's own K/V
+                   fake-quantized before it is attended to, and the
+                   scatter stores quantized payload and scales.
 
-    Returns (attn_out (B, S, H*D), k_pool, v_pool).  Cached KV bytes are
-    read block by block through the table, never gathered, and the new
-    K/V lands in the pool inside the same launch.
+    Returns (attn_out (B, S, H*D), k_pool, v_pool), plus (k_scale,
+    v_scale) for a SCLAD pool.  Cached KV bytes are read block by block
+    through the table, never gathered, and the new K/V lands in the pool
+    inside the same launch.
     """
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k_new, v_new, k_pool, v_pool,
                                      lengths, block_tables, start=start,
-                                     prefix=prefix)
-    _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
-                  start, prefix)
+                                     prefix=prefix, kv_scales=kv_scales,
+                                     kv_dtype=kv_dtype)
+    kind = _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths,
+                         block_tables, start, prefix, kv_scales, kv_dtype)
     B, S, H, D = q.shape
     _, bs, Hk, _ = k_pool.shape
+    ks, vs = (None, None) if kv_scales is None \
+        else (kv_scales[0].data_ptr(), kv_scales[1].data_ptr())
     out = torch.empty((B, S, H * D), dtype=q.dtype, device=q.device)
     lib = _build.load("paged_prefill")
     code = lib.repro_paged_prefill(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), lengths.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, lengths.data_ptr(),
         None if start is None else start.data_ptr(),
         block_tables.data_ptr(), out.data_ptr(),
         B, S, H, Hk, D, bs, block_tables.shape[1], prefix,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), kind,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_flash_prefill")
     paged_flash_prefill.launches += 1
+    if kv_scales is not None:
+        return (out, k_pool, v_pool) + tuple(kv_scales)
     return out, k_pool, v_pool
 
 

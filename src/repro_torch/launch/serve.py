@@ -5,7 +5,9 @@
 
 Weights are random, drawn from ``--seed`` (nothing is downloaded).  Runs
 on the CUDA card by default; ``--device cpu`` (with ``--reduced``) runs
-the plain PyTorch path on the CPU.  The single-engine closed loop of
+the plain PyTorch path on the CPU.  ``--kv-dtype int8|fp8`` stores the
+paged pool SCLAD-compressed; ``--mode wave`` serves lockstep waves over
+dense stripes instead of continuous batching.  The single-engine closed loop of
 ``repro.launch.serve``: every request is submitted up front and the
 engine runs until the queue drains.
 """
@@ -17,6 +19,7 @@ import numpy as np
 
 from repro_torch.configs.base import get_config, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.models import kv_quant
 from repro_torch.models import model as M
 from repro_torch.serving.engine import PREEMPT_POLICIES, ServingEngine
 from repro_torch.serving.sampler import SamplerConfig
@@ -31,6 +34,10 @@ def main(argv=None):
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", default="auto",
+                    choices=["auto", "continuous", "wave"],
+                    help="scheduler: continuous batching (attention "
+                         "families) or the lockstep wave baseline")
     ap.add_argument("--block-size", type=int, default=8,
                     help="tokens per paged-KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -54,6 +61,12 @@ def main(argv=None):
     ap.add_argument("--preempt-policy", default="youngest",
                     choices=list(PREEMPT_POLICIES),
                     help="which in-flight request pool pressure preempts")
+    ap.add_argument("--kv-dtype", default=None,
+                    choices=list(kv_quant.KV_DTYPES),
+                    help="paged KV pool representation: fp/bf16, or the "
+                         "SCLAD compressed encodings int8/fp8 (payload + "
+                         "fp32 per-position-per-head scales); f8 is not "
+                         "ported")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many shared system-prompt tokens to "
                          "every request (exercises the prefix cache)")
@@ -69,6 +82,7 @@ def main(argv=None):
     engine = ServingEngine(
         cfg, params, max_batch=args.max_batch,
         max_len=64 + args.shared_prefix + args.max_new, seed=args.seed,
+        mode=args.mode, kv_dtype=args.kv_dtype,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk or None,
         prefix_cache=args.prefix_cache, decode_steps=args.decode_steps,
@@ -91,6 +105,9 @@ def main(argv=None):
     for uid, toks in sorted(results.items())[:4]:
         print(f"req {uid}: {toks[:16]}{'...' if len(toks) > 16 else ''}")
     s = engine.stats
+    kv = (f", KV block {s.kv_block_bytes} B, peak pool "
+          f"{s.peak_pool_bytes} B" if engine.mode == "continuous" else "")
+    print(f"{engine.mode} engine, kv_dtype {engine.cfg.kv_dtype}{kv}")
     print(f"device {device}: prefill {s.prefill_tokens} tok in "
           f"{s.prefill_s:.2f}s ({s.prefill_tokens_per_s:.1f} tok/s, mean "
           f"TTFT {s.mean_ttft_s * 1e3:.1f}ms) ({s.prefill_chunks} chunks, "

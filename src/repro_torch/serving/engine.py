@@ -1,7 +1,8 @@
-"""Serving engine: continuous batching over a ref-counted paged KV cache.
+"""Serving engine: continuous batching over a ref-counted paged KV cache,
+and the lockstep wave path.
 
-Port of the continuous path of ``repro.serving.engine`` for the dense
-family.  The host-side scheduler is the reference's, line for line:
+Port of ``repro.serving.engine`` for the dense family, both modes.  The
+continuous path's host-side scheduler is the reference's, line for line:
 
   * one pool of fixed-size KV blocks (``model.init_paged_cache``)
     addressed through per-lane block tables;
@@ -16,17 +17,27 @@ family.  The host-side scheduler is the reference's, line for line:
     recomputed, mostly from prefix-cache hits;
   * ``decode_steps=k`` decode iterations per host sync, with one (2, k, B)
     copy to the host per window;
+  * the pool is bf16 or SCLAD-compressed (``kv_dtype="int8"/"fp8"``:
+    payload plus fp32 scales, about half the bytes per block, so more
+    blocks and concurrent lanes in the same memory);
   * both paged attention hot paths go through the hand-written kernels
     (``attn_kernel``: "auto" = kernels on the card, plain versions on the
     CPU; "on" = kernels; "off" = plain versions).
+
+``mode="wave"`` (``_run_waves``) is the reference's lockstep baseline:
+requests grouped by exact prompt length, each wave prefilled in one pass
+into dense (L, B, max_len, Hk, D) stripes (``model.prefill``) and decoded
+together through the dense flash-decode kernel until every member is
+done.  ``mode="auto"`` picks continuous for the attention families, as
+the reference does.
 
 Device state (pool, logits, positions, active mask, budgets, sampling
 keys) is updated in place.  Sampling keys are POSITIONAL (see
 ``serving.sampler``): a request's token at position p depends on (seed,
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
-Outside this slice the engine raises ``NotImplementedError``: speculative
-decoding, the wave path, meshes, quantized pools and non-dense families.
+Outside the port so far the engine raises ``NotImplementedError``:
+speculative decoding, meshes, ``kv_dtype="f8"`` and non-dense families.
 """
 from __future__ import annotations
 
@@ -223,9 +234,14 @@ class ServingEngine:
             raise NotImplementedError("speculative decoding is not ported")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported")
-        if mode not in ("auto", "continuous"):
+        if cfg.family != "dense":
             raise NotImplementedError(
-                f"mode {mode!r}: the port serves the continuous path only")
+                f"family {cfg.family!r}: the port serves the dense family")
+        if mode == "auto":  # as in the reference, for the attention families
+            mode = "continuous"
+        if mode not in ("continuous", "wave"):
+            raise ValueError(f"mode {mode!r} not in ('auto', 'continuous', "
+                             f"'wave')")
         if attn_kernel is not None:
             if attn_kernel not in ATTN_KERNEL_MODES:
                 raise ValueError(
@@ -233,6 +249,8 @@ class ServingEngine:
             cfg = dc_replace(cfg, attn_kernel=attn_kernel)
         if kv_dtype is not None:
             cfg = dc_replace(cfg, kv_dtype=kv_dtype)
+        M.check_kv_dtype(cfg)
+        self.mode = mode
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -262,7 +280,8 @@ class ServingEngine:
         self.prefix_cache = prefix_cache
         self.decode_steps = decode_steps
         self.params = params
-        self._init_continuous()
+        if mode == "continuous":
+            self._init_continuous()
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -282,14 +301,16 @@ class ServingEngine:
         if max_new_tokens < 1:
             self._instant.append((uid, []))
             return uid
-        worst = self._worst_case_tokens(prompt, max_new_tokens)
-        need = self._alloc.blocks_for(worst)
-        cap = min(self._alloc.num_blocks, self._alloc.max_blocks_per_slot)
-        if need > cap:
-            raise ValueError(
-                f"request needs {need} KV blocks but the pool/block "
-                f"table caps at {cap}; it can never be admitted "
-                f"(raise num_blocks or shorten the prompt/budget)")
+        if self.mode == "continuous":
+            worst = self._worst_case_tokens(prompt, max_new_tokens)
+            need = self._alloc.blocks_for(worst)
+            cap = min(self._alloc.num_blocks,
+                      self._alloc.max_blocks_per_slot)
+            if need > cap:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool/block "
+                    f"table caps at {cap}; it can never be admitted "
+                    f"(raise num_blocks or shorten the prompt/budget)")
         self._submit_t[uid] = time.perf_counter()
         self._queue.append(Request(uid, prompt, max_new_tokens,
                                    deadline=deadline))
@@ -320,6 +341,10 @@ class ServingEngine:
         Poisoned-engine contract: when the body raises, the BlockStore
         invariants are re-checked; if they no longer hold the engine marks
         itself ``poisoned`` and refuses every later step()/submit()."""
+        if self.mode != "continuous":
+            raise RuntimeError(
+                f"step() requires mode='continuous' (engine is in "
+                f"{self.mode!r} mode); use run()")
         if self.poisoned:
             raise RuntimeError(
                 "engine is poisoned: an earlier step() failure left the "
@@ -433,14 +458,17 @@ class ServingEngine:
             .cpu().numpy()
 
     def has_pending_work(self) -> bool:
-        """True while ``step()`` can make progress."""
+        """True while ``step()`` (or ``run()``) can make progress."""
+        if self.mode != "continuous":
+            return bool(self._queue or self._instant)
         return bool(self._queue or self._prefilling or self._instant
                     or self._host_active.any())
 
     def match_cached_blocks(self, prompt) -> int:
         """How many leading blocks of ``prompt`` the prefix cache could
-        serve RIGHT NOW, without touching any state (0 with caching off)."""
-        if not self.prefix_cache:
+        serve RIGHT NOW, without touching any state (0 with caching off
+        or in wave mode)."""
+        if self.mode != "continuous" or not self.prefix_cache:
             return 0
         digests = chain_hashes(np.asarray(prompt, np.int64),
                                self._alloc.block_size,
@@ -451,7 +479,10 @@ class ServingEngine:
     def cancel(self, uid: int) -> bool:
         """Abort a request wherever it is — queued, mid-prefill or
         decoding — releasing its blocks like a retirement.  Returns False
-        if it already finished (or was never submitted)."""
+        if it already finished (or was never submitted).  Continuous mode
+        only."""
+        if self.mode != "continuous":
+            raise RuntimeError("cancel() requires mode='continuous'")
         self._submit_t.pop(uid, None)
         self._last_obs_t.pop(uid, None)
         for i, (u, _) in enumerate(self._instant):
@@ -485,6 +516,8 @@ class ServingEngine:
 
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue; returns uid -> generated tokens."""
+        if self.mode != "continuous":
+            return self._run_waves()
         results: Dict[int, List[int]] = {}
         while self.has_pending_work():
             for uid, toks in self.step():
@@ -505,6 +538,9 @@ class ServingEngine:
         # the families and pool encodings the port does not serve yet.
         self._cache = M.init_paged_cache(cfg, self.num_blocks + 1, bs,
                                          device=dev)
+        # Device bytes per pool block, all layers, K+V, over every leaf
+        # (axis 1 is blocks for payload and scale leaves alike): a SCLAD
+        # pool's figure is its payload plus its fp32 scales.
         self.kv_block_bytes = sum(
             x[:, 0].numel() * x.element_size() for x in self._cache.values())
         ldtype = self.params["embed"].dtype
@@ -754,3 +790,75 @@ class ServingEngine:
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_tokens += int(sum(takes))
         self.stats.prefill_chunks += 1
+
+    # -- wave path -----------------------------------------------------------
+    def _run_waves(self) -> Dict[int, List[int]]:
+        """Lockstep wave batching, bucketed by exact prompt length (padding
+        would let real tokens attend to pads without the masked-prefill
+        machinery of the continuous path)."""
+        results: Dict[int, List[int]] = {uid: toks
+                                         for uid, toks in self._instant}
+        self._instant = []
+        by_len: Dict[int, List[Request]] = {}
+        for r in self._queue:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        self._queue = []
+        for _, reqs in sorted(by_len.items()):
+            for i in range(0, len(reqs), self.max_batch):
+                wave = reqs[i: i + self.max_batch]
+                self._run_wave(wave)
+                for r in wave:
+                    results[r.uid] = r.output
+        return results
+
+    def _run_wave(self, wave: List[Request]) -> None:
+        """Prefill one same-length wave into dense stripes, then decode it
+        in lockstep until every member hit its budget or EOS.  The token
+        at position p of request uid samples with the positional key of
+        (seed, uid, p), as on the continuous path."""
+        cfg, dev = self.cfg, self.device
+        B = len(wave)
+        S = len(wave[0].prompt)  # waves are same-length by construction
+        toks = torch.from_numpy(
+            np.stack([r.prompt for r in wave]).astype(np.int32)).to(dev)
+
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(cfg, self.params, {"tokens": toks},
+                                  self.max_len)
+        synchronize(dev)
+        self.stats.prefill_s += time.perf_counter() - t0
+        self.stats.prefill_tokens += B * S
+        self.stats.admissions += B
+
+        max_new = min(max(r.max_new_tokens for r in wave), self.max_len - S)
+        keys = request_keys(self.seed, torch.tensor([r.uid for r in wave],
+                                                    device=dev))
+        done = np.zeros(B, bool)
+        t0 = time.perf_counter()
+        for step in range(max_new):
+            self.stats.decode_steps += 1
+            self.stats.occupied_slot_steps += int((~done).sum())
+            self.stats.slot_steps += self.max_batch
+            pos = torch.full((B,), S + step, dtype=torch.int32, device=dev)
+            next_tok = sample(self.sampler, logits.reshape(B, -1),
+                              positional_keys(keys, pos))
+            nt = next_tok.cpu().numpy()
+            now = time.perf_counter()
+            for i, r in enumerate(wave):
+                if not done[i] and len(r.output) < r.max_new_tokens:
+                    r.output.append(int(nt[i]))
+                    self._note_tokens(r.uid, 1, now)
+                    self.stats.generated_tokens += 1
+                    if nt[i] == self.eos_id:
+                        done[i] = True
+                if len(r.output) >= r.max_new_tokens:
+                    done[i] = True
+            if done.all():
+                break
+            logits, cache = M.decode_step(cfg, self.params, cache,
+                                          next_tok[:, None], pos)
+            logits = logits[:, 0]
+        synchronize(dev)
+        self.stats.decode_s += time.perf_counter() - t0
+        for r in wave:
+            self._last_obs_t.pop(r.uid, None)

@@ -7,7 +7,7 @@ or interpret mode).  Run them on a card with
 
 Tolerance 2e-2 on bf16 outputs (the kernels score in fp32 where the plain
 versions round scores to the compute dtype first), 1e-4 in fp32; pools
-after the prefill scatter bit for bit.
+(and SCLAD scales) after the prefill scatter bit for bit.
 """
 import dataclasses
 
@@ -17,14 +17,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.kernels.flash_decode.flash_decode import \
-    paged_flash_decode  # noqa: E402
-from repro_torch.kernels.flash_decode.ref import \
-    paged_decode_ref  # noqa: E402
+from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
+    flash_decode, paged_flash_decode)
+from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
+    decode_ref, paged_decode_ref)
 from repro_torch.kernels.flash_prefill.flash_prefill import \
     paged_flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import \
     prefill_attention_ref  # noqa: E402
+from repro_torch.models import kv_quant  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -126,3 +127,129 @@ def test_engine_runs_through_the_kernels(gen):
     L = cfg.num_layers
     assert paged_flash_decode.launches - d0 == L * eng.stats.decode_steps
     assert paged_flash_prefill.launches - p0 == L * eng.stats.prefill_chunks
+
+
+def _qpool(gen, N, bs, Hk, D, kv_dtype):
+    x = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
+    return kv_quant.quantize(x, kv_dtype)
+
+
+def _bytes(x):
+    return x.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64), (16, 2, 128)])
+def test_quantized_decode_kernel_matches_plain(gen, dtype, H, Hk, D,
+                                               kv_dtype):
+    B, bs, T = 5, 16, 8
+    N = B * T + 1
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kp, ks = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    vp, vs = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    lens = torch.tensor([1, 33, 128, 0, 70], dtype=torch.int32,
+                        device="cuda")
+    tbl = _tables(gen, B, T, N, lens, bs)
+    tbl[3] = 0
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=(ks, vs))
+    assert paged_flash_decode.launches == before + 1
+    ref = paged_decode_ref(q, kp, vp, lens, tbl, kv_scales=(ks, vs))
+    live = lens > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("with_ctx", [False, True])
+def test_quantized_prefill_kernel_matches_plain(gen, with_ctx, D, dtype,
+                                                kv_dtype):
+    B, S, bs, T = 4, 24, 16, 8
+    H, Hk = (32, 4) if D == 64 else (16, 2)
+    N = B * T + 1
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    kn[0, -1] = 0.0  # an all-zero row: scale 1
+    kp, ks = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    vp, vs = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    lens = torch.tensor([24, 1, 13, 7], dtype=torch.int32, device="cuda")
+    start = torch.tensor([0, 5, 16, 40], dtype=torch.int32,
+                         device="cuda") if with_ctx else None
+    used = lens + (start if with_ctx else 0)
+    tbl = _tables(gen, B, T, N, used, bs)
+    a = [x.clone() for x in (kp, vp, ks, vs)]
+    b = [x.clone() for x in (kp, vp, ks, vs)]
+    before = paged_flash_prefill.launches
+    out = paged_flash_prefill(q, kn, vn, a[0], a[1], lens, tbl, start=start,
+                              kv_scales=(a[2], a[3]), kv_dtype=kv_dtype)[0]
+    assert paged_flash_prefill.launches == before + 1
+    ref = prefill_attention_ref(q, kn, vn, b[0], b[1], lens, tbl,
+                                start=start, kv_scales=(b[2], b[3]),
+                                kv_dtype=kv_dtype)[0]
+    real = torch.arange(S, device="cuda")[None] >= (S - lens)[:, None]
+    torch.testing.assert_close(out[real].float(), ref[real].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    for x, y in zip(a, b):
+        assert torch.equal(_bytes(x), _bytes(y))
+    assert not torch.equal(_bytes(a[0]), _bytes(kp))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64), (16, 2, 128)])
+def test_dense_decode_kernel_matches_plain(gen, dtype, H, Hk, D):
+    B, S = 4, 300
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([1, 33, 300, 0], dtype=torch.int32, device="cuda")
+    before = flash_decode.launches
+    out = flash_decode(q, kc, vc, lens)
+    assert flash_decode.launches == before + 1
+    ref = decode_ref(q, kc, vc, lens)
+    live = lens > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _small_cfg():
+    return dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                               num_heads=8, num_kv_heads=1, head_dim=64,
+                               d_model=128)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_engine_runs_through_the_kernels(gen, kv_dtype):
+    cfg = _small_cfg()
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=64, eos_id=-1,
+                        block_size=8, prefill_chunk=16, attn_kernel="on",
+                        kv_dtype=kv_dtype)
+    d0, p0 = paged_flash_decode.launches, paged_flash_prefill.launches
+    rng = np.random.default_rng(0)
+    uids = [eng.submit(rng.integers(1, 256, size=n), max_new_tokens=5)
+            for n in (3, 20, 9)]
+    out = eng.run()
+    assert all(len(out[u]) == 5 for u in uids)
+    L = cfg.num_layers
+    assert paged_flash_decode.launches - d0 == L * eng.stats.decode_steps
+    assert paged_flash_prefill.launches - p0 == L * eng.stats.prefill_chunks
+    assert set(eng._cache) == {"k", "v", "k_scale", "v_scale"}
+
+
+def test_wave_engine_runs_through_the_dense_kernel(gen):
+    cfg = _small_cfg()
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=64, eos_id=-1,
+                        attn_kernel="on", mode="wave")
+    d0 = flash_decode.launches
+    rng = np.random.default_rng(0)
+    uids = [eng.submit(rng.integers(1, 256, size=n), max_new_tokens=m)
+            for n, m in ((7, 5), (7, 3), (12, 4))]
+    out = eng.run()
+    assert [len(out[u]) for u in uids] == [5, 3, 4]
+    assert flash_decode.launches - d0 == cfg.num_layers \
+        * (eng.stats.decode_steps - 2)  # the last step of each wave samples only

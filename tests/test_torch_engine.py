@@ -12,6 +12,13 @@ prompt lengths and budgets, chunked prefill behind a shared prefix
 Within the port: outputs are unchanged by the prefix cache, the prefill
 chunk size, ``decode_steps``, co-tenants and preemption, greedy and
 stochastic alike (sampling keys are positional).
+
+SCLAD pools: with ``kv_dtype="int8"`` the greedy outputs and counters
+equal the JAX engine's on the same three traces.  fp8 greedy tokens may
+flip on near-ties between implementations, so fp8 is held to identical
+counters, bitwise run-to-run pool determinism and the within-port
+invariance matrix.  ``mode="wave"``: greedy outputs and counters equal
+the JAX wave engine's.
 """
 
 import numpy as np
@@ -69,17 +76,27 @@ def models():
     return jcfg, jparams, tcfg, tparams
 
 
-@pytest.fixture(scope="module")
-def jax_runs(models):
-    """Each trace through the JAX engine, once per module."""
+def _jax_runs(models, **extra):
     jcfg, jparams, _, _ = models
     runs = {}
     for name in ("mixed", "shared", "tight"):
         kw, reqs = _trace(name)
         eng = JaxEngine(jcfg, jparams, max_len=MAX_LEN, eos_id=-1,
-                        attn_kernel="off", **kw)
+                        attn_kernel="off", **kw, **extra)
         runs[name] = (_run(eng, reqs), eng.stats)
     return runs
+
+
+@pytest.fixture(scope="module")
+def jax_runs(models):
+    """Each trace through the JAX engine, once per module."""
+    return _jax_runs(models)
+
+
+@pytest.fixture(scope="module")
+def jax_quant_runs(models):
+    """Each trace through the JAX engine on int8 and fp8 pools."""
+    return {kd: _jax_runs(models, kv_dtype=kd) for kd in ("int8", "fp8")}
 
 
 def _port(models, **kw):
@@ -181,3 +198,102 @@ def test_cancel_and_match_cached_blocks(models):
     assert eng.stats.cancellations == 1
     eng._alloc.check_invariants()
     assert eng._alloc.live_blocks == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("name", ["mixed", "shared", "tight"])
+def test_quantized_pool_matches_jax(models, jax_quant_runs, name, kv_dtype):
+    """int8: greedy outputs identical to the JAX engine's.  Both: the
+    scheduler's counters, peak pool bytes and block bytes identical."""
+    kw, reqs = _trace(name)
+    eng = _port(models, kv_dtype=kv_dtype, **kw)
+    out = _run(eng, reqs)
+    want, jstats = jax_quant_runs[kv_dtype][name]
+    if kv_dtype == "int8":
+        assert out == want
+    for s in STATS + ("kv_block_bytes", "peak_pool_bytes",
+                      "peak_live_blocks"):
+        assert getattr(eng.stats, s) == getattr(jstats, s), s
+    eng._alloc.check_invariants()
+    assert eng._alloc.live_blocks == 0
+
+
+def _pool_bits(eng):
+    return {n: x.contiguous().view(torch.uint8).clone()
+            for n, x in eng._cache.items()}
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_pool_deterministic_and_invariant(models, kv_dtype):
+    """Two runs of one trace leave the same pool bytes (payload and
+    scales); outputs are unchanged by the prefix cache, chunk sizes,
+    ``decode_steps`` and preemption recompute."""
+    kw, reqs = _trace("shared")
+    a = _port(models, kv_dtype=kv_dtype, **kw)
+    b = _port(models, kv_dtype=kv_dtype, **kw)
+    base = _run(a, reqs)
+    assert _run(b, reqs) == base
+    pa, pb = _pool_bits(a), _pool_bits(b)
+    assert set(pa) == {"k", "v", "k_scale", "v_scale"}
+    assert all(torch.equal(pa[n], pb[n]) for n in pa)
+    for v in (dict(prefix_cache=False), dict(prefill_chunk=16),
+              dict(prefill_chunk=None), dict(decode_steps=4)):
+        assert _run(_port(models, kv_dtype=kv_dtype, **dict(kw, **v)),
+                    reqs) == base, v
+    kw, reqs = _trace("tight")
+    pressed = _port(models, kv_dtype=kv_dtype, **kw)
+    roomy = _port(models, kv_dtype=kv_dtype, **dict(kw, num_blocks=24))
+    assert _run(pressed, reqs) == _run(roomy, reqs)
+    assert pressed.stats.preemptions >= 1
+
+
+WAVE_STATS = ("decode_steps", "generated_tokens", "prefill_tokens",
+              "admissions", "occupied_slot_steps", "slot_steps")
+
+
+def _wave_trace():
+    """Prompt lengths repeat, so waves hold several requests; budgets
+    differ inside a wave, so members finish at different steps."""
+    rng = np.random.default_rng(3)
+    return [(rng.integers(1, 256, size=n), m)
+            for n, m in ((5, 4), (9, 6), (5, 2), (5, 5), (9, 3), (12, 4))]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_wave_mode_matches_jax(models, kv_dtype):
+    """mode="wave": greedy outputs and counters equal the JAX wave
+    engine's (a SCLAD kv_dtype leaves the wave's bf16 stripes as they
+    are, there as here)."""
+    jcfg, jparams, _, _ = models
+    reqs = _wave_trace()
+    outs, stats = [], []
+    for eng in (JaxEngine(jcfg, jparams, max_batch=2, max_len=MAX_LEN,
+                          eos_id=-1, attn_kernel="off", mode="wave",
+                          kv_dtype=kv_dtype),
+                _port(models, max_batch=2, mode="wave", kv_dtype=kv_dtype)):
+        outs.append(_run(eng, reqs))
+        stats.append([getattr(eng.stats, s) for s in WAVE_STATS])
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1]
+    assert [len(o) for o in outs[1]] == [m for _, m in reqs]
+
+
+def test_wave_mode_surface(models):
+    """The wave engine drains through run(); step() and cancel() are the
+    continuous path's and refuse, as in the reference; greedy outputs
+    equal the continuous engine's (the same model, another schedule)."""
+    reqs = _wave_trace()
+    wave = _port(models, max_batch=4, mode="wave")
+    assert wave.mode == "wave" and _port(models).mode == "continuous"
+    for p, m in reqs:
+        wave.submit(p, max_new_tokens=m)
+    assert wave.has_pending_work()
+    with pytest.raises(RuntimeError, match="continuous"):
+        wave.step()
+    with pytest.raises(RuntimeError, match="continuous"):
+        wave.cancel(1)
+    assert wave.match_cached_blocks(reqs[0][0]) == 0
+    out = wave.run()
+    assert not wave.has_pending_work()
+    cont = _run(_port(models, max_batch=4, block_size=4), reqs)
+    assert [out[u] for u in sorted(out)] == cont

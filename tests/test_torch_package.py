@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, nothing of ``repro``, the card
 by default, and no fallback that hides the device or the kernel."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import MoEConfig, get_config  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as prefill_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -102,10 +103,15 @@ def test_kernel_on_with_cpu_tensors_raises():
 def test_unported_options_raise():
     cfg = get_config("tinyllama-1.1b").reduced()
     params = M.init_params(cfg, 0, device="cpu")
-    for kw in (dict(spec_decode="ngram"), dict(mode="wave"),
-               dict(kv_dtype="int8"), dict(mesh=object())):
+    for kw in (dict(spec_decode="ngram"), dict(mesh=object()),
+               dict(kv_dtype="f8"), dict(kv_dtype="f8", mode="wave")):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, device="cpu", **kw)
+    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
+        num_experts=4, num_experts_per_tok=2))
+    for mode in ("auto", "wave"):
+        with pytest.raises(NotImplementedError, match="moe"):
+            ServingEngine(moe, params, device="cpu", mode=mode)
 
 
 def test_params_from_numpy_bf16_round_trip_is_bit_exact():
