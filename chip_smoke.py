@@ -33,11 +33,31 @@ outside the repository.  Phases, each of which raises on failure:
      16 lanes (blocks, block bytes, mean live lanes, preemptions, decode
      tok/s of each); then three decode steps of 8 lanes under
      ``torch.profiler`` (device-busy share, top kernels);
-  6. a ``{"kernels": [...]}`` line, the card line, and the last line
+  6. the last three kernels, each against its plain version at the
+     full width of a config the repo carries, with the JAX package's
+     kernel tolerances: the SCLD matmul at tinyllama-1.1b's MLP
+     projections (x (128, 2048) bf16 times W (2048, 5632), and
+     (128, 5632) times (5632, 2048), at C = 16, 8 and 6 stored units of
+     16), the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
+     state 128, 2048 positions, bf16, chunk 256 and 128), blocked flash
+     attention at tinyllama-1.1b's heads (2048 positions, 32 heads, 4 kv
+     heads, bf16, causal; causal at 512 queries over 2048 keys; 128
+     queries over 2048 keys not causal); kernel, plain, bound and library
+     times (``torch.matmul`` on the decompressed weight, none for the
+     scan, ``scaled_dot_product_attention``);
+  7. their entry points, each with its launch count set to 0 just before
+     and read just after: the SCLD example (``repro_torch.examples.
+     sclad_sparsity``) through ``SCLDLinear`` on the card, whose system
+     lines must equal the JAX package's; ``ops.ssd`` at mamba2-1.3b's
+     widths; ``ops.attention`` at tinyllama-1.1b's heads, both against
+     their plain versions;
+  8. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import re
@@ -60,6 +80,26 @@ QUANT_GATE = {"int8": 0.05, "fp8": 0.12}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
 WARMUP, ITERS = 3, 20
+#: The JAX package's kernel tolerances (tests/test_kernels.py): SCLD
+#: (atol, rtol) with bf16 x and with fp32 x (the SCLD example's); the SSD
+#: scan five times the bf16 attention tolerance (TOL, as above).
+SCLD_TOL = (1e-1, 5e-2)
+SCLD_TOL_FP32 = (1e-4, 2e-2)
+SSD_TOL = 5 * TOL
+#: mamba2-1.3b's SSD widths (src/repro/configs/mamba2_1_3b.py: d_model
+#: 2048, expand 2, head dim 64 -> 64 heads, state 128, chunk 256).
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 64, 64, 128, 256
+SEQ = 2048  # positions of the SSD and attention checks
+#: The SCLD example's system section as the JAX package's ``core`` gives
+#: it (tests/test_torch_sclad.py holds the port's copies to it bitwise).
+SCLD_SYSTEM_LINES = [
+    "  sparsity=0.0 tco_delta= +0.0% perplexity=8.34",
+    "  sparsity=0.3 tco_delta= +0.0% perplexity=8.35",
+    "  sparsity=0.5 tco_delta=-16.9% perplexity=8.4",
+    "  sparsity=0.6 tco_delta=-16.9% perplexity=8.6",
+    "  sparsity=0.7 tco_delta=-16.9% perplexity=9.67",
+    "  max model scale at 60%: 1.64x",
+]
 
 
 def card_line() -> str:
@@ -105,13 +145,13 @@ def distinct_rows(torch, tbl, n) -> int:
     return torch.unique(torch.cat(keys)).numel()
 
 
-def assert_close(torch, what, out, ref):
-    """Element by element, |out - ref| <= TOL + TOL * |ref|."""
+def assert_close(torch, what, out, ref, atol=TOL, rtol=TOL):
+    """Element by element, |out - ref| <= atol + rtol * |ref|."""
     if not torch.isfinite(out).all():
         raise AssertionError(f"{what}: output is not finite")
     try:
-        torch.testing.assert_close(out.float(), ref.float(), atol=TOL,
-                                   rtol=TOL)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
     except AssertionError as e:
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"{e}") from None
@@ -342,6 +382,199 @@ def check_dense_decode(torch, cfg, gen):
     bound_ms, bound_by = bound(nbytes, 4 * H * D * n)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_sclad(torch, cfg):
+    """Kernel 6 vs its plain version at tinyllama-1.1b's MLP projections:
+    x (128, d_model) bf16 times the gate/up weight (d_model, d_ff), and
+    (128, d_ff) times the down weight (d_ff, d_model), each block-
+    compressed to C = 16, 8 and 6 units a tile, bf16 units."""
+    import numpy as np
+    from repro_torch.kernels.sclad_matmul.ref import (decompress_torch,
+                                                      sclad_matmul_ref)
+    from repro_torch.kernels.sclad_matmul.sclad_matmul import (
+        block_compress, sclad_matmul)
+    rng = np.random.default_rng(0)
+    M = 128
+    results = {}
+    for proj, K, N in (("gate/up", cfg.d_model, cfg.d_ff),
+                       ("down", cfg.d_ff, cfg.d_model)):
+        w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                             ).to("cuda", torch.bfloat16)
+        for C in (16, 8, 6):
+            vals, rows = block_compress(w, C)
+            v = torch.from_numpy(vals).to("cuda", torch.bfloat16)
+            r = torch.from_numpy(rows).cuda()
+            y = sclad_matmul(x, v, r)
+            torch.cuda.synchronize()
+            err = assert_close(torch, f"sclad_matmul ({proj}, C={C})", y,
+                               sclad_matmul_ref(x, v, r), *SCLD_TOL)
+            ms = cuda_ms(lambda: sclad_matmul(x, v, r))
+            plain_ms = cuda_ms(lambda: sclad_matmul_ref(x, v, r))
+            dense = decompress_torch(v, r)
+            lib_ms = cuda_ms(lambda: torch.matmul(x, dense))
+            # Bytes: x, the stored units (C/16 of dense) and rows, y.
+            # Operations: the dense products the kernel does.
+            nbytes = (x.numel() * 2 + v.numel() * 2 + r.numel() * 4
+                      + M * N * 2)
+            bound_ms, bound_by = bound(nbytes, 2 * M * K * N)
+            results[proj, C] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+    return results
+
+
+def ssd_inputs(torch, gen, BH, S, P, N):
+    """The JAX suite's magnitudes: xdt ~ 0.1 N(0,1), a = -0.1 |N(0,1)|,
+    b, c ~ 0.3 N(0,1), bf16."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    return ((rnd(BH, S, P) * 0.1).bfloat16(),
+            (-rnd(BH, S).abs() * 0.1).bfloat16(),
+            (rnd(BH, S, N) * 0.3).bfloat16(), (rnd(BH, S, N) * 0.3).bfloat16())
+
+
+def check_ssd(torch, gen):
+    """Kernel 4 vs its plain version (the step-by-step recurrence) at
+    mamba2-1.3b's widths: BH = 64 heads of P = 64, N = 128, 2048
+    positions, bf16, at its chunk of 256 and the op's default of 128;
+    outputs and the final state.  No one PyTorch call computes this
+    scan, so it has no library time."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    BH, S, P, N = SSD_HEADS, SEQ, SSD_HEAD_DIM, SSD_STATE
+    xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N)
+    y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
+    plain_ms = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c))
+    results = {}
+    for chunk in (SSD_CHUNK, 128):
+        y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        what = f"ssd_scan (chunk {chunk})"
+        err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
+                  assert_close(torch, what + " state", st, st_ref, SSD_TOL,
+                               SSD_TOL))
+        ms = cuda_ms(lambda: ssd_scan(xdt, a, b, c, chunk=chunk))
+        # Bytes: xdt, a, b, c read and y written (bf16), the fp32 state
+        # written.  Operations of the chunked form: per chunk, the causal
+        # half of (C B^T) and of its product with xdt, C state^T, and the
+        # state update.
+        nbytes = 2 * (2 * BH * S * P + BH * S + 2 * BH * S * N) \
+            + 4 * BH * P * N
+        q = chunk
+        ops = BH * (S // q) * (q * (q + 1) // 2 * (2 * N + 2 * P)
+                               + 4 * q * P * N)
+        bound_ms, bound_by = bound(nbytes, ops)
+        results[chunk] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, bound_ms=bound_ms,
+                              bound_by=bound_by)
+    return results
+
+
+def check_attention(torch, cfg, gen):
+    """Kernel 5 vs its plain version at tinyllama-1.1b's heads (32 query
+    heads, 4 kv heads, head dim 64), batch 1, bf16: causal over 2048
+    positions, causal with 512 queries over 2048 keys (bottom-right
+    aligned), and 128 queries over 2048 keys not causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    results = {}
+    for name, Sq, Sk, causal in (("causal", SEQ, SEQ, True),
+                                 ("causal Sq<Sk", 512, SEQ, True),
+                                 ("cross", 128, SEQ, False)):
+        q = torch.randn(1, Sq, H, D, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(1, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(1, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = assert_close(torch, f"flash_attention ({name})", out,
+                           attention_ref(q, k, v, causal=causal))
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        # SDPA's is_causal aligns top-left: give it the bottom-right mask
+        # when Sq < Sk.
+        mask = None
+        if causal and Sq != Sk:
+            mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                              device="cuda").tril(Sk - Sq)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True))
+        pairs = sum(min(Sk, i + 1 + Sk - Sq) for i in range(Sq)) \
+            if causal else Sq * Sk
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * D * H * pairs)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+    return results
+
+
+def run_slice3_entry_points(torch, cfg, gen, card):
+    """The entry points of the last three kernels, each with its launch
+    count set to 0 just before and read just after: the SCLD example
+    through SCLDLinear on the card (its system lines must equal the JAX
+    package's, its kernel outputs its plain version's), then ops.ssd at
+    mamba2-1.3b's widths and ops.attention at tinyllama-1.1b's heads,
+    each against its plain version."""
+    from repro_torch.examples import sclad_sparsity
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.sclad_matmul.sclad_matmul import sclad_matmul
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    launches = {}
+
+    sclad_matmul.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = sclad_sparsity.main([])
+    launches["sclad_matmul"] = sclad_matmul.launches
+    for line in buf.getvalue().splitlines():
+        print(f"sclad example [{card}]: {line}")
+    if res["system"] != SCLD_SYSTEM_LINES:
+        raise AssertionError(f"SCLD example system lines {res['system']} "
+                             f"differ from the JAX package's")
+    if launches["sclad_matmul"] != len(res["kernel"]):
+        raise AssertionError(f"SCLD example: {launches['sclad_matmul']} "
+                             f"launches for {len(res['kernel'])} layers")
+    for units, (y, ref) in res["kernel"].items():
+        assert_close(torch, f"SCLD example (units={units})", y, ref,
+                     *SCLD_TOL_FP32)
+
+    BH, S, P, N = SSD_HEADS, SEQ, SSD_HEAD_DIM, SSD_STATE
+    x, _, b, c = ssd_inputs(torch, gen, BH, S, P, N)
+    dt = (torch.rand(BH, S, generator=gen, device="cuda") * 0.1).bfloat16()
+    A = -torch.rand(BH, generator=gen, device="cuda").bfloat16() * 4
+    ssd_scan.launches = 0
+    y, st = ssd_ops.ssd(x, dt, A, b, c, chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    launches["ssd_scan"] = ssd_scan.launches
+    yr, sr = ssd_scan_ref(x * dt[..., None], dt * A[:, None], b, c)
+    e1 = max(assert_close(torch, "ops.ssd", y, yr, SSD_TOL, SSD_TOL),
+             assert_close(torch, "ops.ssd state", st, sr, SSD_TOL, SSD_TOL))
+
+    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn(1, SEQ, H, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, SEQ, Hk, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, SEQ, Hk, D, generator=gen, device="cuda").bfloat16()
+    flash_attention.launches = 0
+    out = attn_ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches["flash_attention"] = flash_attention.launches
+    e2 = assert_close(torch, "ops.attention", out,
+                      attention_ref(q, k, v, causal=True))
+    print(f"entry points [{card}]: ops.ssd max|err| {e1:.3g}, ops.attention "
+          f"max|err| {e2:.3g}; launches {launches}")
+    return launches
 
 
 def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
@@ -676,6 +909,20 @@ def main() -> int:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
 
+    # 6. The last three kernels at full width, beside the other checks.
+    sclad = check_sclad(torch, cfg)
+    ssd = check_ssd(torch, gen)
+    attn = check_attention(torch, cfg, gen)
+    rows = [(f"sclad_matmul[{p}, C={c}]", r) for (p, c), r in sclad.items()]
+    rows += [(f"ssd_scan[chunk {q}]", r) for q, r in ssd.items()]
+    rows += [(f"flash_attention[{n}]", r) for n, r in attn.items()]
+    for name, r in rows:
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
     # 4. Model checks, full width.
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -695,7 +942,10 @@ def main() -> int:
     run_same_bytes_pair(torch, cfg, params, card)
     profile_decode(torch, bf16_engine, cfg, card)
 
-    # 6. Result lines.  The quantized bodies report their int8 times (fp8
+    # 7. The last three kernels' entry points.
+    slice3 = run_slice3_entry_points(torch, cfg, gen, card)
+
+    # 8. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -726,11 +976,26 @@ def main() -> int:
         kernel_entry("flash_decode", "src/repro_torch/csrc/dense_decode.cu",
                      f"{dec_tpu}:78", runs("flash_decode", ("bf16", "wave")),
                      dense),
+        kernel_entry("sclad_matmul", "src/repro_torch/csrc/sclad_matmul.cu",
+                     "src/repro/kernels/sclad_matmul/sclad_matmul.py:66",
+                     slice3["sclad_matmul"], sclad["gate/up", 6],
+                     err=max(r["err"] for r in sclad.values())),
+        kernel_entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/ssd_scan.py:66",
+                     slice3["ssd_scan"], ssd[SSD_CHUNK],
+                     err=max(r["err"] for r in ssd.values())),
+        kernel_entry("flash_attention",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/flash_attention.py:72",
+                     slice3["flash_attention"], attn["causal"],
+                     err=max(r["err"] for r in attn.values())),
     ]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launches on the main "
                                  f"path")
+        if k["library_ms"] is None and k["name"] != "ssd_scan":
+            raise AssertionError(f"{k['name']}: no library time")
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{k['name']}: {key} is {v}")

@@ -7,8 +7,12 @@ so each module's counterpart is found by name.  The package imports
 piece it needs and never imports ``jax`` or ``repro``.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (see ``repro_torch.device``).  The two paged attention
-hot paths are hand-written Hopper kernels (``repro_torch/csrc``), built
-with ``nvcc`` at first use; CPU tensors take their plain PyTorch
-versions.
+``device="cpu"`` (see ``repro_torch.device``).  Every kernel the JAX
+package wrote in Pallas is a hand-written Hopper kernel here
+(``repro_torch/csrc``): the paged and dense attention of the serving
+path, and the SCLD matmul, the SSD scan and blocked flash attention
+behind their own entry points.  They are built with ``nvcc`` at first
+use; CPU tensors take their plain PyTorch versions.  ``core`` holds
+copies of the analytic co-design modules, ``examples`` the SCLD
+example.
 """

@@ -1,2 +1,2 @@
-"""Attention kernels of the port: a hand-written CUDA kernel per TPU
-kernel on the serving path, each beside its plain PyTorch version."""
+"""Kernels of the port: a hand-written CUDA kernel per TPU kernel of the
+JAX package, each beside its plain PyTorch version."""

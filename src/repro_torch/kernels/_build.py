@@ -32,6 +32,9 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
     "dense_decode": "dense_decode.cu",
+    "sclad_matmul": "sclad_matmul.cu",
+    "ssd_scan": "ssd_scan.cu",
+    "flash_attention": "flash_attention.cu",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> (C entry point, argument types).  Every pointer and the
@@ -40,6 +43,9 @@ ENTRY_POINTS = {
     "paged_decode": ("repro_paged_decode", [_P] * 8 + [_I] * 8 + [_P]),
     "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 10 + [_P]),
     "dense_decode": ("repro_dense_decode", [_P] * 5 + [_I] * 6 + [_P]),
+    "sclad_matmul": ("repro_sclad_matmul", [_P] * 4 + [_I] * 6 + [_P]),
+    "ssd_scan": ("repro_ssd_scan", [_P] * 6 + [_I] * 6 + [_P]),
+    "flash_attention": ("repro_flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
 }
 #: Pool payload dtype -> the ``kv_kind`` code of the paged entry points.
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}

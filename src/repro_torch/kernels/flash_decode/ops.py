@@ -13,7 +13,8 @@ cache layout is chosen by ``block_tables``: the paged (N, bs, Hk, D) pool
     interpret mode);
   * ``"off"`` — always the plain version, on either device.
 
-The same knob selects the prefill-side kernel (``kernels.flash_prefill``).
+The same knob selects the prefill-side kernel (``kernels.flash_prefill``)
+and, as ``kernel=``, the SCLD matmul of ``SCLDLinear``.
 """
 from __future__ import annotations
 
@@ -30,11 +31,11 @@ def resolve_kernel(kernel: str, device: torch.device) -> bool:
     """-> True when tensors on ``device`` take the CUDA kernel."""
     if kernel not in ATTN_KERNEL_MODES:
         raise ValueError(
-            f"attention kernel mode {kernel!r} not in {ATTN_KERNEL_MODES}")
+            f"kernel mode {kernel!r} not in {ATTN_KERNEL_MODES}")
     on_cuda = torch.device(device).type == "cuda"
     if kernel == "on" and not on_cuda:
         raise RuntimeError(
-            "attn_kernel='on' needs CUDA tensors: the kernels are CUDA code "
+            "kernel mode 'on' needs CUDA tensors: the kernels are CUDA code "
             "with no CPU or interpret mode (use 'auto' or 'off' on the CPU)")
     return on_cuda if kernel == "auto" else kernel == "on"
 

@@ -7,7 +7,12 @@ or interpret mode).  Run them on a card with
 
 Tolerance 2e-2 on bf16 outputs (the kernels score in fp32 where the plain
 versions round scores to the compute dtype first), 1e-4 in fp32; pools
-(and SCLAD scales) after the prefill scatter bit for bit.
+(and SCLAD scales) after the prefill scatter bit for bit.  The SCLD,
+SSD and flash-attention kernels use the JAX package's kernel tolerances
+(its tests/test_kernels.py): SCLD atol 1e-4 / rtol 2e-2 with fp32 x and
+1e-1 / 5e-2 with bf16 x (the kernel rounds each weight to x's dtype, the
+plain version keeps it exact); attention 2e-5 fp32, 2e-2 bf16; SSD five
+times those (a chunked form against the step-by-step recurrence).
 """
 import dataclasses
 
@@ -17,6 +22,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.examples import sclad_sparsity  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
     flash_decode, paged_flash_decode)
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
@@ -25,6 +36,14 @@ from repro_torch.kernels.flash_prefill.flash_prefill import \
     paged_flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import \
     prefill_attention_ref  # noqa: E402
+from repro_torch.kernels.sclad_matmul.ops import SCLDLinear  # noqa: E402
+from repro_torch.kernels.sclad_matmul.ref import \
+    sclad_matmul_ref  # noqa: E402
+from repro_torch.kernels.sclad_matmul.sclad_matmul import (  # noqa: E402
+    block_compress, sclad_matmul)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import kv_quant  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -253,3 +272,155 @@ def test_wave_engine_runs_through_the_dense_kernel(gen):
     assert [len(out[u]) for u in uids] == [5, 3, 4]
     assert flash_decode.launches - d0 == cfg.num_layers \
         * (eng.stats.decode_steps - 2)  # the last step of each wave samples only
+
+
+SCLD_TOL = {torch.float32: (1e-4, 2e-2), torch.bfloat16: (1e-1, 5e-2)}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _sclad_inputs(M, K, N, C, x_dtype, vals_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    vals, rows = block_compress(w, C)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    return (x.to("cuda", x_dtype),
+            torch.from_numpy(vals).to("cuda", vals_dtype),
+            torch.from_numpy(rows).cuda())
+
+
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,C,block_m", [
+    (256, 384, 256, 1, 128), (128, 256, 384, 16, 128),
+    (96, 128, 256, 6, 32)])  # a partial 64-row tile
+def test_sclad_kernel_matches_plain(gen, M, K, N, C, block_m, x_dtype,
+                                    vals_dtype):
+    x, vals, rows = _sclad_inputs(M, K, N, C, x_dtype, vals_dtype)
+    before = sclad_matmul.launches
+    y = sclad_matmul(x, vals, rows, block_m=block_m)
+    assert sclad_matmul.launches == before + 1
+    assert y.dtype == x_dtype and y.shape == (M, N)
+    ref = sclad_matmul_ref(x, vals, rows)
+    atol, rtol = SCLD_TOL[x_dtype]
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,P,N,chunk", [
+    (3, 384, 64, 128, 128), (2, 768, 32, 64, 256),
+    (2, 288, 48, 16, 96)])  # partial 64-row tiles, P/16 = 3
+def test_ssd_kernel_matches_plain(gen, BH, S, P, N, chunk, dtype):
+    """At least three chunks, so the carried state is held too."""
+    rng = np.random.default_rng(2)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    xdt = (mk(BH, S, P) * 0.1).to("cuda", dtype)
+    a = (-mk(BH, S).abs() * 0.1).to("cuda", dtype)
+    b = (mk(BH, S, N) * 0.3).to("cuda", dtype)
+    c = (mk(BH, S, N) * 0.3).to("cuda", dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    yr, str_ = ssd_scan_ref(xdt, a, b, c)
+    tol = 5 * ATTN_TOL[dtype]
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, str_, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,D,causal,blk", [
+    (2, 256, 256, 4, 2, 64, True, 128),
+    (1, 128, 384, 8, 8, 128, False, 128),
+    (2, 256, 256, 4, 1, 64, True, 128),     # MQA
+    (1, 128, 384, 4, 2, 128, True, 128),    # causal, Sq < Sk
+    (1, 72, 136, 8, 2, 64, True, 8)])       # partial query and key tiles
+def test_flash_attention_kernel_matches_plain(gen, B, Sq, Sk, H, Hk, D,
+                                              causal, blk, dtype):
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, Hk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, Hk, D, generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, block_q=blk, block_k=blk)
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x, vals, rows = _sclad_inputs(128, 256, 128, 4, torch.bfloat16,
+                                  torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        sclad_matmul(x.half(), vals, rows)
+    with pytest.raises(TypeError, match="int32"):
+        sclad_matmul(x, vals, rows.long())
+    with pytest.raises(ValueError, match="K =="):
+        sclad_matmul(x[:, :128], vals, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        sclad_matmul(x.t().contiguous().t(), vals, rows)
+    z = torch.zeros(2, 128, 40, device="cuda")
+    a = torch.zeros(2, 128, device="cuda")
+    bn = torch.zeros(2, 128, 16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_scan(z, a, bn, bn, chunk=64)
+    with pytest.raises(TypeError, match="fp32 or all bf16"):
+        ssd_scan(z[..., :32], a.bfloat16(), bn, bn, chunk=64)
+    with pytest.raises(ValueError, match="chunk up to"):
+        ssd_scan(torch.zeros(1, 512, 32, device="cuda"),
+                 torch.zeros(1, 512, device="cuda"),
+                 torch.zeros(1, 512, 16, device="cuda"),
+                 torch.zeros(1, 512, 16, device="cuda"), chunk=512)
+    q = torch.zeros(1, 256, 4, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no key"):
+        flash_attention(q, kv, kv, causal=True)
+    flash_attention(q, kv, kv, causal=False)  # non-causal Sq > Sk is fine
+    with pytest.raises(TypeError, match="fp32 or all bf16"):
+        flash_attention(q.float(), kv, kv, causal=False)
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention(q[..., :32].contiguous(), kv[..., :32].contiguous(),
+                        kv[..., :32].contiguous(), causal=False)
+
+
+def test_new_entry_points_launch_their_kernels(gen, capsys):
+    """SCLDLinear, ops.ssd and ops.attention launch their kernels on CUDA
+    tensors, and the SCLD example runs through SCLDLinear's kernel."""
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((256, 128)).astype(np.float32)
+    lin = SCLDLinear.from_dense(w, 8)
+    assert lin.vals.is_cuda and lin.sparsity == 0.5
+    x = torch.randn(128, 256, generator=gen, device="cuda")
+    n0 = sclad_matmul.launches
+    y = lin(x)
+    assert sclad_matmul.launches == n0 + 1
+    torch.testing.assert_close(y, sclad_matmul_ref(x, lin.vals, lin.rows),
+                               atol=1e-4, rtol=2e-2)
+
+    BH, S, P, N = 2, 256, 64, 32
+    xs = torch.randn(BH, S, P, generator=gen, device="cuda") * 0.1
+    dt = torch.rand(BH, S, generator=gen, device="cuda") * 0.1
+    A = -torch.rand(BH, generator=gen, device="cuda")
+    b = torch.randn(BH, S, N, generator=gen, device="cuda") * 0.3
+    c = torch.randn(BH, S, N, generator=gen, device="cuda") * 0.3
+    n0 = ssd_scan.launches
+    y, st = ssd_ops.ssd(xs, dt, A, b, c, chunk=64)
+    assert ssd_scan.launches == n0 + 1
+    yr, sr = ssd_scan_ref(xs * dt[..., None], dt * A[:, None], b, c)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, sr, atol=1e-4, rtol=1e-4)
+
+    q = torch.randn(1, 128, 8, 64, generator=gen, device="cuda")
+    kv = torch.randn(1, 128, 2, 64, generator=gen, device="cuda")
+    n0 = flash_attention.launches
+    o = attn_ops.attention(q, kv, kv)
+    assert flash_attention.launches == n0 + 1
+    torch.testing.assert_close(o, attention_ref(q, kv, kv), atol=2e-5,
+                               rtol=2e-5)
+
+    n0 = sclad_matmul.launches
+    res = sclad_sparsity.main([])
+    assert sclad_matmul.launches == n0 + len(sclad_sparsity.UNITS)
+    for y, ref in res["kernel"].values():
+        torch.testing.assert_close(y, ref, atol=1e-4, rtol=2e-2)
+    assert "max model scale at 60%: 1.64x" in capsys.readouterr().out
