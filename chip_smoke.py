@@ -8,7 +8,10 @@ outside the repository.  Phases, each of which raises on failure:
 
   1. device report: the card's name and power limit;
   2. build: every kernel source in ``src/repro_torch/csrc``, one ``nvcc``
-     each, all started together;
+     each, all started together; what ptxas reports (registers, spills)
+     and, from ``cuobjdump -sass``, the count of tensor-core instructions
+     (``HMMA``/``HGMMA``) of each kernel function, which must be above 0
+     for the tensor-core bodies of the SCLD matmul and flash attention;
   3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
@@ -44,7 +47,9 @@ outside the repository.  Phases, each of which raises on failure:
      heads, bf16, causal; causal at 512 queries over 2048 keys; 128
      queries over 2048 keys not causal); kernel, plain, bound and library
      times (``torch.matmul`` on the decompressed weight, none for the
-     scan, ``scaled_dot_product_attention``);
+     scan, ``scaled_dot_product_attention``), and for the SCLD matmul
+     and flash attention the achieved TFLOP/s and GB/s and the share of
+     the bound (bound ms / kernel ms);
   7. their entry points, each with its launch count set to 0 just before
      and read just after: the SCLD example (``repro_torch.examples.
      sclad_sparsity``) through ``SCLDLinear`` on the card, whose system
@@ -80,6 +85,7 @@ QUANT_GATE = {"int8": 0.05, "fp8": 0.12}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
 WARMUP, ITERS = 3, 20
+SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's ~2 GHz
 #: The JAX package's kernel tolerances (tests/test_kernels.py): SCLD
 #: (atol, rtol) with bf16 x and with fp32 x (the SCLD example's); the SSD
 #: scan five times the bf16 attention tolerance (TOL, as above).
@@ -110,13 +116,103 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: The kernel functions that must run on the tensor cores: library ->
+#: function-name stems of its bf16 bodies.
+TENSOR_CORE_BODIES = {"sclad_matmul": ("sclad_matmul_tc_kernel",),
+                      "flash_attention": ("flash_attention_tc_kernel",)}
+
+
+def sass_mma_counts(build):
+    """library -> {kernel function (mangled): its HMMA/HGMMA instructions}
+    from ``cuobjdump -sass`` of each built library; None where the
+    toolkit has no cuobjdump."""
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    counts = {}
+    for name in build.SOURCES:
+        out = subprocess.run([str(tool), "-sass",
+                              str(build.library_path(name))],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+        per, fn = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per[fn] = 0
+            elif fn is not None and re.search(r"\bHG?MMA\.", line):
+                per[fn] += 1
+        counts[name] = per
+    return counts
+
+
+def report_tensor_cores(build, card) -> None:
+    """Print each library's tensor-core instruction count by kernel
+    function; raise if a bf16 body of kernels 5 and 6 has none."""
+    counts = sass_mma_counts(build)
+    if counts is None:
+        print("tensor-core instructions: not measured (no cuobjdump)")
+        return
+    for name, per in counts.items():
+        parts = [f"{short_name(fn)} {n}" for fn, n in sorted(per.items())]
+        print(f"  {name} SASS [{card}]: {sum(per.values())} HMMA/HGMMA "
+              f"({'; '.join(parts)})")
+    for name, stems in TENSOR_CORE_BODIES.items():
+        for stem in stems:
+            fns = [fn for fn in counts[name] if stem in fn]
+            if not fns or any(counts[name][fn] == 0 for fn in fns):
+                raise AssertionError(f"{name}: {stem} has no tensor-core "
+                                     f"instructions in its SASS")
+
+
+def ptxas_report(log: str):
+    """{kernel function (mangled): (registers, spill bytes)} from a
+    ``-Xptxas -v`` build log."""
+    per, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            per[fn] = [0, 0]
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                per[fn][1] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                per[fn][0] = int(m.group(1))
+    return per
+
+
+def short_name(fn: str) -> str:
+    """A mangled kernel name as its stem and template arguments."""
+    stem = re.search(r"\d+([a-z_]+_kernel)", fn)  # <length><name>
+    targs = re.search(r"_kernel(I.+?E)E?v", fn)
+    return (f"{stem.group(1) if stem else fn}"
+            f"{targs.group(1) if targs else ''}")
+
+
+def rates(r) -> str:
+    """Achieved TFLOP/s and GB/s of a timed kernel, and its share of the
+    bound."""
+    return (f"; {r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{r['nbytes'] / r['ms'] / 1e6:.0f} GB/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+
 def cuda_ms(fn) -> float:
     """Mean milliseconds of ``fn()`` over ITERS launches, after warm-up,
-    timed with CUDA events."""
+    timed with CUDA events.  The card first spins for ~50 ms, so the host
+    queues the launches ahead of it and a call shorter than its Python
+    wrapper's host time is timed by the card, not by the host (a call
+    that synchronizes inside is timed as before)."""
     import torch
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -418,10 +514,12 @@ def check_sclad(torch, cfg):
             # Operations: the dense products the kernel does.
             nbytes = (x.numel() * 2 + v.numel() * 2 + r.numel() * 4
                       + M * N * 2)
-            bound_ms, bound_by = bound(nbytes, 2 * M * K * N)
+            ops = 2 * M * K * N
+            bound_ms, bound_by = bound(nbytes, ops)
             results[proj, C] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
+                                    bound_by=bound_by, nbytes=nbytes,
+                                    ops=ops)
     return results
 
 
@@ -508,10 +606,11 @@ def check_attention(torch, cfg, gen):
         pairs = sum(min(Sk, i + 1 + Sk - Sq) for i in range(Sq)) \
             if causal else Sq * Sk
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        bound_ms, bound_by = bound(nbytes, 4 * D * H * pairs)
+        ops = 4 * D * H * pairs
+        bound_ms, bound_by = bound(nbytes, ops)
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, nbytes=nbytes, ops=ops)
     return results
 
 
@@ -890,6 +989,11 @@ def main() -> int:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
         print(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {spills} bytes of spills")
+        if name in TENSOR_CORE_BODIES:
+            for fn, (nreg, spill) in sorted(ptxas_report(log).items()):
+                print(f"    {short_name(fn)}: {nreg} registers, {spill} "
+                      f"bytes of spills")
+    report_tensor_cores(_build, card)
 
     # 3. Kernel checks.
     cfg = get_config(ARCH)
@@ -921,7 +1025,8 @@ def main() -> int:
             else f"{r['library_ms']:.4f} ms"
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+              f"{rates(r) if 'ops' in r else ''}")
 
     # 4. Model checks, full width.
     t0 = time.perf_counter()

@@ -7,9 +7,12 @@ fp32 online softmax over key tiles and the key walk of a causal query
 tile ending at the last key its rows can see.  The causal mask is
 aligned bottom-right (query i sees keys j <= i + Sk - Sq), as the plain
 version ``ref.attention_ref`` has it; causal with Sq > Sk, where that
-mask leaves rows with no key, raises.  A CUDA tensor launches the
-kernel, or the call raises; the plain version runs only for tensors on
-the CPU.  ``flash_attention.launches`` counts kernel launches.
+mask leaves rows with no key, raises.  The dtype picks the kernel's
+body: bf16 runs on the tensor cores (FlashAttention-2 form, P rounded
+to bf16 before P @ V as the TPU body does), fp32 on the exact-fp32
+body.  A CUDA tensor launches the kernel, or the call raises; the plain
+version runs only for tensors on the CPU.  ``flash_attention.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_k: int = 128):
     """q: (B, Sq, H, D); k, v: (B, Sk, Hk, D), H % Hk == 0, Sq % block_q
     == 0, Sk % block_k == 0; all fp32 or all bf16 -> (B, Sq, H, D) in
-    q's dtype."""
+    q's dtype.  On the card bf16 runs the tensor-core body and fp32 the
+    exact-fp32 one; inputs must be 16-byte aligned."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if block_q <= 0 or block_k <= 0 or Sq % block_q or Sk % block_k:
@@ -50,6 +54,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                          f"== 0)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: inputs must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.load("flash_attention")
     code = lib.repro_flash_attention(

@@ -11,10 +11,15 @@ package unchanged (the same argsort tie-breaking, so ``vals`` and
 ``sclad_matmul`` (``csrc/sclad_matmul.cu``) computes ``y = x @
 decode(vals, rows)``: port of ``repro.kernels.sclad_matmul.sclad_matmul``.
 The kernel decodes each stored tile into a dense tile in shared memory
-and multiplies densely (load-as-dense: compute is sparsity-agnostic).  A
-CUDA tensor launches the kernel, or the call raises; the plain PyTorch
-version (``ref.sclad_matmul_ref``) runs only for tensors on the CPU.
-``sclad_matmul.launches`` counts kernel launches.
+and multiplies densely (load-as-dense: compute is sparsity-agnostic).
+The dtype of x picks its body: bf16 x runs on the tensor cores (bf16
+products, fp32 sums), with the K loop split across blocks where the
+output tiles alone would not fill the card (``k_split``; the fp32
+partials go to a workspace this wrapper allocates, and a second kernel
+sums them in a fixed order); fp32 x runs the exact-fp32 body.  A CUDA tensor launches
+the kernel, or the call raises; the plain PyTorch version
+(``ref.sclad_matmul_ref``) runs only for tensors on the CPU.
+``sclad_matmul.launches`` counts wrapper calls that launched it.
 """
 from __future__ import annotations
 
@@ -30,6 +35,32 @@ UNIT_R = 8  # row-unit height
 TILE = 128  # tile edge
 UNITS_PER_TILE = TILE // UNIT_R  # 16
 DTYPES = (torch.float32, torch.bfloat16)
+#: Output tile of one block of the tensor-core (bf16 x) body.
+TC_BLOCK_M, TC_BLOCK_N = 128, 128
+#: Streaming multiprocessors of an H100 SXM: what ``k_split`` fills by
+#: default.
+SM_COUNT = 132
+
+
+def k_split(M: int, nk: int, nn: int,
+            sms: int = SM_COUNT) -> Tuple[int, int]:
+    """The bf16 body's K split, ``(split, wide)``: of the (M / 128) *
+    (N / 128) output tiles (M tile fastest), the first ``wide`` take
+    ``split + 1`` K slices and the others ``split``, so that the grid
+    has one block for each SM (``sms``), or one a tile where the tiles
+    alone fill the card, and no tile more slices than K tiles."""
+    tiles = -(-M // TC_BLOCK_M) * (nn * TILE // TC_BLOCK_N)
+    if tiles >= sms:
+        return 1, 0
+    split, wide = divmod(sms, tiles)
+    return (nk, 0) if split >= nk else (split, wide)
+
+
+def k_ranges(nk: int, slices: int):
+    """The K tiles [lo, hi) of each slice of a tile, as the kernel cuts
+    them."""
+    return [(nk * z // slices, nk * (z + 1) // slices)
+            for z in range(slices)]
 
 
 def sclad_matmul(x, vals, rows, *, block_m: int = 128):
@@ -40,7 +71,10 @@ def sclad_matmul(x, vals, rows, *, block_m: int = 128):
     rows: (K//128, N//128, C) int32 — each unit's row index in its tile
           (distinct within a tile, in [0, 16)).
     Returns (M, N) in x's dtype.  Each decoded weight is rounded to x's
-    dtype before its product, and products accumulate in fp32.
+    dtype before its product, and products accumulate in fp32: on the
+    tensor cores for bf16 x (K split into ``k_split`` slices, summed in
+    slice order), by exact fp32 FMAs for fp32 x.  CUDA inputs must be
+    16-byte aligned.
     """
     M, K = x.shape
     nk, nn, C = vals.shape[:3]
@@ -62,12 +96,21 @@ def sclad_matmul(x, vals, rows, *, block_m: int = 128):
         raise TypeError(f"sclad_matmul: rows must be int32 {(nk, nn, C)}")
     if not all(t.is_contiguous() for t in (x, vals, rows)):
         raise ValueError("sclad_matmul: inputs must be contiguous")
+    if x.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("sclad_matmul: x and vals must be 16-byte aligned")
     y = torch.empty(M, nn * TILE, dtype=x.dtype, device=x.device)
+    split, wide, ws = 1, 0, None
+    if x.dtype == torch.bfloat16:
+        split, wide = k_split(M, nk, nn, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        if split + (wide > 0) > 1:
+            ws = torch.empty(split + (wide > 0), M, nn * TILE,
+                             dtype=torch.float32, device=x.device)
     lib = _build.load("sclad_matmul")
     code = lib.repro_sclad_matmul(
         x.data_ptr(), vals.data_ptr(), rows.data_ptr(), y.data_ptr(),
-        M, nk, nn, C, int(x.dtype == torch.bfloat16),
-        int(vals.dtype == torch.bfloat16),
+        None if ws is None else ws.data_ptr(), M, nk, nn, C, split, wide,
+        int(x.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "sclad_matmul")
     sclad_matmul.launches += 1

@@ -40,7 +40,7 @@ from repro_torch.kernels.sclad_matmul.ops import SCLDLinear  # noqa: E402
 from repro_torch.kernels.sclad_matmul.ref import \
     sclad_matmul_ref  # noqa: E402
 from repro_torch.kernels.sclad_matmul.sclad_matmul import (  # noqa: E402
-    block_compress, sclad_matmul)
+    block_compress, k_split, sclad_matmul)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan  # noqa: E402
@@ -278,9 +278,9 @@ SCLD_TOL = {torch.float32: (1e-4, 2e-2), torch.bfloat16: (1e-1, 5e-2)}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def _sclad_inputs(M, K, N, C, x_dtype, vals_dtype, seed=0):
+def _sclad_inputs(M, K, N, C, x_dtype, vals_dtype, seed=0, w_scale=1.0):
     rng = np.random.default_rng(seed)
-    w = rng.standard_normal((K, N)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) * w_scale).astype(np.float32)
     vals, rows = block_compress(w, C)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
     return (x.to("cuda", x_dtype),
@@ -346,6 +346,57 @@ def test_flash_attention_kernel_matches_plain(gen, B, Sq, Sk, H, Hk, D,
     ref = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [6, 16])
+@pytest.mark.parametrize("M,K,N,block_m", [
+    (128, 5632, 256, 128), (128, 2048, 640, 128),
+    (128, 5632, 1280, 128),  # 13 K slices on 8 tiles, 14 on 2
+    (96, 2048, 640, 32)])  # a partial 128-row tile
+def test_sclad_tensor_core_body_at_tinyllama_widths(gen, M, K, N, block_m,
+                                                    C, vals_dtype):
+    """bf16 x at tinyllama-1.1b's MLP depths, on the K-split grid (the
+    output tiles alone are fewer than the SMs), held to the plain version
+    and bitwise equal from launch to launch (the slices' fp32 partials
+    are summed in a fixed order).  Weights at the model's init scale
+    (0.02, as chip_smoke.py): fp32 units are rounded to bf16 before their
+    products by design (the TPU body's ``w.astype(x.dtype)``) while the
+    plain version keeps them exact, and with unit-variance weights over
+    K = 2048 that rounding alone reaches ~0.25 absolute on outputs near
+    zero, past the JAX suite's atol."""
+    x, vals, rows = _sclad_inputs(M, K, N, C, torch.bfloat16, vals_dtype,
+                                  w_scale=0.02)
+    assert k_split(M, K // 128, N // 128)[0] > 1
+    before = sclad_matmul.launches
+    y = sclad_matmul(x, vals, rows, block_m=block_m)
+    assert sclad_matmul.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    atol, rtol = SCLD_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), sclad_matmul_ref(x, vals, rows)
+                               .float(), atol=atol, rtol=rtol)
+    assert torch.equal(y.view(torch.int16), sclad_matmul(
+        x, vals, rows, block_m=block_m).view(torch.int16))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hk,D,causal,blk", [
+    (1, 1024, 1024, 32, 4, 64, True, 128),
+    (1, 64, 1024, 32, 4, 64, True, 64),     # Sq under one query tile
+    (1, 48, 1024, 32, 4, 64, False, 16)])
+def test_flash_attention_tensor_core_body(gen, B, Sq, Sk, H, Hk, D, causal,
+                                          blk):
+    """bf16 at tinyllama-1.1b's heads, held to the plain version and
+    bitwise equal from launch to launch."""
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda")
+               .bfloat16() for S, h in ((Sq, H), (Sk, Hk), (Sk, Hk)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, block_q=blk, block_k=blk)
+    assert flash_attention.launches == before + 1
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), attention_ref(
+        q, k, v, causal=causal).float(), atol=tol, rtol=tol)
+    again = flash_attention(q, k, v, causal=causal, block_q=blk, block_k=blk)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):

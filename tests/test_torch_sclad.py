@@ -9,7 +9,10 @@ Tolerances:
 * plain matmul vs JAX's ``sclad_matmul_ref``, fp32 x: atol 1e-4, rtol
   1e-5 — the same fp32 products, summed in another order;
 * bf16 x: 2e-2 — the fp32 results round to bf16 in both, and a sum an
-  ulp apart can round to the neighbouring bf16 value.
+  ulp apart can round to the neighbouring bf16 value;
+* the CUDA kernel's bf16 rounding, written out in torch, against the
+  plain version: the JAX suite's bf16 SCLD tolerance, atol 1e-1 and rtol
+  5e-2 (the one the kernel is held to on the card).
 
 The Pallas ``sclad_matmul`` is not called: its body does not trace on
 the installed jax (``pl.store``).
@@ -39,7 +42,8 @@ from repro_torch.kernels.sclad_matmul.ops import SCLDLinear  # noqa: E402
 from repro_torch.kernels.sclad_matmul.ref import (  # noqa: E402
     decompress_torch, sclad_matmul_ref)
 from repro_torch.kernels.sclad_matmul.sclad_matmul import (  # noqa: E402
-    block_compress, decompress, sclad_matmul)
+    SM_COUNT, TC_BLOCK_M, TC_BLOCK_N, block_compress, decompress, k_ranges,
+    k_split, sclad_matmul)
 
 SHAPES = [(128, 256, 128, 6), (256, 128, 256, 16), (128, 384, 256, 4),
           (384, 128, 128, 1)]
@@ -196,3 +200,54 @@ def test_sclad_example_on_the_cpu():
     assert text[0] == "== kernel: block-SCLD matmul =="
     assert any("units= 6 sparsity=0.62 traffic=0.38x dense" in t
                for t in text)
+
+
+#: tinyllama-1.1b's MLP projections at M = 128, as chip_smoke.py times
+#: them: (M, K, N) of gate/up and of down.
+CHIP_SHAPES = [(128, 2048, 5632), (128, 5632, 2048)]
+SCLD_TOL_BF16 = (1e-1, 5e-2)
+
+
+@pytest.mark.parametrize("M,K,N", CHIP_SHAPES)
+def test_k_split_plan_covers_k_once_and_fills_the_card(M, K, N):
+    nk, nn = K // 128, N // 128
+    split, wide = k_split(M, nk, nn)
+    tiles = -(-M // TC_BLOCK_M) * (N // TC_BLOCK_N)
+    blocks = 0
+    for tile in range(tiles):  # the first `wide` tiles take one slice more
+        ranges = k_ranges(nk, split + (tile < wide))
+        assert [t for lo, hi in ranges for t in range(lo, hi)] \
+            == list(range(nk))
+        assert all(hi > lo for lo, hi in ranges)
+        blocks += len(ranges)
+    # one block for each SM: every SM busy, one wave
+    assert blocks == SM_COUNT == 132
+
+
+@pytest.mark.parametrize("vals_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,C", [
+    (128, 2048, 5632, 6), (128, 5632, 2048, 6), (128, 5632, 2048, 16),
+    (96, 2048, 640, 6)])
+def test_bf16_body_rounding_stays_within_tolerance(M, K, N, C, vals_dtype):
+    """The bf16 body's arithmetic: each weight rounded to bf16, bf16
+    products (exact in fp32), fp32 sums over each K slice of the
+    wrapper's plan, the slices' partials added in slice order, then a
+    cast to bf16."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((K, N)) * 0.02).astype(np.float32)
+    vals, rows = block_compress(w, C)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).bfloat16()
+    v = torch.from_numpy(vals).to(vals_dtype)
+    r = torch.from_numpy(rows)
+    wb = decompress_torch(v, r).bfloat16().float()
+    nk, nn = K // 128, N // 128
+    split, wide = k_split(M, nk, nn)
+    y = None  # the first output tile's slices: the most of any tile
+    for lo, hi in k_ranges(nk, split + (wide > 0)):
+        part = x[:, lo * 128:hi * 128].float() @ wb[lo * 128:hi * 128]
+        y = part if y is None else y + part
+    atol, rtol = SCLD_TOL_BF16
+    torch.testing.assert_close(y.bfloat16().float(),
+                               sclad_matmul_ref(x, v, r).float(), atol=atol,
+                               rtol=rtol)
