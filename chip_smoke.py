@@ -11,14 +11,18 @@ outside the repository.  Phases, each of which raises on failure:
      each, all started together; what ptxas reports (registers, spills)
      and, from ``cuobjdump -sass``, the count of tensor-core instructions
      (``HMMA``/``HGMMA``) of each kernel function, which must be above 0
-     for the tensor-core bodies of the SCLD matmul and flash attention;
+     for the tensor-core bodies of the SCLD matmul, flash attention and
+     the two decode kernels (``decode_tc_kernel``);
   3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
      compute, outputs within |out - ref| <= 2e-2 + 2e-2 |ref| element by
      element: paged decode and paged prefill on a bf16 pool and on int8
      and fp8 SCLAD pools (prefill pools and scales bit for bit), and the
-     dense decode of the wave path; kernel, plain and
+     dense decode of the wave path; the decode kernels also on a second
+     length set straddling their 128-position split boundaries (and a
+     stale length past the table or stripe), each bitwise equal from
+     launch to launch; kernel, plain and
      ``scaled_dot_product_attention`` times (the last a yardstick only,
      on a pre-gathered, pre-dequantized dense copy; the port never calls
      it) beside each kernel's bound;
@@ -35,7 +39,8 @@ outside the repository.  Phases, each of which raises on failure:
      dense decode kernel); a bf16 / int8 pair at the same pool bytes with
      16 lanes (blocks, block bytes, mean live lanes, preemptions, decode
      tok/s of each); then three decode steps of 8 lanes under
-     ``torch.profiler`` (device-busy share, top kernels);
+     ``torch.profiler`` (device-busy share, top kernels, the decode
+     kernels' split and combine passes by name);
   6. the last three kernels, each against its plain version at the
      full width of a config the repo carries, with the JAX package's
      kernel tolerances: the SCLD matmul at tinyllama-1.1b's MLP
@@ -119,7 +124,9 @@ def card_line() -> str:
 #: The kernel functions that must run on the tensor cores: library ->
 #: function-name stems of its bf16 bodies.
 TENSOR_CORE_BODIES = {"sclad_matmul": ("sclad_matmul_tc_kernel",),
-                      "flash_attention": ("flash_attention_tc_kernel",)}
+                      "flash_attention": ("flash_attention_tc_kernel",),
+                      "paged_decode": ("decode_tc_kernel",),
+                      "dense_decode": ("decode_tc_kernel",)}
 
 
 def sass_mma_counts(build):
@@ -149,7 +156,7 @@ def sass_mma_counts(build):
 
 def report_tensor_cores(build, card) -> None:
     """Print each library's tensor-core instruction count by kernel
-    function; raise if a bf16 body of kernels 5 and 6 has none."""
+    function; raise if a bf16 body of kernels 1, 3, 5 and 6 has none."""
     counts = sass_mma_counts(build)
     if counts is None:
         print("tensor-core instructions: not measured (no cuobjdump)")
@@ -288,12 +295,29 @@ def same_bits(torch, a, b) -> bool:
                        b.contiguous().view(torch.uint8))
 
 
+def same_launches(torch, what, out, again) -> None:
+    """Raise unless a second launch gives ``out`` bit for bit."""
+    if not same_bits(torch, out, again()):
+        raise AssertionError(f"{what}: two launches differ")
+
+
+def split_lengths_check(torch, what, out, ref, lens) -> float:
+    """The second length set: rows with positions within TOL of their
+    plain version, rows of length 0 exactly zero."""
+    live = lens > 0
+    if not (out[~live] == 0).all():
+        raise AssertionError(f"{what}: a row of length 0 is not zero")
+    return assert_close(torch, f"{what} (split boundaries)", out[live],
+                        ref[live])
+
+
 def check_decode(torch, cfg, gen, kv_dtype="bf16"):
     """Kernel 1 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
-    plain version at the decode step's shapes."""
+    plain version at the decode step's shapes, then on lengths that
+    straddle the split boundaries; bitwise equal launch to launch."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode.flash_decode import \
-        paged_flash_decode
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        SPLIT, paged_flash_decode)
     from repro_torch.kernels.flash_decode.ref import paged_decode_ref
     dev = "cuda"
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -316,8 +340,24 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
     out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=scales)
     torch.cuda.synchronize()
     ref = paged_decode_ref(q, kp, vp, lens, tbl, kv_scales=scales)
-    err = assert_close(torch, f"paged decode kernel ({kv_dtype} pool)",
-                       out[live], ref[live])
+    what = f"paged decode kernel ({kv_dtype} pool)"
+    err = assert_close(torch, what, out[live], ref[live])
+    same_launches(torch, what, out, lambda: paged_flash_decode(
+        q, kp, vp, lens, tbl, kv_scales=scales))
+    # Lengths straddling the split boundaries, the whole table and a
+    # stale length past it, over full tables; a row of length 0 -> zeros.
+    lens2 = torch.tensor([SPLIT - 1, SPLIT, SPLIT + 1, T * BS, T * BS + 300,
+                          2 * SPLIT - 1, 2 * SPLIT + 1, 0],
+                         dtype=torch.int32, device=dev)
+    tbl2 = (1 + torch.randperm(N - 1, generator=gen, device=dev)[:B * T]) \
+        .reshape(B, T).int()
+    out2 = paged_flash_decode(q, kp, vp, lens2, tbl2, kv_scales=scales)
+    torch.cuda.synchronize()
+    ref2 = paged_decode_ref(q, kp, vp, lens2, tbl2, kv_scales=scales)
+    err = max(err, split_lengths_check(torch, what, out2, ref2, lens2))
+    same_launches(torch, what + " (split boundaries)", out2,
+                  lambda: paged_flash_decode(q, kp, vp, lens2, tbl2,
+                                             kv_scales=scales))
 
     ms = cuda_ms(lambda: paged_flash_decode(q, kp, vp, lens, tbl,
                                             kv_scales=scales))
@@ -344,7 +384,8 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
     ops = 4 * H * D * n[live].double().sum().item()
     bound_ms, bound_by = bound(nbytes, ops)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
+                ops=ops)
 
 
 def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
@@ -449,9 +490,12 @@ def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
 
 def check_dense_decode(torch, cfg, gen):
     """Kernel 3 (dense stripes, the wave path's decode) vs its plain
-    version: 8 rows of (1024, 4, 64) bf16 stripes, mixed lengths."""
+    version: 8 rows of (1024, 4, 64) bf16 stripes, mixed lengths, then
+    lengths that straddle the split boundaries; bitwise equal launch to
+    launch."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        SPLIT, flash_decode)
     from repro_torch.kernels.flash_decode.ref import decode_ref
     dev = "cuda"
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -465,7 +509,18 @@ def check_dense_decode(torch, cfg, gen):
     out = flash_decode(q, kc, vc, lens)
     torch.cuda.synchronize()
     ref = decode_ref(q, kc, vc, lens)
-    err = assert_close(torch, "dense decode kernel", out[live], ref[live])
+    what = "dense decode kernel"
+    err = assert_close(torch, what, out[live], ref[live])
+    same_launches(torch, what, out, lambda: flash_decode(q, kc, vc, lens))
+    lens2 = torch.tensor([SPLIT - 1, SPLIT, SPLIT + 1, S, S + 300,
+                          2 * SPLIT - 1, 2 * SPLIT + 1, 0],
+                         dtype=torch.int32, device=dev)
+    out2 = flash_decode(q, kc, vc, lens2)
+    torch.cuda.synchronize()
+    err = max(err, split_lengths_check(torch, what, out2,
+                                       decode_ref(q, kc, vc, lens2), lens2))
+    same_launches(torch, what + " (split boundaries)", out2,
+                  lambda: flash_decode(q, kc, vc, lens2))
     ms = cuda_ms(lambda: flash_decode(q, kc, vc, lens))
     plain_ms = cuda_ms(lambda: decode_ref(q, kc, vc, lens))
     mask = (torch.arange(S, device=dev)[None] < lens[:, None]
@@ -477,7 +532,8 @@ def check_dense_decode(torch, cfg, gen):
     nbytes = 2 * n * Hk * D * 2 + 2 * q.numel() * 2 + lens.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4 * H * D * n)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
+                ops=4 * H * D * n)
 
 
 def check_sclad(torch, cfg):
@@ -950,6 +1006,13 @@ def profile_decode(torch, eng, cfg, card):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         print(f"  {ms / steps:8.3f} ms/step  {name[:90]}")
+    for stem in ("decode_tc_kernel", "decode_combine_kernel"):
+        ms = sum(v for k, v in per_kernel.items() if stem in k)
+        calls = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and stem in e.name)
+        print(f"decode profile {stem} [{card}]: {ms / steps:.4f} ms/step, "
+              f"{calls / steps:.0f} launches/step")
 
 
 def kernel_entry(name, source, replaces, launches, r, err=None):
@@ -1011,7 +1074,7 @@ def main() -> int:
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}){rates(r) if 'ops' in r else ''}")
 
     # 6. The last three kernels at full width, beside the other checks.
     sclad = check_sclad(torch, cfg)

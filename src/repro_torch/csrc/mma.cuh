@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (sclad_matmul.cu, flash_attention.cu): 16-byte asynchronous copies into
+// (sclad_matmul.cu, flash_attention.cu, decode_attention.cuh): 16-byte asynchronous copies into
 // shared memory with a zero-fill form, their commit / wait groups,
 // ldmatrix (plain and transposed), the bf16 m16n8k16 tensor-core product
 // with fp32 sums, and packing two fp32 values into one bf16x2 register.

@@ -1,7 +1,9 @@
-// Shared pieces of the attention kernels (paged_decode.cu, paged_prefill.cu,
-// dense_decode.cu): element conversions, the SCLAD payload codecs, warp
-// reductions, the shared-memory layout of one thread block, the tile
-// loaders, and the step that folds one tile of up to 32 keys into a
+// Shared pieces of the attention kernels: element conversions, the SCLAD
+// payload codecs, warp reductions and the pool codes (also used by the
+// decode kernels' body, decode_attention.cuh, for paged_decode.cu and
+// dense_decode.cu), and, for paged_prefill.cu and the fp32 body of
+// flash_attention.cu, the shared-memory layout of one thread block, the
+// tile loaders, and the step that folds one tile of up to 32 keys into a
 // block's fp32 online-softmax state.
 //
 // A thread block owns ROWS query rows (the GQA heads that share one kv

@@ -40,16 +40,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> (C entry point, argument types).  Every pointer and the
 #: stream are c_void_p: a bare Python int would be cut to 32 bits.
 ENTRY_POINTS = {
-    "paged_decode": ("repro_paged_decode", [_P] * 8 + [_I] * 8 + [_P]),
+    "paged_decode": ("repro_paged_decode", [_P] * 9 + [_I] * 9 + [_P]),
     "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 10 + [_P]),
-    "dense_decode": ("repro_dense_decode", [_P] * 5 + [_I] * 6 + [_P]),
+    "dense_decode": ("repro_dense_decode", [_P] * 6 + [_I] * 7 + [_P]),
     "sclad_matmul": ("repro_sclad_matmul", [_P] * 5 + [_I] * 8 + [_P]),
     "ssd_scan": ("repro_ssd_scan", [_P] * 6 + [_I] * 6 + [_P]),
     "flash_attention": ("repro_flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
 }
 #: Pool payload dtype -> the ``kv_kind`` code of the paged entry points.
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-HEADERS = ("paged_attention.cuh", "mma.cuh")
+HEADERS = ("paged_attention.cuh", "mma.cuh", "decode_attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

@@ -7,9 +7,17 @@
   ``repro.kernels.flash_decode.flash_decode.flash_decode``: decode over
   dense (B, S, Hk, D) bf16 stripes (the wave path's cache).
 
-A CUDA tensor launches the kernel, or the call raises; the plain PyTorch
-versions (``ref.paged_decode_ref``, ``ref.decode_ref``) run only for
-tensors on the CPU.  ``<wrapper>.launches`` counts kernel launches.
+Both run one body (``csrc/decode_attention.cuh``): the key walk is split
+across blocks at a fixed ``SPLIT`` positions (``decode_splits``: from the
+table or stripe width alone, never from ``lengths``), each block's
+partial goes to an fp32 workspace this wrapper allocates, and a second
+kernel merges a row's splits in a fixed order.  bf16 q runs on the
+tensor cores, fp32 q in exact fp32.
+
+A CUDA tensor launches the kernels, or the call raises; the plain
+PyTorch versions (``ref.paged_decode_ref``, ``ref.decode_ref``) run only
+for tensors on the CPU.  ``<wrapper>.launches`` counts wrapper calls that
+launched their kernels (two device launches each: split and combine).
 """
 from __future__ import annotations
 
@@ -20,6 +28,35 @@ from repro_torch.kernels.flash_decode.ref import decode_ref, paged_decode_ref
 
 HEAD_DIMS = (64, 128)
 MAX_REP = 32  # query heads per kv head the kernel holds in one block
+#: Positions a block of the split pass walks (``kSplit`` in
+#: ``csrc/decode_attention.cuh``).
+SPLIT = 128
+
+
+def decode_splits(width: int) -> int:
+    """Blocks of the split pass along the key walk of a table (or
+    stripe) of ``width`` positions: ``ceil(width / SPLIT)``.  Shapes
+    only: the host never reads ``lengths``."""
+    return -(-width // SPLIT)
+
+
+def split_ranges(n: int, width: int):
+    """The positions ``[lo, hi)`` each of the ``decode_splits(width)``
+    blocks walks for a row of length ``n``; a block whose range starts at
+    or past ``min(n, width)`` is empty (it exits at once)."""
+    live = max(0, min(n, width))
+    return [(min(s * SPLIT, live), min((s + 1) * SPLIT, live))
+            for s in range(decode_splits(width))]
+
+
+def _workspace(q, width):
+    """``(n_split, ws)``: the split pass's fp32 scratch, per (row, query
+    head, split) a (D,) accumulator, then per (row, head, split) its
+    (m, l); sized from shapes only."""
+    B, H, D = q.shape
+    n_split = decode_splits(width)
+    return n_split, torch.empty(B * H * n_split * (D + 2),
+                                dtype=torch.float32, device=q.device)
 
 
 def _check_q(what, q, Hk, D):
@@ -52,7 +89,27 @@ def _check_inputs(q, k_pool, v_pool, lengths, block_tables, kv_scales):
     if not all(t.is_contiguous()
                for t in (q, k_pool, v_pool, lengths, block_tables)):
         raise ValueError("paged_flash_decode: inputs must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_flash_decode: pools must be 16-byte "
+                         "aligned")
     return kind
+
+
+def _check_dense(q, k_cache, v_cache, lengths):
+    B = q.shape[0]
+    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode: all inputs must be on one device")
+    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16 \
+            or v_cache.shape != k_cache.shape or k_cache.dim() != 4 \
+            or k_cache.shape[0] != B:
+        raise TypeError("flash_decode: k/v caches must be bf16 (B, S, Hk, D)")
+    _check_q("flash_decode", q, k_cache.shape[2], k_cache.shape[3])
+    if lengths.dtype != torch.int32 or lengths.shape != (B,):
+        raise TypeError("flash_decode: lengths must be (B,) int32")
+    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
+        raise ValueError("flash_decode: inputs must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode: caches must be 16-byte aligned")
 
 
 def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
@@ -70,8 +127,9 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
     kv_scales:    (k_scale, v_scale) (N, bs, Hk) fp32, with a SCLAD pool
                   only: the payload is dequantized on load.
 
-    Returns (B, H, D) in q.dtype.  KV bytes are read once per token, block
-    by block through the table, never gathered into a per-lane copy.
+    Returns (B, H, D) in q.dtype; a row with no live position gets zeros.
+    KV bytes are read once per token, block by block through the table,
+    never gathered into a per-lane copy.
     """
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, lengths, block_tables,
@@ -81,12 +139,14 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
     _, bs, Hk, _ = k_pool.shape
     ks, vs = (None, None) if kv_scales is None \
         else (kv_scales[0].data_ptr(), kv_scales[1].data_ptr())
+    T = block_tables.shape[1]
+    n_split, ws = _workspace(q, T * bs)
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     code = lib.repro_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
-        lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        B, H, Hk, D, bs, block_tables.shape[1],
+        lengths.data_ptr(), block_tables.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), B, H, Hk, D, bs, T, n_split,
         int(q.dtype == torch.bfloat16), kind,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_flash_decode")
@@ -105,29 +165,19 @@ def flash_decode(q, k_cache, v_cache, lengths):
               [b, j]);
     lengths:  (B,) int32 valid positions per row (read up to min(len, S)).
 
-    Returns (B, H, D) in q.dtype.
+    Returns (B, H, D) in q.dtype; a row with no live position gets zeros.
     """
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, lengths)
-    B = q.shape[0]
-    if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
-        raise ValueError("flash_decode: all inputs must be on one device")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16 \
-            or v_cache.shape != k_cache.shape or k_cache.dim() != 4 \
-            or k_cache.shape[0] != B:
-        raise TypeError("flash_decode: k/v caches must be bf16 (B, S, Hk, D)")
-    _, S, Hk, D = k_cache.shape
-    _check_q("flash_decode", q, Hk, D)
-    if lengths.dtype != torch.int32 or lengths.shape != (B,):
-        raise TypeError("flash_decode: lengths must be (B,) int32")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
-        raise ValueError("flash_decode: inputs must be contiguous")
+    _check_dense(q, k_cache, v_cache, lengths)
+    B, S, Hk, D = k_cache.shape
+    n_split, ws = _workspace(q, S)
     out = torch.empty_like(q)
     lib = _build.load("dense_decode")
     code = lib.repro_dense_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, S, q.shape[1], Hk, D,
-        int(q.dtype == torch.bfloat16),
+        lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, S,
+        q.shape[1], Hk, D, n_split, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_decode")
     flash_decode.launches += 1

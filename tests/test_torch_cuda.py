@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.flash_attention import \
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref  # noqa: E402
 from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
-    flash_decode, paged_flash_decode)
+    SPLIT, flash_decode, paged_flash_decode)
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
     decode_ref, paged_decode_ref)
 from repro_torch.kernels.flash_prefill.flash_prefill import \
@@ -272,6 +272,104 @@ def test_wave_engine_runs_through_the_dense_kernel(gen):
     assert [len(out[u]) for u in uids] == [5, 3, 4]
     assert flash_decode.launches - d0 == cfg.num_layers \
         * (eng.stats.decode_steps - 2)  # the last step of each wave samples only
+
+
+#: Lengths around the decode kernels' split boundaries, a whole table or
+#: stripe of WIDTH positions, and a stale length past it.
+WIDTH = 1280
+SPLIT_LENGTHS = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 1024, WIDTH, WIDTH + 220]
+SPLIT_HEADS = [(4, 4, 64), (24, 4, 64), (32, 4, 64), (32, 1, 128)]
+
+
+def _split_pools(gen, N, bs, Hk, D, kv_dtype):
+    if kv_dtype == "bf16":
+        mk = lambda: torch.randn(N, bs, Hk, D, generator=gen,  # noqa: E731
+                                 device="cuda").bfloat16()
+        return mk(), mk(), None
+    kp, ks = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    vp, vs = _qpool(gen, N, bs, Hk, D, kv_dtype)
+    return kp, vp, (ks, vs)
+
+
+def _check_split_out(out, ref, lens, dtype):
+    live = lens > 0
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert (out[~live] == 0).all()  # no live position: zeros
+
+
+@pytest.mark.parametrize("bs", [16, 8])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hk,D", SPLIT_HEADS)
+def test_split_decode_kernel_across_split_boundaries(gen, H, Hk, D, dtype,
+                                                     kv_dtype, bs):
+    """The split-and-combine bodies (tensor cores for bf16 q, exact fp32
+    for fp32 q) on every pool against their plain version, rep 1 to 32;
+    bitwise equal launch to launch."""
+    B, T = len(SPLIT_LENGTHS), WIDTH // bs
+    N = B * T + 1
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kp, vp, sc = _split_pools(gen, N, bs, Hk, D, kv_dtype)
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device="cuda")
+    tbl = _tables(gen, B, T, N, [WIDTH] * B, bs)
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=sc)
+    assert paged_flash_decode.launches == before + 1
+    _check_split_out(out, paged_decode_ref(q, kp, vp, lens, tbl,
+                                           kv_scales=sc), lens, dtype)
+    again = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=sc)
+    assert torch.equal(_bytes(out), _bytes(again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hk,D", SPLIT_HEADS)
+def test_split_dense_decode_kernel_across_split_boundaries(gen, H, Hk, D,
+                                                           dtype):
+    B, S = len(SPLIT_LENGTHS), WIDTH
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device="cuda")
+    before = flash_decode.launches
+    out = flash_decode(q, kc, vc, lens)
+    assert flash_decode.launches == before + 1
+    _check_split_out(out, decode_ref(q, kc, vc, lens), lens, dtype)
+    assert torch.equal(_bytes(out), _bytes(flash_decode(q, kc, vc, lens)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["bf16", "int8", "dense"])
+def test_split_decode_lane_alone_equals_lane_in_batch(gen, layout, dtype):
+    """A lane's output does not depend on the batch around it or on the
+    table (stripe) width: decoded alone with a table (stripe) cut to its
+    length, it is bit for bit what it is inside the batch of 8."""
+    H, Hk, D, bs = 32, 4, 64, 16
+    lens_list = [0, 1, 127, 129, 600, 1024, WIDTH, 300]
+    B, T = len(lens_list), WIDTH // bs
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    if layout == "dense":
+        kc = torch.randn(B, WIDTH, Hk, D, generator=gen,
+                         device="cuda").bfloat16()
+        vc = torch.randn(B, WIDTH, Hk, D, generator=gen,
+                         device="cuda").bfloat16()
+        out = flash_decode(q, kc, vc, lens)
+    else:
+        N = B * T + 1
+        kp, vp, sc = _split_pools(gen, N, bs, Hk, D, layout)
+        tbl = _tables(gen, B, T, N, [WIDTH] * B, bs)
+        out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=sc)
+    for i in (1, 2, 3, 4, 7):
+        n = lens_list[i]
+        if layout == "dense":
+            alone = flash_decode(q[i:i + 1], kc[i:i + 1, :n].contiguous(),
+                                 vc[i:i + 1, :n].contiguous(), lens[i:i + 1])
+        else:
+            alone = paged_flash_decode(
+                q[i:i + 1], kp, vp, lens[i:i + 1],
+                tbl[i:i + 1, :-(-n // bs)].contiguous(), kv_scales=sc)
+        assert torch.equal(_bytes(alone[0]), _bytes(out[i])), i
 
 
 SCLD_TOL = {torch.float32: (1e-4, 2e-2), torch.bfloat16: (1e-1, 5e-2)}
