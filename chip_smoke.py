@@ -11,18 +11,21 @@ outside the repository.  Phases, each of which raises on failure:
      each, all started together; what ptxas reports (registers, spills)
      and, from ``cuobjdump -sass``, the count of tensor-core instructions
      (``HMMA``/``HGMMA``) of each kernel function, which must be above 0
-     for the tensor-core bodies of the SCLD matmul, flash attention and
-     the two decode kernels (``decode_tc_kernel``);
+     for the tensor-core bodies of the SCLD matmul, flash attention,
+     the two decode kernels (``decode_tc_kernel``) and the paged prefill
+     (``prefill_tc_kernel``);
   3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
      compute, outputs within |out - ref| <= 2e-2 + 2e-2 |ref| element by
      element: paged decode and paged prefill on a bf16 pool and on int8
-     and fp8 SCLAD pools (prefill pools and scales bit for bit), and the
-     dense decode of the wave path; the decode kernels also on a second
-     length set straddling their 128-position split boundaries (and a
-     stale length past the table or stripe), each bitwise equal from
-     launch to launch; kernel, plain and
+     and fp8 SCLAD pools (prefill pools and scales bit for bit; a first
+     chunk, one with a 16-token patch prefix, and a continuation, also
+     at internvl2-26b's heads, 48 over 8 kv heads of 128: rep 6), and
+     the dense decode of the wave path; the decode kernels also on a
+     second length set straddling their 128-position split boundaries
+     (and a stale length past the table or stripe), each bitwise equal
+     from launch to launch; kernel, plain and
      ``scaled_dot_product_attention`` times (the last a yardstick only,
      on a pre-gathered, pre-dequantized dense copy; the port never calls
      it) beside each kernel's bound;
@@ -38,8 +41,9 @@ outside the repository.  Phases, each of which raises on failure:
      int8 and an fp8 pool, and in ``mode="wave"`` (dense stripes, the
      dense decode kernel); a bf16 / int8 pair at the same pool bytes with
      16 lanes (blocks, block bytes, mean live lanes, preemptions, decode
-     tok/s of each); then three decode steps of 8 lanes under
-     ``torch.profiler`` (device-busy share, top kernels, the decode
+     tok/s of each); then under ``torch.profiler`` one continuation
+     chunk of 8 rows (device-busy share, top kernels, the prefill
+     kernel by name) and three decode steps of 8 lanes (the decode
      kernels' split and combine passes by name);
   6. the last three kernels, each against its plain version at the
      full width of a config the repo carries, with the JAX package's
@@ -126,7 +130,8 @@ def card_line() -> str:
 TENSOR_CORE_BODIES = {"sclad_matmul": ("sclad_matmul_tc_kernel",),
                       "flash_attention": ("flash_attention_tc_kernel",),
                       "paged_decode": ("decode_tc_kernel",),
-                      "dense_decode": ("decode_tc_kernel",)}
+                      "dense_decode": ("decode_tc_kernel",),
+                      "paged_prefill": ("prefill_tc_kernel",)}
 
 
 def sass_mma_counts(build):
@@ -156,7 +161,8 @@ def sass_mma_counts(build):
 
 def report_tensor_cores(build, card) -> None:
     """Print each library's tensor-core instruction count by kernel
-    function; raise if a bf16 body of kernels 1, 3, 5 and 6 has none."""
+    function; raise if a bf16 body of kernels 1, 2, 3, 5 and 6 has
+    none."""
     counts = sass_mma_counts(build)
     if counts is None:
         print("tensor-core instructions: not measured (no cuobjdump)")
@@ -388,18 +394,26 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
                 ops=ops)
 
 
-def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
+#: internvl2-26b's heads (H, Hk, D): 48 over 8 kv heads of 128 (rep 6),
+#: the prefill checks' second head shape beside tinyllama-1.1b's.
+REP6_HEADS = (48, 8, 128)
+PATCH_PREFIX = 16  # the patch-prefix case's prefix
+
+
+def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     """Kernel 2 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
-    plain version: a first chunk and a continuation (with a
-    block-straddling start and a shared context block) at the prefill
-    chunk's shapes; pools (and scales) bit for bit."""
+    plain version at the prefill chunk's shapes with ``heads`` = (H, Hk,
+    D): a first chunk, a first chunk behind a patch prefix and a
+    continuation (with a block-straddling start and a shared context
+    block); pools (and scales) bit for bit, bitwise equal launch to
+    launch.  ``cases`` picks some of them (default: all)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
     from repro_torch.kernels.flash_prefill.ref import prefill_attention_ref
     from repro_torch.models import kv_quant
     dev = "cuda"
-    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, Hk, D = heads
     N, S = B * T + 1, CHUNK
     kp, ks = make_pool(torch, gen, N, Hk, D, kv_dtype)
     vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
@@ -408,45 +422,58 @@ def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
     q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
     kn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
     vn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
-    lens = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50],
-                        dtype=torch.int32, device=dev)
-    real = torch.arange(S, device=dev)[None] >= (S - lens)[:, None]
-
-    def call(fn, p, start, tbl):
-        sc = None if len(p) == 2 else (p[2], p[3])
-        return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
-                  kv_scales=sc, kv_dtype=kvd)[0]
+    all_lens = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50],
+                            dtype=torch.int32, device=dev)
 
     results = {}
-    for name, start in (
-            ("first", None),
+    for name, start, prefix in (
+            ("first", None, 0),
+            (f"first, prefix {PATCH_PREFIX}", None, PATCH_PREFIX),
             ("continuation", torch.tensor([64, 5, 16, 300, 31, 600, 64, 1],
-                                          dtype=torch.int32, device=dev))):
+                                          dtype=torch.int32, device=dev),
+             0)):
+        if cases is not None and name not in cases:
+            continue
+        lens = all_lens.clamp(max=S - prefix)
+        sidx = torch.arange(S, device=dev)
+        # Real rows and keys: the patch prefix and the prompt tokens.
+        real = (sidx[None] < prefix) | (sidx[None] >= (S - lens)[:, None])
+        n_real = prefix + lens
         st = torch.zeros(B, dtype=torch.int32, device=dev) \
             if start is None else start
         tbl = (1 + torch.randperm(N - 1, generator=gen, device=dev)
                [:B * T]).reshape(B, T).int()
         for b in range(B):
-            tbl[b, -(-int(st[b] + lens[b]) // BS):] = 0
+            tbl[b, -(-int(st[b] + n_real[b]) // BS):] = 0
         if start is not None:
             tbl[0, 0] = tbl[6, 0]  # a shared, read-only context block
+
+        def call(fn, p):
+            sc = None if len(p) == 2 else (p[2], p[3])
+            return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
+                      prefix=prefix, kv_scales=sc, kv_dtype=kvd)[0]
+
         p1 = [x.clone() for x in pool]
         p2 = [x.clone() for x in pool]
-        out = call(paged_flash_prefill, p1, start, tbl)
+        out = call(paged_flash_prefill, p1)
         torch.cuda.synchronize()
-        ref = call(prefill_attention_ref, p2, start, tbl)
-        what = f"paged prefill kernel ({name}, {kv_dtype} pool)"
+        ref = call(prefill_attention_ref, p2)
+        what = f"paged prefill kernel ({name}, {kv_dtype} pool, heads {heads})"
         err = assert_close(torch, what, out[real], ref[real])
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{what}: a pad row is not finite")
         if not all(same_bits(torch, a, b) for a, b in zip(p1, p2)):
             raise AssertionError(f"{what}: pools differ from the plain "
                                  f"scatter")
         if same_bits(torch, p1[0], kp):
             raise AssertionError(f"{what}: the scatter wrote nothing")
+        # The scatter writes positions >= start only, which no launch
+        # reads: a second launch on the written pool gives the same bits.
+        same_launches(torch, what, out, lambda: call(paged_flash_prefill, p1))
 
         p1 = [x.clone() for x in pool]
-        ms = cuda_ms(lambda: call(paged_flash_prefill, p1, start, tbl))
-        plain_ms = cuda_ms(lambda: call(prefill_attention_ref, p1, start,
-                                        tbl))
+        ms = cuda_ms(lambda: call(paged_flash_prefill, p1))
+        plain_ms = cuda_ms(lambda: call(prefill_attention_ref, p1))
         # Yardstick: one SDPA call on the pre-gathered, pre-dequantized
         # [context | chunk] (the chunk fake-quantized on a SCLAD pool).
         ctx = T * BS if start is not None else 0
@@ -454,9 +481,7 @@ def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
         if kvd is not None:
             kd = kv_quant.fake_quant(kn, kvd)
             vd = kv_quant.fake_quant(vn, kvd)
-        sidx = torch.arange(S, device=dev)
-        mask = (sidx[None, None] <= sidx[None, :, None]) \
-            & (sidx[None] >= (S - lens)[:, None])[:, None, :]
+        mask = (sidx[None, None] <= sidx[None, :, None]) & real[:, None, :]
         if ctx:
             kd = torch.cat([dense_copy(torch, kp, ks, tbl, q.dtype), kd], 1)
             vd = torch.cat([dense_copy(torch, vp, vs, tbl, q.dtype), vd], 1)
@@ -470,21 +495,23 @@ def check_prefill(torch, cfg, gen, kv_dtype="bf16"):
         # contract): q and the output, k/v_new read and stored into the
         # pool (payload plus scale on a SCLAD pool), and the context rows
         # counted once each through the tables.
-        n_new = lens.double().sum().item()
+        n_new = n_real.double().sum().item()
         nbytes = (2 * n_new * H * D * 2                      # q, output
                   + 2 * n_new * Hk * (D * 2 + row_bytes(kv_dtype, D))
                   + 2 * distinct_rows(torch, tbl, st) * Hk
                   * row_bytes(kv_dtype, D)
                   + 4 * (2 * lens.numel()
-                         + (-(-(st + lens) // BS)).sum().item()))
-        # Visible (query, key) pairs of the real rows.
-        pairs = sum(int(lens[b]) * int(st[b])
-                    + int(lens[b]) * (int(lens[b]) + 1) // 2
+                         + (-(-(st + n_real) // BS)).sum().item()))
+        # Visible (query, key) pairs of the real rows: the patch prefix
+        # and the prompt tokens are one causal run after the context.
+        pairs = sum(int(n_real[b]) * int(st[b])
+                    + int(n_real[b]) * (int(n_real[b]) + 1) // 2
                     for b in range(B))
-        bound_ms, bound_by = bound(nbytes, 4 * H * D * pairs)
+        ops = 4 * H * D * pairs
+        bound_ms, bound_by = bound(nbytes, ops)
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+                             bound_by=bound_by, nbytes=nbytes, ops=ops)
     return results
 
 
@@ -965,6 +992,66 @@ def run_same_bytes_pair(torch, cfg, params, card):
                              "bf16 pool of the same bytes")
 
 
+def device_times(torch, prof):
+    """{kernel name: device ms} and the device operation count of a
+    profile."""
+    per_kernel, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+            n += 1
+    return per_kernel, n
+
+
+def profile_prefill(torch, eng, cfg, card):
+    """Where a prefill chunk's time goes, after the main path: the same
+    engine prefilling 8 prompts of 300 tokens, its second chunk (a
+    continuation over 128 cached positions, no decode step yet) under
+    torch.profiler.  Prints the device-busy ms and share of the profiled
+    wall time, device operations per chunk, the kernels with the most
+    device time, and the prefill kernel's ms per chunk by name."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(3)
+    for _ in range(B):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=300),
+                   max_new_tokens=4)
+    eng.step()  # admission and the first chunk
+    chunks = eng.stats.prefill_chunks
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if eng.stats.prefill_chunks != chunks + 1:
+        raise AssertionError("prefill profile: the step ran no chunk")
+    eng.run()
+    per_kernel, n = device_times(torch, prof)
+    if not per_kernel:
+        print("prefill profile: device time not measured (the profiler "
+              "recorded no device events)")
+        return
+    busy = sum(per_kernel.values())
+    print(f"prefill profile [{card}]: one continuation chunk of {B} rows x "
+          f"{CHUNK} tokens, wall {wall:.2f} ms under the profiler, device "
+          f"busy {busy:.3f} ms ({busy / wall:.1%}), {n} device operations")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:8.3f} ms/chunk  {name[:90]}")
+    stem = "prefill_tc_kernel"
+    ms = sum(v for k, v in per_kernel.items() if stem in k)
+    calls = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and stem in e.name)
+    print(f"prefill profile {stem} [{card}]: {ms:.4f} ms/chunk, {calls} "
+          f"launches/chunk")
+    if calls != cfg.num_layers:
+        raise AssertionError(f"prefill profile: {calls} {stem} launches "
+                             f"in a chunk of {cfg.num_layers} layers")
+
+
 def profile_decode(torch, eng, cfg, card):
     """Where a decode step's time goes, after the main path: the same
     engine with all 8 lanes decoding, three steps under torch.profiler.
@@ -987,12 +1074,7 @@ def profile_decode(torch, eng, cfg, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    per_kernel, n = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-            n += 1
+    per_kernel, n = device_times(torch, prof)
     if not per_kernel:
         print("decode profile: device time not measured (the profiler "
               "recorded no device events)")
@@ -1063,12 +1145,18 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dec = {kd: check_decode(torch, cfg, gen, kd)
            for kd in ("bf16", "int8", "fp8")}
-    pre = {kd: check_prefill(torch, cfg, gen, kd)
+    tiny = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    pre = {kd: check_prefill(torch, tiny, gen, kd)
            for kd in ("bf16", "int8", "fp8")}
+    pre6 = {kd: check_prefill(torch, REP6_HEADS, gen, kd,
+                              cases=("first", "continuation"))
+            for kd in ("bf16", "int8", "fp8")}
     dense = check_dense_decode(torch, cfg, gen)
     rows = [(f"paged_flash_decode[{kd}]", r) for kd, r in dec.items()]
     rows += [(f"paged_flash_prefill[{kd}, {k}]", v)
              for kd, res in pre.items() for k, v in res.items()]
+    rows += [(f"paged_flash_prefill[{kd}, {k}, heads {REP6_HEADS}]", v)
+             for kd, res in pre6.items() for k, v in res.items()]
     rows.append(("flash_decode[dense]", dense))
     for name, r in rows:
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
@@ -1108,6 +1196,7 @@ def main() -> int:
         if (kv_dtype, mode) == ("bf16", "auto"):
             bf16_engine = eng
     run_same_bytes_pair(torch, cfg, params, card)
+    profile_prefill(torch, bf16_engine, cfg, card)
     profile_decode(torch, bf16_engine, cfg, card)
 
     # 7. The last three kernels' entry points.
@@ -1134,13 +1223,15 @@ def main() -> int:
         kernel_entry("paged_flash_prefill", pre_src, f"{pre_tpu}:231",
                      runs("paged_flash_prefill", ("bf16", "auto")),
                      pre["bf16"]["continuation"],
-                     err=max(r["err"] for r in pre["bf16"].values())),
+                     err=max(r["err"] for res in (pre, pre6)
+                             for r in res["bf16"].values())),
         kernel_entry("paged_flash_prefill[int8/fp8 pool]", pre_src,
                      f"{pre_tpu}:202",
                      runs("paged_flash_prefill", *quant),
                      pre["int8"]["continuation"],
-                     err=max(r["err"] for kd in ("int8", "fp8")
-                             for r in pre[kd].values())),
+                     err=max(r["err"] for res in (pre, pre6)
+                             for kd in ("int8", "fp8")
+                             for r in res[kd].values())),
         kernel_entry("flash_decode", "src/repro_torch/csrc/dense_decode.cu",
                      f"{dec_tpu}:78", runs("flash_decode", ("bf16", "wave")),
                      dense),

@@ -117,7 +117,7 @@ class ModelConfig:
     num_patches: int = 0
     # KV-cache storage representation: "bf16" (default; alias "fp"), "f8",
     # or the quantized paged layouts "int8" / "fp8".  The port's paged
-    # pool serves "bf16"/"fp" so far; the engine refuses the others.
+    # pool serves "bf16"/"fp", "int8" and "fp8"; the engine refuses "f8".
     kv_dtype: str = "bf16"
     # Attention-kernel implementation for BOTH serving hot paths — paged
     # flash-decode (kernels.flash_decode.ops) and paged flash-prefill

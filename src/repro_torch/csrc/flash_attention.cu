@@ -26,8 +26,9 @@
 // its fragments stay in registers.  K/V tiles of 64 keys stream through a
 // 3-stage cp.async ring (the next two tiles' copies in flight while this
 // one is multiplied); key rows past Sk are zero-filled and masked to -inf.
-// S = Q K^T by mma.sync m16n8k16 (K rows through ldmatrix as the column-
-// major B operand); the scores are scaled in fp32 (1/sqrt(D), with log2(e)
+// Each tile (flash_tile.cuh, shared with paged_prefill.cu): S = Q K^T by
+// mma.sync m16n8k16 (K rows through ldmatrix as the column-major B
+// operand); the scores are scaled in fp32 (1/sqrt(D), with log2(e)
 // folded in, inside the exponent's fused multiply-add) and the online
 // softmax runs in registers, the row max over the 4 lanes of a quad by
 // __shfl_xor_sync.  P is rounded to bf16 in registers and fed straight
@@ -51,6 +52,7 @@
 // walks 32-key tiles through the paged kernels' shared tile step
 // (paged_attention.cuh: K/V rows as fp32 in shared memory, fp32 FMAs).  The
 // dtype of q picks the body.
+#include "flash_tile.cuh"
 #include "mma.cuh"
 #include "paged_attention.cuh"
 
@@ -117,13 +119,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---- bf16: the tensor-core body.
 using bf16 = __nv_bfloat16;
 constexpr int kBK = 64;          // keys per K/V tile
-
-// 2^x on the special-function unit (ex2.approx.ftz: 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // A warp owns 16 query rows.  At D = 64 a block has 8 warps (128 query
 // rows share each K/V tile copied in, halving the L2 reads of 64-row
@@ -234,86 +229,14 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
     }
     const bf16* kt = ks + (t % kStages) * Sh::kTile;
     const bf16* vt = vs + (t % kStages) * Sh::kTile;
-
-    // S = Q K^T over the tile's 64 keys: 8 column tiles of 8 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-#pragma unroll
-      for (int j2 = 0; j2 < kBK / 16; ++j2) {
-        uint32_t r[4];
-        mma::ldmatrix_x4(r, kt + (j2 * 16 + lane % 8 + (lane / 16) * 8) * kS +
-                                kd * 16 + ((lane / 8) % 2) * 8);
-        mma::mma_bf16(s[2 * j2], qf[kd], r[0], r[1]);
-        mma::mma_bf16(s[2 * j2 + 1], qf[kd], r[2], r[3]);
-      }
-
-    // Mask, then fold the tile into the running max and sum.  The scores
-    // are scaled in fp32 inside the exponent: p = 2^(s * scale_log2 -
-    // m * scale_log2) = exp((s - m) / sqrt(D)).
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (kMask) {
-          const int key = t * kBK + j * 8 + 2 * (lane % 4) + (e % 2);
-          const int row = row0 + 8 * (e / 2);
-          if (key >= Sk || (causal && key > row + shift)) s[j][e] = -INFINITY;
-        }
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2], m_scaled[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      // A row with no visible key yet keeps p = 0 (2^-inf), not NaN.
-      m_scaled[i] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
-      corr[i] = fast_exp2(m_run[i] * scale_log2 - m_scaled[i]);
-      m_run[i] = m_new;
-      l_part[i] *= corr[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(fmaf(s[j][e], scale_log2, -m_scaled[e / 2]));
-        s[j][e] = p;
-        l_part[e / 2] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += bf16(P) @ V, 16 keys at a time; P's fragments are the score
-    // registers of two neighbouring 8-key tiles.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {
-          mma::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          mma::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          mma::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          mma::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t r[4];
-        mma::ldmatrix_x4_trans(
-            r, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kS +
-                   n2 * 16 + (lane / 16) * 8);
-        mma::mma_bf16(o[2 * n2], a, r[0], r[1]);
-        mma::mma_bf16(o[2 * n2 + 1], a, r[2], r[3]);
-      }
-    }
+    const int key0 = t * kBK, last0 = row0 + shift;
+    flash_tile<D, kBK, kS>(
+        qf, kt, vt, scale_log2,
+        [=](int c, int i) {
+          const int key = key0 + c;
+          return kMask && (key >= Sk || (causal && key > last0 + 8 * i));
+        },
+        o, m_run, l_part);
   };
   for (int t = 0; t < n_plain; ++t) step(t, std::false_type{});
   for (int t = n_plain; t < ntiles; ++t) step(t, std::true_type{});

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (sclad_matmul.cu, flash_attention.cu, decode_attention.cuh): 16-byte asynchronous copies into
-// shared memory with a zero-fill form, their commit / wait groups,
-// ldmatrix (plain and transposed), the bf16 m16n8k16 tensor-core product
-// with fp32 sums, and packing two fp32 values into one bf16x2 register.
+// (sclad_matmul.cu, flash_attention.cu, paged_prefill.cu,
+// decode_attention.cuh): 16- and 4-byte asynchronous copies into shared
+// memory with a zero-fill form, their commit / wait groups, ldmatrix
+// (plain and transposed), the bf16 m16n8k16 tensor-core product with fp32
+// sums, packing two fp32 values into one bf16x2 register, and 2^x on the
+// special-function unit.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g < 8, t < 4):
 //   A (16 x 16, row-major):  a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -34,6 +36,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1; the 4-byte form has no .cg), as
+// cp_async16; both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(n)
                : "memory");
@@ -79,6 +92,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace mma

@@ -1,7 +1,9 @@
 // Shared pieces of the attention kernels: element conversions, the SCLAD
-// payload codecs, warp reductions and the pool codes (also used by the
+// payload codecs and the 8-element row quantize / dequantize of the
+// tensor-core bodies, warp reductions and the pool codes (also used by the
 // decode kernels' body, decode_attention.cuh, for paged_decode.cu and
-// dense_decode.cu), and, for paged_prefill.cu and the fp32 body of
+// dense_decode.cu, and by paged_prefill.cu's tensor-core body and
+// scatter), and, for the exact-fp32 bodies of paged_prefill.cu and
 // flash_attention.cu, the shared-memory layout of one thread block, the
 // tile loaders, and the step that folds one tile of up to 32 keys into a
 // block's fp32 online-softmax state.
@@ -37,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace repro_torch {
 
@@ -133,6 +137,51 @@ __device__ __forceinline__ float4 load_quad(const P* p) {
   const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
   return make_float4(byte_to_float<P>(w), byte_to_float<P>(w >> 8),
                      byte_to_float<P>(w >> 16), byte_to_float<P>(w >> 24));
+}
+
+// kv_quant.quantize's scale of a row held by kLanes neighbouring lanes,
+// 8 elements each: the row's amax over D by shuffles among those lanes,
+// then row_scale.  Every lane of the warp calls it (kLanes divides 32).
+template <typename P, int kLanes>
+__device__ __forceinline__ float lanes_row_scale(const float (&x)[8]) {
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(x[j]));
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  return row_scale<P>(amax);
+}
+
+// Eight elements of a row encoded with its scale (kv_quant.quantize:
+// IEEE division, then the codec): eight payload bytes, the first in the
+// lowest byte.
+template <typename P>
+__device__ __forceinline__ uint2 encode8(const float (&x)[8], float scale) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const P y = Codec<P>::encode(x[j] / scale);
+    w[j / 4] |= uint32_t(*reinterpret_cast<const uint8_t*>(&y))
+                << (8 * (j % 4));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// Eight payload bytes dequantized: payload * scale in fp32, each rounded
+// to bf16 (kv_quant.dequantize(..., bfloat16)), packed as eight bf16.
+template <typename P>
+__device__ __forceinline__ uint4 dequant8(uint2 w, float s) {
+  uint4 y;
+  y.x = mma::pack_bf16x2(byte_to_float<P>(w.x) * s,
+                         byte_to_float<P>(w.x >> 8) * s);
+  y.y = mma::pack_bf16x2(byte_to_float<P>(w.x >> 16) * s,
+                         byte_to_float<P>(w.x >> 24) * s);
+  y.z = mma::pack_bf16x2(byte_to_float<P>(w.y) * s,
+                         byte_to_float<P>(w.y >> 8) * s);
+  y.w = mma::pack_bf16x2(byte_to_float<P>(w.y >> 16) * s,
+                         byte_to_float<P>(w.y >> 24) * s);
+  return y;
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -247,35 +296,6 @@ __device__ __forceinline__ void fake_quant_tile(const TileSmem<D, ROWS>& sm,
     for (int i = 0; i < kPer; ++i)
       row[lane + 32 * i] =
           round_to<CT>(to_float(Codec<P>::encode(x[i] / scale)) * scale);
-  }
-}
-
-// Store one (D,) row of compute-type values `src` into a pool row `dst`,
-// by one warp: bf16 pools take the value rounded to bf16; SCLAD pools
-// take kv_quant.quantize's payload, and lane 0 writes the row's scale.
-template <int D, typename P, typename T>
-__device__ __forceinline__ void store_row(P* __restrict__ dst,
-                                          float* __restrict__ dst_scale,
-                                          const T* __restrict__ src,
-                                          int lane) {
-  constexpr int kPer = D / 32;
-  if constexpr (kQuantized<P>) {
-    float x[kPer];
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      x[i] = to_float(src[lane + 32 * i]);
-      amax = fmaxf(amax, fabsf(x[i]));
-    }
-    const float scale = row_scale<P>(warp_max(amax));
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      dst[lane + 32 * i] = Codec<P>::encode(x[i] / scale);
-    if (lane == 0) *dst_scale = scale;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      dst[lane + 32 * i] = from_float<P>(to_float(src[lane + 32 * i]));
   }
 }
 

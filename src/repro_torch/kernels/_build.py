@@ -49,7 +49,8 @@ ENTRY_POINTS = {
 }
 #: Pool payload dtype -> the ``kv_kind`` code of the paged entry points.
 KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-HEADERS = ("paged_attention.cuh", "mma.cuh", "decode_attention.cuh")
+HEADERS = ("paged_attention.cuh", "mma.cuh", "decode_attention.cuh",
+           "flash_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

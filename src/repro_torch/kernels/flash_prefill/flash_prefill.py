@@ -9,6 +9,12 @@ keeps the reference's return signature.  A CUDA tensor launches the
 kernel, or the call raises; the plain PyTorch version
 (``ref.prefill_attention_ref``) runs only for tensors on the CPU.
 ``paged_flash_prefill.launches`` counts kernel launches.
+
+A thread block owns the ``rep = H / Hk`` query heads of one kv head for
+a run of query positions (the kernel picks them from shapes alone;
+``prefill_tiles`` mirrors the plan), any rep from 1 to ``MAX_REP``.
+bf16 q runs on the tensor cores, fp32 q in exact fp32; every block
+stores the chunk rows of its own positions into the pool.
 """
 from __future__ import annotations
 
@@ -20,7 +26,27 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.ref import prefill_attention_ref
 
 HEAD_DIMS = (64, 128)
-ROWS = 64  # query rows per thread block: rep must divide it
+MAX_REP = 32  # query heads per kv head
+#: Query rows (positions x rep) a thread block holds, by body: one 16-row
+#: tensor-core m tile a warp, 8 warps (bf16 q); 64 in the exact-fp32 body
+#: (``TcShape::kRows`` / ``kRows`` in ``csrc/paged_prefill.cu``).
+TC_ROWS = 128
+EXACT_ROWS = 64
+
+
+def prefill_tiles(S: int, H: int, Hk: int, dtype=torch.bfloat16):
+    """``(positions, tiles)``: the query positions one thread block owns,
+    ``rows // rep`` for its body's rows, and the blocks along a chunk of
+    ``S`` padded positions, ``ceil(S / positions)``; block ``i`` owns
+    positions ``[i * positions, min(S, (i + 1) * positions))``.
+
+    The kernel's launch computes the same plan from the same shapes (it
+    never reads ``lengths`` or ``start`` on the host); this mirror is for
+    the tests, and ``tests/test_torch_cuda.py`` holds it against the
+    blocks the kernel runs."""
+    rows = TC_ROWS if dtype == torch.bfloat16 else EXACT_ROWS
+    positions = rows // (H // Hk)
+    return positions, -(-S // positions)
 
 
 def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
@@ -54,7 +80,7 @@ def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
         raise ValueError(f"paged_flash_prefill: bad shapes q {tuple(q.shape)}"
                          f" k_new {tuple(k_new.shape)} pool "
                          f"{tuple(k_pool.shape)} (D in {HEAD_DIMS})")
-    if H % Hk or ROWS % (H // Hk):
+    if Hk <= 0 or H % Hk or H // Hk > MAX_REP:
         raise ValueError(f"paged_flash_prefill: H={H} Hk={Hk} unsupported")
     if lengths.shape != (B,) or block_tables.dim() != 2 \
             or block_tables.shape[0] != B \
@@ -66,6 +92,9 @@ def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
                          f"[0, {S}]")
     if not all(t.is_contiguous() for t in [q] + rest):
         raise ValueError("paged_flash_prefill: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_new, v_new, k_pool, v_pool)):
+        raise ValueError("paged_flash_prefill: q, k/v_new and the pools "
+                         "must be 16-byte aligned")
     return kind
 
 

@@ -32,8 +32,8 @@ from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
     SPLIT, flash_decode, paged_flash_decode)
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
     decode_ref, paged_decode_ref)
-from repro_torch.kernels.flash_prefill.flash_prefill import \
-    paged_flash_prefill  # noqa: E402
+from repro_torch.kernels.flash_prefill.flash_prefill import (  # noqa: E402
+    paged_flash_prefill, prefill_tiles)
 from repro_torch.kernels.flash_prefill.ref import \
     prefill_attention_ref  # noqa: E402
 from repro_torch.kernels.sclad_matmul.ops import SCLDLinear  # noqa: E402
@@ -88,31 +88,111 @@ def test_decode_kernel_matches_plain(gen, dtype, H, Hk, D):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("with_ctx", [False, True])
-def test_prefill_kernel_matches_plain(gen, dtype, with_ctx):
-    B, S, H, Hk, D, bs, T = 4, 24, 32, 4, 64, 16, 8
+#: Prefill heads (H, Hk, D): rep 1, 4, 6 (internvl2-26b's widths), 8 at
+#: D = 64 and 128, and 32.
+PREFILL_HEADS = [(4, 4, 64), (40, 10, 128), (48, 8, 128), (32, 4, 64),
+                 (16, 2, 128), (32, 1, 128)]
+
+
+def _prefill_case(gen, dtype, H, Hk, D, prefix, with_ctx):
+    """4 rows of a chunk of S = 37 padded positions (a multiple of no
+    block's positions) with a patch prefix of ``prefix``: lengths the
+    whole prompt, 1, 13 and 20; starts 0, 5, 70 and 129 (mid-block,
+    mid-64-key-tile, three context tiles) or a first chunk; 16-token
+    blocks.  Returns q, k_new, v_new, lengths, start, tables, the real
+    rows' mask and the pool's block count."""
+    B, S, bs, T = 4, 37, 16, 12
     N = B * T + 1
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
     vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
-    kp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
-    vp = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
-    lens = torch.tensor([24, 1, 13, 7], dtype=torch.int32, device="cuda")
-    start = torch.tensor([0, 5, 16, 40], dtype=torch.int32,
+    lens = torch.tensor([S - prefix, 1, 13, 20], dtype=torch.int32,
+                        device="cuda")
+    start = torch.tensor([0, 5, 70, 129], dtype=torch.int32,
                          device="cuda") if with_ctx else None
-    used = lens + (start if with_ctx else 0)
+    used = prefix + lens + (start if with_ctx else 0)
     tbl = _tables(gen, B, T, N, used, bs)
-    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    out, _, _ = paged_flash_prefill(q, kn, vn, k1, v1, lens, tbl,
-                                    start=start)
-    ref, _, _ = prefill_attention_ref(q, kn, vn, k2, v2, lens, tbl,
-                                      start=start)
+    idx = torch.arange(S, device="cuda")[None]
+    real = (idx < prefix) | (idx >= (S - lens)[:, None])
+    return q, kn, vn, lens, start, tbl, real, N
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_ctx", [False, True])
+@pytest.mark.parametrize("prefix", [0, 5])
+@pytest.mark.parametrize("H,Hk,D", PREFILL_HEADS)
+def test_prefill_kernel_matches_plain(gen, dtype, with_ctx, prefix, H, Hk,
+                                      D):
+    """bf16 pool: the real rows within TOL, every row finite, the pools
+    equal the plain scatter's bit for bit, and a second launch gives the
+    same bits.  bf16 q behind a context: exactly the blocks that
+    ``prefill_tiles`` names all left-pad write zeros (the other pad rows
+    see the context), so the mirror plans the kernel's blocks."""
+    q, kn, vn, lens, start, tbl, real, N = _prefill_case(
+        gen, dtype, H, Hk, D, prefix, with_ctx)
+    kp = torch.randn(N, 16, Hk, D, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(N, 16, Hk, D, generator=gen, device="cuda").bfloat16()
+    pools = [[kp.clone(), vp.clone()] for _ in range(3)]
+    before = paged_flash_prefill.launches
+    out, _, _ = paged_flash_prefill(q, kn, vn, *pools[0], lens, tbl,
+                                    start=start, prefix=prefix)
+    assert paged_flash_prefill.launches == before + 1
+    again, _, _ = paged_flash_prefill(q, kn, vn, *pools[1], lens, tbl,
+                                      start=start, prefix=prefix)
+    ref, _, _ = prefill_attention_ref(q, kn, vn, *pools[2], lens, tbl,
+                                      start=start, prefix=prefix)
+    torch.testing.assert_close(out[real].float(), ref[real].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.isfinite(out).all()
+    assert torch.equal(_bytes(out), _bytes(again))
+    for a, b in zip(pools[0] + pools[1], pools[2] + pools[2]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert not torch.equal(pools[0][0], kp)
+    if dtype == torch.bfloat16 and with_ctx:
+        S = q.shape[1]
+        positions, _ = prefill_tiles(S, H, Hk)
+        for b, pad in enumerate((S - prefix - lens).tolist()):
+            for p in range(prefix, prefix + pad):
+                q0 = p // positions * positions
+                pad_only = q0 >= prefix and \
+                    min(S, q0 + positions) <= prefix + pad
+                assert bool((out[b, p] == 0).all()) == pad_only, (b, p)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_kernel_long_table(gen, dtype, kv_dtype):
+    """300-entry tables and contexts past 4096 positions, every pool:
+    within TOL, pools and scales bit for bit."""
+    B, S, H, Hk, D, bs, T = 2, 37, 32, 4, 64, 16, 300
+    N = B * T + 1
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([S, 5], dtype=torch.int32, device="cuda")
+    start = torch.tensor([4100, 4700], dtype=torch.int32, device="cuda")
+    tbl = _tables(gen, B, T, N, start + lens, bs)
+    if kv_dtype == "bf16":
+        base = [torch.randn(N, bs, Hk, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2)]
+    else:
+        (kp, ks), (vp, vs) = (_qpool(gen, N, bs, Hk, D, kv_dtype)
+                              for _ in range(2))
+        base = [kp, vp, ks, vs]
+    pools = [[x.clone() for x in base] for _ in range(2)]
+
+    def call(fn, p):
+        if len(p) == 2:
+            return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start)[0]
+        return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
+                  kv_scales=(p[2], p[3]), kv_dtype=kv_dtype)[0]
+    out = call(paged_flash_prefill, pools[0])
+    ref = call(prefill_attention_ref, pools[1])
     real = torch.arange(S, device="cuda")[None] >= (S - lens)[:, None]
     torch.testing.assert_close(out[real].float(), ref[real].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    assert torch.equal(k1.view(torch.int16), k2.view(torch.int16))
-    assert torch.equal(v1.view(torch.int16), v2.view(torch.int16))
+    for a, b in zip(pools[0], pools[1]):
+        assert torch.equal(_bytes(a), _bytes(b))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -182,39 +262,36 @@ def test_quantized_decode_kernel_matches_plain(gen, dtype, H, Hk, D,
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("with_ctx", [False, True])
-def test_quantized_prefill_kernel_matches_plain(gen, with_ctx, D, dtype,
-                                                kv_dtype):
-    B, S, bs, T = 4, 24, 16, 8
-    H, Hk = (32, 4) if D == 64 else (16, 2)
-    N = B * T + 1
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-    kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
-    vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("prefix", [0, 5])
+@pytest.mark.parametrize("H,Hk,D", PREFILL_HEADS)
+def test_quantized_prefill_kernel_matches_plain(gen, H, Hk, D, prefix,
+                                                with_ctx, dtype, kv_dtype):
+    """SCLAD pool, as the bf16 pool's test: payloads and scales bit for
+    bit, an all-zero chunk row (scale 1) among them."""
+    q, kn, vn, lens, start, tbl, real, N = _prefill_case(
+        gen, dtype, H, Hk, D, prefix, with_ctx)
     kn[0, -1] = 0.0  # an all-zero row: scale 1
-    kp, ks = _qpool(gen, N, bs, Hk, D, kv_dtype)
-    vp, vs = _qpool(gen, N, bs, Hk, D, kv_dtype)
-    lens = torch.tensor([24, 1, 13, 7], dtype=torch.int32, device="cuda")
-    start = torch.tensor([0, 5, 16, 40], dtype=torch.int32,
-                         device="cuda") if with_ctx else None
-    used = lens + (start if with_ctx else 0)
-    tbl = _tables(gen, B, T, N, used, bs)
-    a = [x.clone() for x in (kp, vp, ks, vs)]
-    b = [x.clone() for x in (kp, vp, ks, vs)]
+    kp, ks = _qpool(gen, N, 16, Hk, D, kv_dtype)
+    vp, vs = _qpool(gen, N, 16, Hk, D, kv_dtype)
+    pools = [[x.clone() for x in (kp, vp, ks, vs)] for _ in range(3)]
+
+    def call(fn, p):
+        return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
+                  prefix=prefix, kv_scales=(p[2], p[3]),
+                  kv_dtype=kv_dtype)[0]
     before = paged_flash_prefill.launches
-    out = paged_flash_prefill(q, kn, vn, a[0], a[1], lens, tbl, start=start,
-                              kv_scales=(a[2], a[3]), kv_dtype=kv_dtype)[0]
+    out = call(paged_flash_prefill, pools[0])
     assert paged_flash_prefill.launches == before + 1
-    ref = prefill_attention_ref(q, kn, vn, b[0], b[1], lens, tbl,
-                                start=start, kv_scales=(b[2], b[3]),
-                                kv_dtype=kv_dtype)[0]
-    real = torch.arange(S, device="cuda")[None] >= (S - lens)[:, None]
+    again = call(paged_flash_prefill, pools[1])
+    ref = call(prefill_attention_ref, pools[2])
     torch.testing.assert_close(out[real].float(), ref[real].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    for x, y in zip(a, b):
-        assert torch.equal(_bytes(x), _bytes(y))
-    assert not torch.equal(_bytes(a[0]), _bytes(kp))
+    assert torch.isfinite(out).all()
+    assert torch.equal(_bytes(out), _bytes(again))
+    for a, b in zip(pools[0] + pools[1], pools[2] + pools[2]):
+        assert torch.equal(_bytes(a), _bytes(b))
+    assert not torch.equal(_bytes(pools[0][0]), _bytes(kp))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -3,7 +3,8 @@ and the interpret-mode Pallas kernels.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 Head geometry is tinyllama's (rep = 8 query heads per kv head, D = 64)
-at small batch and table sizes.  Tolerances:
+at small batch and table sizes; prefill also runs internvl2-26b's rep 6
+at D = 128 and a patch prefix.  Tolerances:
 
 * plain vs JAX reference, fp32: 1e-5 — the same arithmetic, summed in
   another order;
@@ -52,9 +53,9 @@ def _bf16_bits(x) -> np.ndarray:
     return np.asarray(x).view(np.uint16)
 
 
-def _pool(rng, N, bs):
+def _pool(rng, N, bs, hk=HK, d=D):
     """A bf16 pool as (jax array, torch tensor) holding the same bits."""
-    x = rng.standard_normal((N, bs, HK, D)).astype(np.float32)
+    x = rng.standard_normal((N, bs, hk, d)).astype(np.float32)
     j = jnp.asarray(x, jnp.bfloat16)
     t = torch.from_numpy(_bf16_bits(j).copy().view(np.int16)) \
         .view(torch.bfloat16)
@@ -119,47 +120,61 @@ def test_paged_decode_plain_matches_jax(case, dtype):
                             torch.from_numpy(tbl)).shape == (B, H, D)
 
 
-# Prefill: (S, lengths, start or None) over 4-token blocks, 6 per table.
+# Prefill: (S, lengths, start or None, patch prefix, (Hk, rep, D)) over
+# 4-token blocks, 6 per table.
 PREFILL_BS, PREFILL_T = 4, 6
 PREFILL_CASES = {
-    "first_chunk": (8, [8, 3, 5], None),
-    "continuation": (8, [8, 2, 6], [8, 4, 12]),
-    "start_straddles_block": (8, [6, 5, 4], [3, 9, 13]),
-    "single_token": (1, [1, 1, 1], [5, 16, 23]),
+    "first_chunk": (8, [8, 3, 5], None, 0, (HK, REP, D)),
+    "continuation": (8, [8, 2, 6], [8, 4, 12], 0, (HK, REP, D)),
+    "start_straddles_block": (8, [6, 5, 4], [3, 9, 13], 0, (HK, REP, D)),
+    "single_token": (1, [1, 1, 1], [5, 16, 23], 0, (HK, REP, D)),
+    "patch_prefix": (11, [8, 3, 5], None, 3, (HK, REP, D)),
+    "rep6_first_chunk": (8, [8, 3, 5], None, 0, (2, 6, 128)),
+    "rep6_continuation": (8, [8, 2, 6], [3, 9, 12], 0, (2, 6, 128)),
+    "rep6_patch_prefix": (10, [7, 1, 4], None, 2, (2, 6, 128)),
 }
+
+
+def _real_rows(S, prefix, lens):
+    """Rows whose output is defined: the patch prefix and the real
+    (right-aligned) prompt tokens; left-pad rows are junk by contract."""
+    pad = (S - prefix - lens)[:, None]
+    idx = np.arange(S)[None]
+    return (idx < prefix) | (idx >= prefix + pad)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("case", list(PREFILL_CASES))
 def test_paged_prefill_plain_matches_jax(case, dtype):
-    S, lens, start = PREFILL_CASES[case]
+    S, lens, start, prefix, (hk, rep, d) = PREFILL_CASES[case]
     bs, T = PREFILL_BS, PREFILL_T
     B = len(lens)
     rng = np.random.default_rng(10 + list(PREFILL_CASES).index(case))
     N = B * T + 1
-    qj, qt = _pair(rng, (B, S, H, D), dtype)
-    knj, knt = _pair(rng, (B, S, HK, D), dtype)
-    vnj, vnt = _pair(rng, (B, S, HK, D), dtype)
-    kj, kt = _pool(rng, N, bs)
-    vj, vt = _pool(rng, N, bs)
+    qj, qt = _pair(rng, (B, S, hk * rep, d), dtype)
+    knj, knt = _pair(rng, (B, S, hk, d), dtype)
+    vnj, vnt = _pair(rng, (B, S, hk, d), dtype)
+    kj, kt = _pool(rng, N, bs, hk, d)
+    vj, vt = _pool(rng, N, bs, hk, d)
     lens = np.array(lens, np.int32)
     st = None if start is None else np.array(start, np.int32)
     tbl = (1 + np.arange(B * T)).reshape(B, T).astype(np.int32)
     # Unallocated table tails point at the trash block.
-    used = (0 if st is None else st) + lens
+    used = (0 if st is None else st) + prefix + lens
     tbl[np.arange(T)[None] * bs >= used[:, None]] = 0
     if st is not None:
         tbl[1, 0] = tbl[0, 0]  # a shared (read-only) context block
-    real = np.arange(S)[None] >= (S - lens)[:, None]
+    real = _real_rows(S, prefix, lens)
 
     jstart = None if st is None else jnp.asarray(st)
     want, kw, vw = jax_prefill_ref(qj, knj, vnj, kj, vj, jnp.asarray(lens),
-                                   jnp.asarray(tbl), start=jstart)
+                                   jnp.asarray(tbl), start=jstart,
+                                   prefix=prefix)
     k_in, v_in = kt.clone(), vt.clone()
     got, kg, vg = paged_flash_prefill(
         qt, knt, vnt, k_in, v_in, torch.from_numpy(lens),
         torch.from_numpy(tbl),
-        start=None if st is None else torch.from_numpy(st))
+        start=None if st is None else torch.from_numpy(st), prefix=prefix)
     assert kg is k_in and vg is v_in  # updated in place
     _close(want, got, TOL_REF[dtype], real)
     assert np.array_equal(_bf16_bits(kw), _bf16_bits(kg))
@@ -168,7 +183,7 @@ def test_paged_prefill_plain_matches_jax(case, dtype):
     kernel, kk, vk = pallas_prefill(
         qj, knj, vnj, kj, vj, jnp.asarray(lens), jnp.asarray(tbl),
         jnp.zeros(B, jnp.int32) if st is None else jstart,
-        has_ctx=st is not None, interpret=True)
+        prefix=prefix, has_ctx=st is not None, interpret=True)
     _close(kernel, got, TOL_PALLAS, real)
     assert np.array_equal(_bf16_bits(kk), _bf16_bits(kg))
     assert np.array_equal(_bf16_bits(vk), _bf16_bits(vg))
@@ -176,5 +191,5 @@ def test_paged_prefill_plain_matches_jax(case, dtype):
     again, _, _ = prefill_attention_ref(
         qt, knt, vnt, kt.clone(), vt.clone(), torch.from_numpy(lens),
         torch.from_numpy(tbl),
-        start=None if st is None else torch.from_numpy(st))
+        start=None if st is None else torch.from_numpy(st), prefix=prefix)
     assert torch.equal(again, got)

@@ -146,10 +146,10 @@ def test_codec_names_match_jax():
 # Plain quantized paged decode / prefill vs the JAX references and Pallas
 # ---------------------------------------------------------------------------
 
-def _qpool(rng, N, bs, kv_dtype):
+def _qpool(rng, N, bs, kv_dtype, hk=HK, d=D):
     """A quantized pool made by the JAX codec: (jax payload, jax scales,
     torch payload, torch scales)."""
-    x = rng.standard_normal((N, bs, HK, D)).astype(np.float32)
+    x = rng.standard_normal((N, bs, hk, d)).astype(np.float32)
     x[0] = 0.0  # the trash block
     p, s = jkq.quantize(jnp.asarray(x, jnp.bfloat16), kv_dtype)
     return p, s, to_torch(p), to_torch(s)
@@ -189,10 +189,15 @@ def test_quantized_paged_decode_plain_matches_jax(kv_dtype, dtype):
     close(kernel, got, TOL_PALLAS, live)
 
 
+# (S, lengths, start or None, patch prefix, (Hk, rep, D)); rep 6 at
+# D = 128 is internvl2-26b's head geometry.
 PREFILL_CASES = {
-    "first_chunk": (8, [8, 3, 5], None),
-    "continuation": (8, [8, 2, 6], [8, 4, 12]),
-    "single_token": (1, [1, 1, 1], [5, 16, 23]),
+    "first_chunk": (8, [8, 3, 5], None, 0, (HK, REP, D)),
+    "continuation": (8, [8, 2, 6], [8, 4, 12], 0, (HK, REP, D)),
+    "single_token": (1, [1, 1, 1], [5, 16, 23], 0, (HK, REP, D)),
+    "patch_prefix": (11, [8, 3, 5], None, 3, (HK, REP, D)),
+    "rep6_continuation": (8, [8, 2, 6], [3, 9, 12], 0, (2, 6, 128)),
+    "rep6_patch_prefix": (10, [7, 1, 4], None, 2, (2, 6, 128)),
 }
 
 
@@ -203,34 +208,35 @@ def test_quantized_paged_prefill_plain_matches_jax(case, kv_dtype, dtype):
     """Attention within tolerance; the scatter's payload and scales bit
     for bit with the JAX reference AND the interpret-mode Pallas kernel,
     including the rows it must leave alone."""
-    S, lens, start = PREFILL_CASES[case]
+    S, lens, start, prefix, (hk, rep, d) = PREFILL_CASES[case]
     bs, T = 4, 6
     B = len(lens)
     N = B * T + 1
     rng = np.random.default_rng(20 + list(PREFILL_CASES).index(case))
-    qj, qt = _pair(rng, (B, S, H, D), dtype)
-    knj, knt = _pair(rng, (B, S, HK, D), dtype)
-    vnj, vnt = _pair(rng, (B, S, HK, D), dtype)
-    kj, ksj, kt, kst = _qpool(rng, N, bs, kv_dtype)
-    vj, vsj, vt, vst = _qpool(rng, N, bs, kv_dtype)
+    qj, qt = _pair(rng, (B, S, hk * rep, d), dtype)
+    knj, knt = _pair(rng, (B, S, hk, d), dtype)
+    vnj, vnt = _pair(rng, (B, S, hk, d), dtype)
+    kj, ksj, kt, kst = _qpool(rng, N, bs, kv_dtype, hk, d)
+    vj, vsj, vt, vst = _qpool(rng, N, bs, kv_dtype, hk, d)
     lens = np.array(lens, np.int32)
     st = None if start is None else np.array(start, np.int32)
     tbl = (1 + np.arange(B * T)).reshape(B, T).astype(np.int32)
-    used = (0 if st is None else st) + lens
+    used = (0 if st is None else st) + prefix + lens
     tbl[np.arange(T)[None] * bs >= used[:, None]] = 0
     if st is not None:
         tbl[1, 0] = tbl[0, 0]
-    real = np.arange(S)[None] >= (S - lens)[:, None]
+    idx, pad = np.arange(S)[None], (S - prefix - lens)[:, None]
+    real = (idx < prefix) | (idx >= prefix + pad)
     jstart = None if st is None else jnp.asarray(st)
 
     want = jax_prefill_ref(qj, knj, vnj, kj, vj, jnp.asarray(lens),
-                           jnp.asarray(tbl), start=jstart,
+                           jnp.asarray(tbl), start=jstart, prefix=prefix,
                            kv_scales=(ksj, vsj), kv_dtype=kv_dtype)
     pools = [x.clone() for x in (kt, vt, kst, vst)]
     got = paged_flash_prefill(
         qt, knt, vnt, pools[0], pools[1], torch.from_numpy(lens),
         torch.from_numpy(tbl),
-        start=None if st is None else torch.from_numpy(st),
+        start=None if st is None else torch.from_numpy(st), prefix=prefix,
         kv_scales=(pools[2], pools[3]), kv_dtype=kv_dtype)
     assert len(got) == 5
     assert all(g is p for g, p in zip(got[1:], pools))  # in place
@@ -243,8 +249,8 @@ def test_quantized_paged_prefill_plain_matches_jax(case, kv_dtype, dtype):
     kernel = pallas_prefill(
         qj, knj, vnj, kj, vj, jnp.asarray(lens), jnp.asarray(tbl),
         jnp.zeros(B, jnp.int32) if st is None else jstart,
-        has_ctx=st is not None, interpret=True, kv_scales=(ksj, vsj),
-        kv_dtype=kv_dtype)
+        prefix=prefix, has_ctx=st is not None, interpret=True,
+        kv_scales=(ksj, vsj), kv_dtype=kv_dtype)
     close(kernel[0], got[0], TOL_PALLAS, real)
     for w, g in zip(kernel[1:], got[1:]):
         assert np.array_equal(bits(w), bits(g))
