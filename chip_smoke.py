@@ -12,8 +12,9 @@ outside the repository.  Phases, each of which raises on failure:
      and, from ``cuobjdump -sass``, the count of tensor-core instructions
      (``HMMA``/``HGMMA``) of each kernel function, which must be above 0
      for the tensor-core bodies of the SCLD matmul, flash attention,
-     the two decode kernels (``decode_tc_kernel``) and the paged prefill
-     (``prefill_tc_kernel``);
+     the two decode kernels (``decode_tc_kernel``), the paged prefill
+     (``prefill_tc_kernel``) and the SSD scan's chunk-state and
+     chunk-output passes;
   3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
@@ -51,20 +52,24 @@ outside the repository.  Phases, each of which raises on failure:
      projections (x (128, 2048) bf16 times W (2048, 5632), and
      (128, 5632) times (5632, 2048), at C = 16, 8 and 6 stored units of
      16), the SSD chunk scan at mamba2-1.3b's widths (64 heads of 64,
-     state 128, 2048 positions, bf16, chunk 256 and 128), blocked flash
-     attention at tinyllama-1.1b's heads (2048 positions, 32 heads, 4 kv
-     heads, bf16, causal; causal at 512 queries over 2048 keys; 128
-     queries over 2048 keys not causal); kernel, plain, bound and library
-     times (``torch.matmul`` on the decompressed weight, none for the
-     scan, ``scaled_dot_product_attention``), and for the SCLD matmul
-     and flash attention the achieved TFLOP/s and GB/s and the share of
-     the bound (bound ms / kernel ms);
+     state 128, 2048 positions, bf16, chunk 256 and 128) and zamba2-7b's
+     (112 heads of 64, state 64, chunk 256), bitwise equal launch to
+     launch, within a per-head relative limit that a planted control (a
+     shifted by one position) must fail, with the device time of each of
+     its three passes
+     (``torch.profiler``), blocked flash attention at tinyllama-1.1b's
+     heads (2048 positions, 32 heads, 4 kv heads, bf16, causal; causal
+     at 512 queries over 2048 keys; 128 queries over 2048 keys not
+     causal); kernel, plain, bound and library times (``torch.matmul``
+     on the decompressed weight, none for the scan,
+     ``scaled_dot_product_attention``), and for all three the achieved
+     TFLOP/s and GB/s and the share of the bound (bound ms / kernel ms);
   7. their entry points, each with its launch count set to 0 just before
      and read just after: the SCLD example (``repro_torch.examples.
      sclad_sparsity``) through ``SCLDLinear`` on the card, whose system
      lines must equal the JAX package's; ``ops.ssd`` at mamba2-1.3b's
-     widths; ``ops.attention`` at tinyllama-1.1b's heads, both against
-     their plain versions;
+     widths (one kernel launch); ``ops.attention`` at tinyllama-1.1b's
+     heads, both against their plain versions;
   8. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
@@ -101,9 +106,26 @@ SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's ~2 GHz
 SCLD_TOL = (1e-1, 5e-2)
 SCLD_TOL_FP32 = (1e-4, 2e-2)
 SSD_TOL = 5 * TOL
+#: Beside SSD_TOL, which exceeds typical SSD values (y ~0.2, the state
+#: ~0.07 at ssd_inputs' magnitudes, ~10x less through ops.ssd): per head,
+#: ||out - ref|| / ||ref|| of y and of the state at most SSD_REL.  On an
+#: H100 the bf16 kernel reads at most 3.1e-3 here (check_ssd's cases and
+#: ops.ssd); handed a shifted by one position (what a cumsum shifted by
+#: one computes) it reads 7.9e-2 or more, and check_ssd fails unless that
+#: control exceeds 3 * SSD_REL.
+SSD_REL = 1e-2
 #: mamba2-1.3b's SSD widths (src/repro/configs/mamba2_1_3b.py: d_model
 #: 2048, expand 2, head dim 64 -> 64 heads, state 128, chunk 256).
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 64, 64, 128, 256
+#: The SSD cases timed: name -> (heads, head dim, state, chunk); zamba2-7b's
+#: widths from src/repro/configs/zamba2_7b.py (d_model 3584, expand 2, head
+#: dim 64 -> 112 heads, state 64).
+SSD_CASES = {
+    "mamba2-1.3b, chunk 256": (SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK),
+    "mamba2-1.3b, chunk 128": (SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, 128),
+    "zamba2-7b, chunk 256": (112, 64, 64, 256)}
+SSD_PASSES = ("ssd_chunk_state_tc_kernel", "ssd_state_pass_kernel",
+              "ssd_chunk_out_tc_kernel")
 SEQ = 2048  # positions of the SSD and attention checks
 #: The SCLD example's system section as the JAX package's ``core`` gives
 #: it (tests/test_torch_sclad.py holds the port's copies to it bitwise).
@@ -131,7 +153,9 @@ TENSOR_CORE_BODIES = {"sclad_matmul": ("sclad_matmul_tc_kernel",),
                       "flash_attention": ("flash_attention_tc_kernel",),
                       "paged_decode": ("decode_tc_kernel",),
                       "dense_decode": ("decode_tc_kernel",),
-                      "paged_prefill": ("prefill_tc_kernel",)}
+                      "paged_prefill": ("prefill_tc_kernel",),
+                      "ssd_scan": ("ssd_chunk_state_tc_kernel",
+                                   "ssd_chunk_out_tc_kernel")}
 
 
 def sass_mma_counts(build):
@@ -161,8 +185,8 @@ def sass_mma_counts(build):
 
 def report_tensor_cores(build, card) -> None:
     """Print each library's tensor-core instruction count by kernel
-    function; raise if a bf16 body of kernels 1, 2, 3, 5 and 6 has
-    none."""
+    function; raise if a bf16 body named in TENSOR_CORE_BODIES (one or two
+    of every kernel) has none."""
     counts = sass_mma_counts(build)
     if counts is None:
         print("tensor-core instructions: not measured (no cuobjdump)")
@@ -265,6 +289,17 @@ def assert_close(torch, what, out, ref, atol=TOL, rtol=TOL):
         raise AssertionError(f"{what} disagrees with its plain version: "
                              f"{e}") from None
     return (out.float() - ref.float()).abs().max().item()
+
+
+def rel_err(torch, what, out, ref, limit=SSD_REL):
+    """The largest ||out - ref|| / ||ref|| over the heads (dim 0); raises
+    above ``limit``."""
+    e = (out.float() - ref.float()).flatten(1)
+    r = (e.norm(dim=1) / ref.float().flatten(1).norm(dim=1)).max().item()
+    if not r <= limit:
+        raise AssertionError(f"{what}: per-head relative error {r:.3g} "
+                             f"above {limit:g}")
+    return r
 
 
 def row_bytes(kv_dtype: str, D: int) -> int:
@@ -616,27 +651,60 @@ def ssd_inputs(torch, gen, BH, S, P, N):
             (rnd(BH, S, N) * 0.3).bfloat16(), (rnd(BH, S, N) * 0.3).bfloat16())
 
 
-def check_ssd(torch, gen):
-    """Kernel 4 vs its plain version (the step-by-step recurrence) at
-    mamba2-1.3b's widths: BH = 64 heads of P = 64, N = 128, 2048
-    positions, bf16, at its chunk of 256 and the op's default of 128;
-    outputs and the final state.  No one PyTorch call computes this
-    scan, so it has no library time."""
+def check_ssd(torch, gen, card):
+    """Kernel 4 vs its plain version (the step-by-step recurrence), bf16,
+    2048 positions: mamba2-1.3b's widths (BH = 64 heads of P = 64, N =
+    128) at its chunk of 256 and the op's default of 128, and zamba2-7b's
+    (112 heads of 64, N = 64) at 256; outputs and the final state within
+    SSD_TOL and SSD_REL, each bitwise equal from launch to launch; the
+    planted control (a shifted by one position) must fail SSD_REL by 3x;
+    and the device time of each of the kernel's three passes under
+    torch.profiler.  No one PyTorch call
+    computes this scan, so it has no library time."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
-    BH, S, P, N = SSD_HEADS, SEQ, SSD_HEAD_DIM, SSD_STATE
-    xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N)
-    y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
-    plain_ms = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c))
-    results = {}
-    for chunk in (SSD_CHUNK, 128):
+    S = SEQ
+    results, plain = {}, {}
+    for name, (BH, P, N, chunk) in SSD_CASES.items():
+        xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N)
+        y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
+        if (BH, P, N) not in plain:
+            plain[BH, P, N] = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c))
         y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+        y2, st2 = ssd_scan(xdt, a, b, c, chunk=chunk)
         torch.cuda.synchronize()
-        what = f"ssd_scan (chunk {chunk})"
+        what = f"ssd_scan ({name})"
         err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
                   assert_close(torch, what + " state", st, st_ref, SSD_TOL,
                                SSD_TOL))
+        if not (same_bits(torch, y, y2) and same_bits(torch, st, st2)):
+            raise AssertionError(f"{what}: two launches differ")
+        rel = (rel_err(torch, what, y, y_ref),
+               rel_err(torch, what + " state", st, st_ref))
+        yx, stx = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk)
+        control = tuple(rel_err(torch, what, o, r, float("inf"))
+                        for o, r in ((yx, y_ref), (stx, st_ref)))
+        print(f"ssd_scan ({name}) per-head relative error [{card}]: y "
+              f"{rel[0]:.4g}, state {rel[1]:.4g} (limit {SSD_REL:g}); "
+              f"control, a shifted by one: y {control[0]:.4g}, state "
+              f"{control[1]:.4g} (must exceed {3 * SSD_REL:g})")
+        if not min(control) > 3 * SSD_REL:
+            raise AssertionError(f"{what}: the relative check would pass "
+                                 f"the shifted-decay control {control}")
         ms = cuda_ms(lambda: ssd_scan(xdt, a, b, c, chunk=chunk))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                ssd_scan(xdt, a, b, c, chunk=chunk)
+            torch.cuda.synchronize()
+        per_kernel, _ = device_times(torch, prof)
+        split = {stem: sum(v for k, v in per_kernel.items() if stem in k)
+                 / ITERS for stem in SSD_PASSES}
+        print(f"ssd_scan ({name}) passes [{card}]: "
+              + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                 if per_kernel else "device time not measured (the "
+                 "profiler recorded no device events)"))
         # Bytes: xdt, a, b, c read and y written (bf16), the fp32 state
         # written.  Operations of the chunked form: per chunk, the causal
         # half of (C B^T) and of its product with xdt, C state^T, and the
@@ -647,9 +715,9 @@ def check_ssd(torch, gen):
         ops = BH * (S // q) * (q * (q + 1) // 2 * (2 * N + 2 * P)
                                + 4 * q * P * N)
         bound_ms, bound_by = bound(nbytes, ops)
-        results[chunk] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=None, bound_ms=bound_ms,
-                              bound_by=bound_by)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain[BH, P, N],
+                             library_ms=None, bound_ms=bound_ms,
+                             bound_by=bound_by, nbytes=nbytes, ops=ops)
     return results
 
 
@@ -740,9 +808,14 @@ def run_slice3_entry_points(torch, cfg, gen, card):
     y, st = ssd_ops.ssd(x, dt, A, b, c, chunk=SSD_CHUNK)
     torch.cuda.synchronize()
     launches["ssd_scan"] = ssd_scan.launches
+    if launches["ssd_scan"] != 1:
+        raise AssertionError(f"ops.ssd: {launches['ssd_scan']} kernel "
+                             f"launches for one call")
     yr, sr = ssd_scan_ref(x * dt[..., None], dt * A[:, None], b, c)
     e1 = max(assert_close(torch, "ops.ssd", y, yr, SSD_TOL, SSD_TOL),
              assert_close(torch, "ops.ssd state", st, sr, SSD_TOL, SSD_TOL))
+    r1 = max(rel_err(torch, "ops.ssd", y, yr),
+             rel_err(torch, "ops.ssd state", st, sr))
 
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = torch.randn(1, SEQ, H, D, generator=gen, device="cuda").bfloat16()
@@ -754,7 +827,8 @@ def run_slice3_entry_points(torch, cfg, gen, card):
     launches["flash_attention"] = flash_attention.launches
     e2 = assert_close(torch, "ops.attention", out,
                       attention_ref(q, k, v, causal=True))
-    print(f"entry points [{card}]: ops.ssd max|err| {e1:.3g}, ops.attention "
+    print(f"entry points [{card}]: ops.ssd max|err| {e1:.3g} (per-head "
+          f"relative {r1:.3g}), ops.attention "
           f"max|err| {e2:.3g}; launches {launches}")
     return launches
 
@@ -1166,10 +1240,10 @@ def main() -> int:
 
     # 6. The last three kernels at full width, beside the other checks.
     sclad = check_sclad(torch, cfg)
-    ssd = check_ssd(torch, gen)
+    ssd = check_ssd(torch, gen, card)
     attn = check_attention(torch, cfg, gen)
     rows = [(f"sclad_matmul[{p}, C={c}]", r) for (p, c), r in sclad.items()]
-    rows += [(f"ssd_scan[chunk {q}]", r) for q, r in ssd.items()]
+    rows += [(f"ssd_scan[{n}]", r) for n, r in ssd.items()]
     rows += [(f"flash_attention[{n}]", r) for n, r in attn.items()]
     for name, r in rows:
         lib = "none" if r["library_ms"] is None \
@@ -1241,7 +1315,7 @@ def main() -> int:
                      err=max(r["err"] for r in sclad.values())),
         kernel_entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/ssd_scan.py:66",
-                     slice3["ssd_scan"], ssd[SSD_CHUNK],
+                     slice3["ssd_scan"], ssd["mamba2-1.3b, chunk 256"],
                      err=max(r["err"] for r in ssd.values())),
         kernel_entry("flash_attention",
                      "src/repro_torch/csrc/flash_attention.cu",
