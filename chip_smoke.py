@@ -22,8 +22,11 @@ outside the repository.  Phases, each of which raises on failure:
      element: paged decode and paged prefill on a bf16 pool and on int8
      and fp8 SCLAD pools (prefill pools and scales bit for bit; a first
      chunk, one with a 16-token patch prefix, and a continuation, also
-     at internvl2-26b's heads, 48 over 8 kv heads of 128: rep 6), and
-     the dense decode of the wave path; the decode kernels also on a
+     at internvl2-26b's heads, 48 over 8 kv heads of 128: rep 6, with a
+     first chunk behind its 256 patch positions, and at qwen2-moe-a2.7b's,
+     16 over 16 of 128: rep 1), the dense decode of the wave path, and
+     the paged decode at qwen2-moe-a2.7b's and internvl2-26b's heads and
+     the dense decode at internvl2-26b's; the decode kernels also on a
      second length set straddling their 128-position split boundaries
      (and a stale length past the table or stripe), each bitwise equal
      from launch to launch; kernel, plain and
@@ -70,7 +73,19 @@ outside the repository.  Phases, each of which raises on failure:
      lines must equal the JAX package's; ``ops.ssd`` at mamba2-1.3b's
      widths (one kernel launch); ``ops.attention`` at tinyllama-1.1b's
      heads, both against their plain versions;
-  8. a ``{"kernels": [...]}`` line, the card line, and the last line
+  8. the other attention families at full width, each with seeded random
+     bf16 weights built on the card (init peak memory beside the
+     weights' bytes) and freed before the next: qwen2-moe-a2.7b (moe)
+     and internvl2-26b (vlm, 256 patch positions) through the model
+     checks on bf16 and int8 pools, the 12-request trace on a bf16 pool
+     (internvl2-26b: every other request of the shared prefix carries
+     one of two random images, which must hit the prefix cache past the
+     patches; the rest the zero stub), a wave run of 4 requests of 8 new
+     tokens, and for qwen2-moe-a2.7b a profiled decode step (device time
+     of each MoE stage); stablelm-1.6b, phi3-medium-14b and granite-3-8b
+     through the model checks on a bf16 pool and a 4-request run of 16
+     new tokens; each run's launch counts as the 12-request runs';
+  9. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -433,15 +448,19 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
 #: the prefill checks' second head shape beside tinyllama-1.1b's.
 REP6_HEADS = (48, 8, 128)
 PATCH_PREFIX = 16  # the patch-prefix case's prefix
+VLM_PREFIX = 256   # internvl2-26b's patch prefix (num_patches)
 
 
 def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     """Kernel 2 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
     plain version at the prefill chunk's shapes with ``heads`` = (H, Hk,
-    D): a first chunk, a first chunk behind a patch prefix and a
+    D): a first chunk, a first chunk behind a 16-position patch prefix
+    (sharing the chunk's 128 rows), a first chunk behind internvl2-26b's
+    256 patch positions (ahead of a whole chunk: 384 rows) and a
     continuation (with a block-straddling start and a shared context
     block); pools (and scales) bit for bit, bitwise equal launch to
-    launch.  ``cases`` picks some of them (default: all)."""
+    launch.  ``cases`` picks some of them (default: all but the
+    256-position prefix)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
@@ -449,26 +468,35 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     from repro_torch.models import kv_quant
     dev = "cuda"
     H, Hk, D = heads
-    N, S = B * T + 1, CHUNK
+    N = B * T + 1
     kp, ks = make_pool(torch, gen, N, Hk, D, kv_dtype)
     vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
     pool = [kp, vp] + ([] if ks is None else [ks, vs])
     kvd = None if ks is None else kv_dtype
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
-    kn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
-    vn = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
+    all_cases = (
+        ("first", None, 0),
+        (f"first, prefix {PATCH_PREFIX}", None, PATCH_PREFIX),
+        (f"first, prefix {VLM_PREFIX}", None, VLM_PREFIX),
+        ("continuation", torch.tensor([64, 5, 16, 300, 31, 600, 64, 1],
+                                      dtype=torch.int32, device=dev), 0))
+    if cases is None:
+        cases = [c[0] for c in all_cases if c[2] != VLM_PREFIX]
+    rows = max(CHUNK + c[2] * (c[2] >= CHUNK) for c in all_cases
+               if c[0] in cases)
+    q_all = torch.randn(B, rows, H, D, generator=gen, device=dev).bfloat16()
+    kn_all = torch.randn(B, rows, Hk, D, generator=gen, device=dev).bfloat16()
+    vn_all = torch.randn(B, rows, Hk, D, generator=gen, device=dev).bfloat16()
     all_lens = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50],
                             dtype=torch.int32, device=dev)
 
     results = {}
-    for name, start, prefix in (
-            ("first", None, 0),
-            (f"first, prefix {PATCH_PREFIX}", None, PATCH_PREFIX),
-            ("continuation", torch.tensor([64, 5, 16, 300, 31, 600, 64, 1],
-                                          dtype=torch.int32, device=dev),
-             0)):
-        if cases is not None and name not in cases:
+    for name, start, prefix in all_cases:
+        if name not in cases:
             continue
+        # A prefix shorter than the chunk shares its 128 rows (lengths
+        # clamped); a longer one comes ahead of a whole chunk.
+        S = CHUNK + prefix * (prefix >= CHUNK)
+        q, kn, vn = (x[:, :S].contiguous() for x in (q_all, kn_all, vn_all))
         lens = all_lens.clamp(max=S - prefix)
         sidx = torch.arange(S, device=dev)
         # Real rows and keys: the patch prefix and the prompt tokens.
@@ -550,18 +578,18 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     return results
 
 
-def check_dense_decode(torch, cfg, gen):
+def check_dense_decode(torch, cfg, gen, S=MAX_LEN):
     """Kernel 3 (dense stripes, the wave path's decode) vs its plain
-    version: 8 rows of (1024, 4, 64) bf16 stripes, mixed lengths, then
-    lengths that straddle the split boundaries; bitwise equal launch to
-    launch."""
+    version: 8 rows of (S, Hk, D) bf16 stripes at ``cfg``'s heads (S =
+    1024 by default; internvl2-26b's wave stripes add its 256 patch
+    positions), mixed lengths, then lengths that straddle the split
+    boundaries; bitwise equal launch to launch."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.flash_decode import (
         SPLIT, flash_decode)
     from repro_torch.kernels.flash_decode.ref import decode_ref
     dev = "cuda"
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    S = MAX_LEN
     q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
     kc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
     vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
@@ -571,7 +599,7 @@ def check_dense_decode(torch, cfg, gen):
     out = flash_decode(q, kc, vc, lens)
     torch.cuda.synchronize()
     ref = decode_ref(q, kc, vc, lens)
-    what = "dense decode kernel"
+    what = f"dense decode kernel (heads {H}/{Hk}/{D}, stripes of {S})"
     err = assert_close(torch, what, out[live], ref[live])
     same_launches(torch, what, out, lambda: flash_decode(q, kc, vc, lens))
     lens2 = torch.tensor([SPLIT - 1, SPLIT, SPLIT + 1, S, S + 300,
@@ -835,9 +863,11 @@ def run_slice3_entry_points(torch, cfg, gen, card):
 
 def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
     """Full-width logits of a first chunk, a continuation's last position
-    and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``;
-    ``wrong`` points one of lane 0's table entries at the trash block for
-    the decode step."""
+    and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``
+    (a vlm first chunk behind random patch embeddings, and its
+    continuation's start counting them); ``wrong`` points the table entry
+    of lane 0's first prompt tokens at the trash block for the decode
+    step."""
     from dataclasses import replace
     from repro_torch.models import model as M
     dev = "cuda"
@@ -854,22 +884,29 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
                        device=dev)
     tok1 = torch.randint(1, cfg.vocab_size, (nb, 1), generator=rng,
                          device=dev)
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    patches = None
+    if prefix:
+        patches = torch.randn(nb, prefix, cfg.d_model, generator=rng,
+                              device=dev).bfloat16()
     dtbl = tbl.clone()
     if wrong:
-        dtbl[0, 0] = 0
+        dtbl[0, prefix // BS] = 0
     c = replace(cfg, attn_kernel=mode, kv_dtype=kv_dtype)
     cache = M.init_paged_cache(c, N, BS, device=dev)
-    a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl)
-    b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl, start=lens,
-                               all_logits=True)
+    a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl,
+                               patch_embeds=patches)
+    b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl,
+                               start=prefix + lens, all_logits=True)
     d, cache = M.decode_step(c, params, cache, tok1, lens + l2,
                              block_tables=dtbl)
     torch.cuda.synchronize()
     return a.float(), b[:, -1].float(), d[:, 0].float()
 
 
-def compare_logits(torch, what, got, want, share, card):
-    """Each of the three logit sets within ``share`` of want's range."""
+def compare_logits(torch, what, got, want, share, card, enforce=True):
+    """Each of the three logit sets within ``share`` of want's range (only
+    printed when not ``enforce``)."""
     worst = 0.0
     for name, x, y in zip(("prefill", "continuation", "decode"), got, want):
         if not torch.isfinite(x).all():
@@ -880,44 +917,90 @@ def compare_logits(torch, what, got, want, share, card):
         print(f"model check {what} {name} [{card}]: max|diff| {err:.4g} of "
               f"range {span:.4g} (limit {share * span:.4g}); argmax "
               f"agreement {agree:.2f}")
-        if err > share * span:
+        if enforce and err > share * span:
             raise AssertionError(f"model {what} {name}: differ by {err} "
                                  f"(range {span}, limit {share * span})")
         worst = max(worst, err / span)
     return worst
 
 
-def check_model(torch, cfg, params, card):
+@contextlib.contextmanager
+def routing(torch, log, replay):
+    """Record each ``models.moe.route`` call's expert choice into ``log``,
+    or (``replay``) route every call to ``log``'s choices in order, with
+    weights renormalised from this run's router probabilities at those
+    experts; a replay must use the whole log."""
+    from repro_torch.models import moe
+    route, it = moe.route, iter(log)
+
+    def recorded(cfg, router_w, x):
+        weights, experts, aux = route(cfg, router_w, x)
+        if not replay:
+            log.append(experts)
+            return weights, experts, aux
+        experts = next(it)
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        weights = probs.gather(1, experts)
+        return weights / weights.sum(-1, keepdim=True).clamp(min=1e-9), \
+            experts, aux
+
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = route
+    if replay and next(it, None) is not None:
+        raise AssertionError("routing replay: calls differ from the log")
+
+
+def check_model(torch, cfg, params, card, pools=("bf16", "int8", "fp8"),
+                quant_gate=True):
     """prefill_slots (first chunk, continuation) and decode_step logits
-    with the kernels on vs off, full width, on bf16, int8 and fp8 pools.
-    Tolerance: 5% of the logits' range — 22 bf16 layers amplify the
-    kernels' fp32-vs-bf16 rounding differences in the attention outputs.
+    with the kernels on vs off, full width, on each of ``pools`` (bf16
+    first).  Tolerance: 5% of the logits' range — 22 bf16 layers (24-48
+    on the other configs) amplify the kernels' fp32-vs-bf16 rounding
+    differences in the attention outputs.  An MoE's top-k routing is
+    discontinuous: a token whose k-th and (k+1)-th expert probabilities
+    lie within that rounding picks another expert, whatever the kernels'
+    accuracy; so the kernels' run takes the plain run's expert choices
+    (``routing``), and the free-routing difference is printed beside it.
     A control shows the limit is tight enough to matter: the plain path's
     decode step with one table entry of one lane pointed at the trash
-    block (16 of its 80 keys read from the wrong block) must differ from
-    the right one by more than it.  Then the int8 / fp8 pools against the
-    bf16 pool, kernels on, within QUANT_GATE of the range."""
+    block (16 of its 80 keys read from the wrong block; of 336 behind
+    internvl2-26b's patches) must differ from the right one by more than
+    it.  Then the quantized pools against the bf16 pool, kernels on,
+    within QUANT_GATE of the range — a gate set on tinyllama-1.1b, only
+    printed with ``quant_gate`` False."""
     on = {}
-    for kv_dtype in ("bf16", "int8", "fp8"):
-        on[kv_dtype] = model_logits(torch, cfg, params, kv_dtype, "on")
-        off = model_logits(torch, cfg, params, kv_dtype, "off")
-        compare_logits(torch, f"{kv_dtype} pool, kernels on vs off",
-                       on[kv_dtype], off, 0.05, card)
+    for kv_dtype in pools:
+        picks = []
+        with routing(torch, picks, replay=False):
+            off = model_logits(torch, cfg, params, kv_dtype, "off")
+        with routing(torch, picks, replay=True):
+            on[kv_dtype] = model_logits(torch, cfg, params, kv_dtype, "on")
+        compare_logits(torch, f"{cfg.name} {kv_dtype} pool, kernels on vs "
+                       f"off", on[kv_dtype], off, 0.05, card)
+        if kv_dtype == "bf16" and picks:
+            free = model_logits(torch, cfg, params, kv_dtype, "on")
+            compare_logits(torch, f"{cfg.name} {kv_dtype} pool, kernels on "
+                           f"vs off, free routing", free, off, 0.05, card,
+                           enforce=False)
         if kv_dtype == "bf16":
-            bad = model_logits(torch, cfg, params, "bf16", "off",
-                               wrong=True)
+            with routing(torch, picks, replay=True):
+                bad = model_logits(torch, cfg, params, "bf16", "off",
+                                   wrong=True)
             span = (off[2].max() - off[2].min()).item()
             err = (bad[2] - off[2]).abs().max().item()
-            print(f"model check control (decode reading one wrong block) "
-                  f"[{card}]: max|wrong-off| {err:.4g} of range {span:.4g} "
-                  f"(must exceed {0.05 * span:.4g})")
+            print(f"model check {cfg.name} control (decode reading one "
+                  f"wrong block) [{card}]: max|wrong-off| {err:.4g} of "
+                  f"range {span:.4g} (must exceed {0.05 * span:.4g})")
             if err <= 0.05 * span:
                 raise AssertionError("model check cannot see a decode that "
                                      "reads one wrong block: its limit is "
                                      "too loose")
-    for kv_dtype in ("int8", "fp8"):
+    for kv_dtype in pools[1:]:
         compare_logits(torch, f"{kv_dtype} vs bf16 pool", on[kv_dtype],
-                       on["bf16"], QUANT_GATE[kv_dtype], card)
+                       on["bf16"], QUANT_GATE[kv_dtype], card, quant_gate)
 
 
 def trace(cfg, n=12):
@@ -945,9 +1028,14 @@ def launch_counts():
             "flash_decode": flash_decode}
 
 
-def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto"):
-    """One path of the main path: ServingEngine over the kernels on the
-    12-request trace, launch counts set to 0 before and read after."""
+def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto",
+               reqs=None, images=None, max_new=32, expect_hits=True):
+    """One path of the main path: ServingEngine over the kernels on
+    ``reqs`` (default: the 12-request trace; ``images``: a vlm request's
+    patch embeddings or None, the zero stub), ``max_new`` tokens each,
+    launch counts set to 0 before and read after; with ``expect_hits``
+    the continuous path must hit the prefix cache past any patch
+    prefix."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.sampler import SamplerConfig
 
@@ -956,29 +1044,32 @@ def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto"):
         block_size=BS, prefill_chunk=CHUNK, attn_kernel="auto", seed=0,
         sampler=SamplerConfig(temperature=0.8, top_k=50), device="cuda",
         kv_dtype=kv_dtype, mode=mode)
-    reqs = trace(cfg)
+    reqs = trace(cfg) if reqs is None else reqs
+    images = [None] * len(reqs) if images is None else images
     # Both prefill forms are certain on the continuous path: the first
     # admission into the empty pool is a first chunk, and a prompt longer
     # than one chunk (or a prefix-cache hit, asserted below) continues from
     # cached context.
-    if max(len(p) for p in reqs) <= CHUNK:
+    if eng.mode != "wave" and max(len(p) for p in reqs) <= CHUNK:
         raise AssertionError("no prompt spans more than one prefill chunk")
     torch.cuda.reset_peak_memory_stats()
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    uids = [eng.submit(p, max_new_tokens=32) for p in reqs]
+    uids = [eng.submit(p, max_new_tokens=max_new, patch_embeds=pe)
+            for p, pe in zip(reqs, images)]
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     s = eng.stats
     L = cfg.num_layers
-    what = f"engine ({eng.mode}, {kv_dtype})"
+    what = f"engine {cfg.name} ({eng.mode}, {kv_dtype})"
     for u in uids:
         toks = out[u]
-        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
             raise AssertionError(f"{what}: request {u} returned {toks}")
     if eng.mode == "wave":
         # Every decode step but each wave's last (which only samples);
@@ -997,7 +1088,7 @@ def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto"):
                 "flash_decode": 0}
         if launches != want or s.decode_steps == 0:
             raise AssertionError(f"{what}: launches {launches}, want {want}")
-        if s.cached_prompt_tokens <= 0:
+        if expect_hits and s.cached_prompt_tokens <= 0:
             raise AssertionError(f"{what}: no prefix-cache hits on the "
                                  f"shared prefix")
     kv = "" if eng.mode == "wave" else (
@@ -1066,12 +1157,14 @@ def run_same_bytes_pair(torch, cfg, params, card):
                              "bf16 pool of the same bytes")
 
 
-def device_times(torch, prof):
+def device_times(torch, prof, skip=()):
     """{kernel name: device ms} and the device operation count of a
-    profile."""
+    profile; ``skip``: span names, whose device-side ranges are not
+    operations."""
     per_kernel, n = {}, 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in skip:
             per_kernel[e.name] = per_kernel.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
             n += 1
@@ -1126,35 +1219,69 @@ def profile_prefill(torch, eng, cfg, card):
                              f"in a chunk of {cfg.num_layers} layers")
 
 
-def profile_decode(torch, eng, cfg, card):
+@contextlib.contextmanager
+def spans(torch, module, names):
+    """Run each of ``module``'s functions ``names`` inside a
+    torch.profiler span of its name while the context lasts (callers in
+    the module reach them through its globals)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def spanned(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+#: The MoE FFN's stages (``models.moe``), each a span of the MoE decode
+#: profile: routing, slot assignment, the gather into expert buffers, the
+#: expert products, the weighted combine and the shared expert.
+MOE_SPANS = ("route", "_dispatch_indices", "_gather", "_expert_ffn",
+             "_combine", "apply_shared")
+
+
+def profile_decode(torch, eng, cfg, card, moe_spans=False):
     """Where a decode step's time goes, after the main path: the same
     engine with all 8 lanes decoding, three steps under torch.profiler.
     Prints the device-busy share of the (profiled) wall time, launches per
-    step, and the kernels with the most device time."""
+    step, and the kernels with the most device time; with ``moe_spans``
+    also the device time of each MoE stage (MOE_SPANS) a step."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe
     rng = np.random.default_rng(1)
     for _ in range(B):
         eng.submit(rng.integers(1, cfg.vocab_size, size=64),
                    max_new_tokens=8)
     eng.step()  # admission, one prefill chunk, the first decode step
     steps = 3
+    names = MOE_SPANS if moe_spans else ()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with spans(torch, moe, names), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    per_kernel, n = device_times(torch, prof)
+    per_kernel, n = device_times(torch, prof, skip=names)
     if not per_kernel:
         print("decode profile: device time not measured (the profiler "
               "recorded no device events)")
         return
     busy = sum(per_kernel.values())
-    print(f"decode profile [{card}]: {steps} steps of {B} lanes, wall "
+    print(f"decode profile {cfg.name} [{card}]: {steps} steps of {B} "
+          f"lanes, wall "
           f"{wall / steps * 1e3:.2f} ms/step under the profiler, device "
           f"busy {busy / steps:.2f} ms/step "
           f"({busy / (wall * 1e3):.1%}), {n / steps:.0f} device "
@@ -1169,6 +1296,87 @@ def profile_decode(torch, eng, cfg, card):
                     and stem in e.name)
         print(f"decode profile {stem} [{card}]: {ms / steps:.4f} ms/step, "
               f"{calls / steps:.0f} launches/step")
+    if names:
+        # A span's device time: the kernels launched inside it (the CPU
+        # range's subtree), summed over its calls.
+        cpu = torch.autograd.DeviceType.CPU
+        by_span = {n: sum(getattr(e, "device_time_total", None)
+                          or e.cuda_time_total for e in prof.events()
+                          if e.name == n and e.device_type == cpu) / 1e3
+                   for n in names}
+        print(f"decode profile MoE stages [{card}]: " + ", ".join(
+            f"{n} {ms / steps:.3f} ms/step" for n, ms in by_span.items())
+            + f" (of {busy / steps:.3f} ms/step busy)")
+
+
+#: The other attention families' configs at full width, the slice's own
+#: paths: moe and vlm served on a bf16 pool and in wave mode, the three
+#: other dense configs on a short continuous run.
+MOE_ARCH, VLM_ARCH = "qwen2-moe-a2.7b", "internvl2-26b"
+DENSE_ARCHS = ("stablelm-1.6b", "phi3-medium-14b", "granite-3-8b")
+
+
+def images(cfg, n):
+    """Two seeded random patch-embedding images (num_patches, d_model)
+    fp32 and, for the 12-request trace, request i's image: every other
+    request of the shared system prefix takes one of the two in turn
+    (same-image requests then hit the prefix cache past the patches),
+    the rest the zero stub."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    a, b = (rng.standard_normal((cfg.num_patches, cfg.d_model))
+            .astype(np.float32) for _ in range(2))
+    return [(a if i % 4 == 1 else b) if i % 2 else None for i in range(n)]
+
+
+def run_family(torch, arch, card):
+    """One config at full width with seeded random bf16 weights, freed
+    afterwards: init (peak memory beside the weights' bytes),
+    check_model, then its engine runs, each with its launch counts set to
+    0 before and read after.  moe and vlm: kernels on vs off on bf16 and
+    int8 pools, the 12-request trace on a bf16 pool (vlm: two images and
+    the stub), a wave run of 4 requests of distinct lengths and 8 new
+    tokens, and (moe) a profiled decode step.  Dense: bf16 pool, 4
+    requests of 16 new tokens.  Returns {run: launches}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"params {arch} [{card}]: {M.param_count(cfg) / 1e9:.3f} B, "
+          f"{weights / 2**30:.2f} GiB bf16 in {time.perf_counter() - t0:.1f}"
+          f" s; init peak {peak / 2**30:.2f} GiB ({peak / weights:.3f}x)")
+    launches = {}
+    if cfg.family == "dense":
+        check_model(torch, cfg, params, card, pools=("bf16",))
+        launches["continuous"], _ = run_engine(
+            torch, cfg, params, card, reqs=trace(cfg, 4), max_new=16,
+            expect_hits=False)
+    else:
+        check_model(torch, cfg, params, card, pools=("bf16", "int8"),
+                    quant_gate=False)
+        reqs = trace(cfg)
+        imgs = images(cfg, len(reqs)) if cfg.family == "vlm" else None
+        launches["continuous"], eng = run_engine(
+            torch, cfg, params, card, reqs=reqs, images=imgs)
+        if cfg.family == "moe":
+            profile_decode(torch, eng, cfg, card, moe_spans=True)
+        del eng
+        wave = [reqs[i] for i in (0, 1, 2, 3)]
+        if len({len(p) for p in wave}) != len(wave):
+            raise AssertionError("wave run: prompt lengths repeat")
+        launches["wave"], _ = run_engine(
+            torch, cfg, params, card, mode="wave", reqs=wave,
+            images=None if imgs is None else imgs[:4], max_new=8)
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, r, err=None):
@@ -1223,15 +1431,31 @@ def main() -> int:
     pre = {kd: check_prefill(torch, tiny, gen, kd)
            for kd in ("bf16", "int8", "fp8")}
     pre6 = {kd: check_prefill(torch, REP6_HEADS, gen, kd,
-                              cases=("first", "continuation"))
+                              cases=("first", f"first, prefix {VLM_PREFIX}",
+                                     "continuation"))
             for kd in ("bf16", "int8", "fp8")}
     dense = check_dense_decode(torch, cfg, gen)
+    # The new families' heads: qwen2-moe-a2.7b 16 over 16 of 128 (rep 1),
+    # internvl2-26b 48 over 8 of 128 (rep 6).
+    moe_cfg, vlm_cfg = get_config(MOE_ARCH), get_config(VLM_ARCH)
+    moe_heads = (moe_cfg.num_heads, moe_cfg.num_kv_heads, moe_cfg.head_dim)
+    dec_moe = check_decode(torch, moe_cfg, gen)
+    dec_vlm = check_decode(torch, vlm_cfg, gen)
+    pre_moe = check_prefill(torch, moe_heads, gen,
+                            cases=("first", "continuation"))
+    dense_vlm = check_dense_decode(torch, vlm_cfg, gen,
+                                   S=MAX_LEN + VLM_PREFIX)
     rows = [(f"paged_flash_decode[{kd}]", r) for kd, r in dec.items()]
     rows += [(f"paged_flash_prefill[{kd}, {k}]", v)
              for kd, res in pre.items() for k, v in res.items()]
     rows += [(f"paged_flash_prefill[{kd}, {k}, heads {REP6_HEADS}]", v)
              for kd, res in pre6.items() for k, v in res.items()]
     rows.append(("flash_decode[dense]", dense))
+    rows += [(f"paged_flash_decode[bf16, heads {moe_heads}]", dec_moe),
+             (f"paged_flash_decode[bf16, heads {REP6_HEADS}]", dec_vlm)]
+    rows += [(f"paged_flash_prefill[bf16, {k}, heads {moe_heads}]", v)
+             for k, v in pre_moe.items()]
+    rows.append((f"flash_decode[dense, heads {REP6_HEADS}]", dense_vlm))
     for name, r in rows:
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
@@ -1276,7 +1500,12 @@ def main() -> int:
     # 7. The last three kernels' entry points.
     slice3 = run_slice3_entry_points(torch, cfg, gen, card)
 
-    # 8. Result lines.  The quantized bodies report their int8 times (fp8
+    # 8. The other attention families at full width, one at a time.
+    del params, bf16_engine, eng
+    family = {arch: run_family(torch, arch, card)
+              for arch in (MOE_ARCH, VLM_ARCH) + DENSE_ARCHS}
+
+    # 9. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -1309,6 +1538,27 @@ def main() -> int:
         kernel_entry("flash_decode", "src/repro_torch/csrc/dense_decode.cu",
                      f"{dec_tpu}:78", runs("flash_decode", ("bf16", "wave")),
                      dense),
+        kernel_entry(f"paged_flash_decode[heads {moe_heads}]", dec_src,
+                     f"{dec_tpu}:183",
+                     family[MOE_ARCH]["continuous"]["paged_flash_decode"],
+                     dec_moe),
+        kernel_entry(f"paged_flash_decode[heads {REP6_HEADS}]", dec_src,
+                     f"{dec_tpu}:183",
+                     family[VLM_ARCH]["continuous"]["paged_flash_decode"],
+                     dec_vlm),
+        kernel_entry(f"paged_flash_prefill[heads {moe_heads}]", pre_src,
+                     f"{pre_tpu}:231",
+                     family[MOE_ARCH]["continuous"]["paged_flash_prefill"],
+                     pre_moe["continuation"],
+                     err=max(r["err"] for r in pre_moe.values())),
+        kernel_entry(f"paged_flash_prefill[heads {REP6_HEADS}, prefix "
+                     f"{VLM_PREFIX}]", pre_src, f"{pre_tpu}:231",
+                     family[VLM_ARCH]["continuous"]["paged_flash_prefill"],
+                     pre6["bf16"][f"first, prefix {VLM_PREFIX}"],
+                     err=max(r["err"] for r in pre6["bf16"].values())),
+        kernel_entry(f"flash_decode[heads {REP6_HEADS}]",
+                     "src/repro_torch/csrc/dense_decode.cu", f"{dec_tpu}:78",
+                     family[VLM_ARCH]["wave"]["flash_decode"], dense_vlm),
         kernel_entry("sclad_matmul", "src/repro_torch/csrc/sclad_matmul.cu",
                      "src/repro/kernels/sclad_matmul/sclad_matmul.py:66",
                      slice3["sclad_matmul"], sclad["gate/up", 6],

@@ -243,7 +243,16 @@ def _ensure_imported():
     if _IMPORTED:
         return
     # Import every config module so registrations run.  The port serves
-    # the dense family only so far; its configs land here as they do.
-    from repro_torch.configs import tinyllama_1_1b  # noqa: F401
+    # the attention families (dense, moe, vlm); the mamba2, zamba2 and
+    # whisper configs land here with the ssm, hybrid and audio families.
+    from repro_torch.configs import (  # noqa: F401
+        granite_3_8b,
+        internvl2_26b,
+        phi3_medium_14b,
+        qwen2_moe_a2_7b,
+        qwen3_moe_235b_a22b,
+        stablelm_1_6b,
+        tinyllama_1_1b,
+    )
 
     _IMPORTED = True

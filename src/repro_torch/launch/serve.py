@@ -3,10 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --requests 6 --max-new 8
 
-Weights are random, drawn from ``--seed`` (nothing is downloaded).  Runs
-on the CUDA card by default; ``--device cpu`` (with ``--reduced``) runs
-the plain PyTorch path on the CPU.  ``--kv-dtype int8|fp8`` stores the
-paged pool SCLAD-compressed; ``--mode wave`` serves lockstep waves over
+``--arch`` takes every registered config: the dense family
+(tinyllama-1.1b, stablelm-1.6b, phi3-medium-14b, granite-3-8b), the moe
+family (qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and the vlm family
+(internvl2-26b, every request behind the zero patch-embedding stub, as
+in ``repro.launch.serve``).  Weights are random, drawn from ``--seed``
+(nothing is downloaded).  Runs on the CUDA card by default; ``--device
+cpu`` (with ``--reduced``) runs the plain PyTorch path on the CPU.
+``--kv-dtype int8|fp8`` stores the paged pool SCLAD-compressed; ``--mode wave`` serves lockstep waves over
 dense stripes instead of continuous batching.  The single-engine closed loop of
 ``repro.launch.serve``: every request is submitted up front and the
 engine runs until the queue drains.

@@ -32,9 +32,12 @@ def params_from_numpy(cfg: ModelConfig, tree: Any,
                       device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """The reference tree (numpy leaves) -> the port's parameters on
-    ``device``, cast to ``dtype`` when given (e.g. ``torch.float32`` for
-    the fp32 parity recipe).  Raises if the tree's keys or shapes differ
-    from the port's layout for ``cfg``."""
+    ``device``, each leaf in its own dtype (bf16 weights, the fp32 MoE
+    router), or every leaf cast to ``dtype`` when given (e.g.
+    ``torch.float32`` for the fp32 parity recipe).  Raises if the tree's
+    keys or shapes differ from the port's layout for ``cfg``
+    (``model.param_shapes``: per family, e.g. ``moe`` blocks, vlm's
+    ``patch_proj``)."""
     dev = resolve_device(device)
 
     def walk(shapes, sub, path):

@@ -1,7 +1,8 @@
-"""Transformer layers of the dense family: norm, rotary embeddings, QKV
-projection, full causal attention (``_sdpa``, ``chunked_attention``,
-``attention``), SwiGLU/GeGLU/GELU MLP, and single-token decode attention
-over a paged pool (bf16 or SCLAD int8/fp8) or dense stripes.
+"""Transformer layers of the attention families: norm, rotary
+embeddings, QKV projection, full causal attention (``_sdpa``,
+``chunked_attention``, ``attention``), SwiGLU/GeGLU/GELU MLP, and
+single-token decode attention over a paged pool (bf16 or SCLAD int8/fp8)
+or dense stripes.
 
 Port of the serving-path functions of ``repro.models.layers``, as plain
 functions on tensors over explicit parameter dictionaries.  The
@@ -26,21 +27,33 @@ from repro_torch.models import kv_quant
 Params = Dict[str, torch.Tensor]
 
 
+#: Elements drawn per fp32 temporary by the initialisers: 64 Mi, 256 MiB.
+INIT_CHUNK = 1 << 26
+
+
+def _normal(gen: torch.Generator, shape, std: float,
+            dtype) -> torch.Tensor:
+    """N(0, std^2) in ``dtype``, drawn in fp32 INIT_CHUNK elements at a
+    time, so a leaf's draw adds at most 256 MiB to the memory it fills."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - i)
+        flat[i:i + n] = torch.randn(n, generator=gen, device=gen.device,
+                                    dtype=torch.float32).mul_(std)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Scaled normal init (fan-in): N(0, 1/fan_in), the distribution of
     the reference's ``dense_init`` (not its bits)."""
-    std = 1.0 / math.sqrt(shape[in_axis])
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (x * std).to(dtype)
+    return _normal(gen, shape, 1.0 / math.sqrt(shape[in_axis]), dtype)
 
 
 def embed_init(gen: torch.Generator, shape,
                dtype=torch.bfloat16) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (x * 0.02).to(dtype)
+    return _normal(gen, shape, 0.02, dtype)
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -259,6 +272,15 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if kv_scales is not None:
         return (out, k_cache, v_cache) + tuple(kv_scales)
     return out, k_cache, v_cache
+
+
+def mlp_shapes(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, Tuple[int, ...]]:
+    """The MLP's leaves (``d_ff`` or the config's), as the reference's
+    ``init_mlp`` lays them out: gated activations have ``w_gate``."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation in ("swiglu", "geglu"):
+        return {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return {"w_up": (d, f), "w_down": (f, d)}
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Serving engine: continuous batching over a ref-counted paged KV cache,
 and the lockstep wave path.
 
-Port of ``repro.serving.engine`` for the dense family, both modes.  The
-continuous path's host-side scheduler is the reference's, line for line:
+Port of ``repro.serving.engine`` for the families with attention KV
+caches (dense, moe, vlm), both modes.  The continuous path's host-side
+scheduler is the reference's, line for line:
 
   * one pool of fixed-size KV blocks (``model.init_paged_cache``)
     addressed through per-lane block tables;
@@ -24,9 +25,15 @@ continuous path's host-side scheduler is the reference's, line for line:
     (``attn_kernel``: "auto" = kernels on the card, plain versions on the
     CPU; "on" = kernels; "off" = plain versions).
 
+vlm note: the patch prefix is part of each lane's cache, so its positions
+enter the hash chain as sentinel ids and the patch embeddings' digest
+seeds the lane's chain root (``_chain_seed``): requests with the same
+image (or both with the zero stub, the default) share the prefix; the
+same token ids behind different images never do.
+
 ``mode="wave"`` (``_run_waves``) is the reference's lockstep baseline:
 requests grouped by exact prompt length, each wave prefilled in one pass
-into dense (L, B, max_len, Hk, D) stripes (``model.prefill``) and decoded
+into dense (L, B, ctx, Hk, D) stripes (``model.prefill``) and decoded
 together through the dense flash-decode kernel until every member is
 done.  ``mode="auto"`` picks continuous for the attention families, as
 the reference does.
@@ -37,10 +44,12 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
 Outside the port so far the engine raises ``NotImplementedError``:
-speculative decoding, meshes, ``kv_dtype="f8"`` and non-dense families.
+speculative decoding, meshes, ``kv_dtype="f8"`` and the ssm, hybrid and
+audio families.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 import time
 from dataclasses import dataclass, field, replace as dc_replace
@@ -61,6 +70,9 @@ from repro_torch.serving.sampler import (SamplerConfig, positional_keys,
 #: Victim-selection policies for pool-pressure preemption.
 PREEMPT_POLICIES = ("youngest", "largest", "deadline")
 
+#: Families with block-addressable KV caches: the continuous path's.
+CONTINUOUS_FAMILIES = ("dense", "moe", "vlm")
+
 
 @dataclass
 class Request:
@@ -72,6 +84,11 @@ class Request:
     #: Soft completion deadline (only ORDER matters) — consumed by
     #: preempt_policy="deadline".  None = no deadline.
     deadline: Optional[float] = None
+    #: vlm only: the request's (num_patches, d_model) fp32 patch
+    #: embeddings; None = the zero stub.
+    patch_embeds: Optional[np.ndarray] = None
+    #: Chain root of the request's prefix-cache digests (``_chain_seed``).
+    chain_seed: bytes = b""
 
 
 @dataclass
@@ -89,7 +106,7 @@ class _Prefilling:
     budget: int  # decode budget remaining
     tokens: np.ndarray
     consumed: int = 0
-    cached_len: int = 0
+    cached_len: int = 0  # cached positions, a vlm patch prefix included
     counted_cached: int = 0  # cached tokens credited to stats at admission
 
 
@@ -234,11 +251,10 @@ class ServingEngine:
             raise NotImplementedError("speculative decoding is not ported")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves the dense family")
-        if mode == "auto":  # as in the reference, for the attention families
-            mode = "continuous"
+        M.check_family(cfg, "ServingEngine")
+        if mode == "auto":
+            mode = "continuous" if cfg.family in CONTINUOUS_FAMILIES \
+                else "wave"
         if mode not in ("continuous", "wave"):
             raise ValueError(f"mode {mode!r} not in ('auto', 'continuous', "
                              f"'wave')")
@@ -257,6 +273,8 @@ class ServingEngine:
                 f"params live on {params['embed'].device}, the engine on "
                 f"{self.device}")
         self._chain_root = chain_root_for(cfg.kv_dtype)
+        #: Cache positions ahead of each prompt: the vlm patch prefix.
+        self._prefix = cfg.num_patches if cfg.family == "vlm" else 0
         self.preempt_policy = preempt_policy
         self.cfg = cfg
         self.max_batch = max_batch
@@ -285,8 +303,11 @@ class ServingEngine:
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
-               deadline: Optional[float] = None) -> int:
-        """Queue a request; ``deadline`` feeds preempt_policy="deadline"."""
+               deadline: Optional[float] = None,
+               patch_embeds: Optional[np.ndarray] = None) -> int:
+        """Queue a request; ``deadline`` feeds preempt_policy="deadline";
+        ``patch_embeds`` (vlm only, (num_patches, d_model)) is the
+        request's image, whose digest seeds its prefix-cache chain."""
         if self.poisoned:
             raise RuntimeError(
                 "engine is poisoned: an earlier step() failure left the "
@@ -296,6 +317,16 @@ class ServingEngine:
             raise ValueError(
                 f"prompt length {len(prompt)} leaves no decode room in a "
                 f"{self.max_len}-token cache")
+        if patch_embeds is not None:
+            if self.cfg.family != "vlm":
+                raise ValueError(
+                    f"patch_embeds is vlm-only (family is "
+                    f"{self.cfg.family!r})")
+            patch_embeds = np.asarray(patch_embeds, np.float32)
+            want = (self.cfg.num_patches, self.cfg.d_model)
+            if patch_embeds.shape != want:
+                raise ValueError(
+                    f"patch_embeds shape {patch_embeds.shape} != {want}")
         self._uid += 1
         uid = self._uid
         if max_new_tokens < 1:
@@ -312,9 +343,23 @@ class ServingEngine:
                     f"table caps at {cap}; it can never be admitted "
                     f"(raise num_blocks or shorten the prompt/budget)")
         self._submit_t[uid] = time.perf_counter()
-        self._queue.append(Request(uid, prompt, max_new_tokens,
-                                   deadline=deadline))
+        self._queue.append(Request(
+            uid, prompt, max_new_tokens, deadline=deadline,
+            patch_embeds=patch_embeds,
+            chain_seed=self._chain_seed(patch_embeds)))
         return uid
+
+    def _chain_seed(self, patch_embeds: Optional[np.ndarray]) -> bytes:
+        """A request's prefix-cache chain root: the engine's
+        kv_dtype-namespaced root, with the vlm image folded in (the zero
+        stub has a constant seed of its own, so stub requests share)."""
+        if self.cfg.family != "vlm":
+            return self._chain_root
+        if patch_embeds is None:
+            return hashlib.sha256(
+                self._chain_root + b"|vlm-zero-stub").digest()
+        return hashlib.sha256(
+            self._chain_root + patch_embeds.tobytes()).digest()
 
     def _note_tokens(self, uid: int, m: int, now: float) -> None:
         """Latency samples for ``m`` tokens of ``uid`` observed at ``now``:
@@ -374,7 +419,7 @@ class ServingEngine:
             if not self._host_active[i]:
                 continue  # preempted while an earlier lane grew
             steps_i = min(K, int(self._host_rem[i]))
-            lo = int(self._host_pos[i])
+            lo = self._prefix + int(self._host_pos[i])
             self._grow_for_writes(
                 i, lo, lo + steps_i,
                 alive=lambda i=i: bool(self._host_active[i]))
@@ -402,7 +447,7 @@ class ServingEngine:
         for i in np.nonzero(was)[0]:
             i = int(i)
             r = self._slot_req[i]
-            pos_before = int(self._host_pos[i])
+            pos_before = self._prefix + int(self._host_pos[i])
             alive, emitted = True, 0
             for j in range(K):
                 if not alive:
@@ -417,7 +462,8 @@ class ServingEngine:
                 alive = bool(active_h[j, i])
             self._note_tokens(r.uid, emitted, now)
             if self.prefix_cache and \
-                    int(self._host_pos[i]) // bs != pos_before // bs:
+                    (self._prefix + int(self._host_pos[i])) // bs \
+                    != pos_before // bs:
                 # Freshly filled full block(s) become matchable.
                 self._alloc.commit_full(i, self._content_ids(r))
             if not alive:
@@ -464,17 +510,21 @@ class ServingEngine:
         return bool(self._queue or self._prefilling or self._instant
                     or self._host_active.any())
 
-    def match_cached_blocks(self, prompt) -> int:
-        """How many leading blocks of ``prompt`` the prefix cache could
-        serve RIGHT NOW, without touching any state (0 with caching off
-        or in wave mode)."""
+    def match_cached_blocks(self, prompt, patch_embeds=None) -> int:
+        """How many leading blocks of ``prompt`` (behind ``patch_embeds``
+        on a vlm engine) the prefix cache could serve RIGHT NOW, without
+        touching any state (0 with caching off or in wave mode)."""
         if self.mode != "continuous" or not self.prefix_cache:
             return 0
-        digests = chain_hashes(np.asarray(prompt, np.int64),
-                               self._alloc.block_size,
-                               seed=self._chain_root)
+        content = np.concatenate([np.full(self._prefix, -1, np.int64),
+                                  np.asarray(prompt, np.int64)])
+        if patch_embeds is not None:
+            patch_embeds = np.asarray(patch_embeds, np.float32)
+        digests = chain_hashes(content, self._alloc.block_size,
+                               seed=self._chain_seed(patch_embeds))
         return self._alloc.match_digests(
-            digests, max_cached_tokens=len(prompt) - 1)[0]
+            digests, max_cached_tokens=self._prefix + len(prompt) - 1,
+            min_cached_tokens=self._prefix)[0]
 
     def cancel(self, uid: int) -> bool:
         """Abort a request wherever it is — queued, mid-prefill or
@@ -528,7 +578,7 @@ class ServingEngine:
     def _init_continuous(self) -> None:
         cfg, B, dev = self.cfg, self.max_batch, self.device
         bs = self.block_size
-        table_width = -(-self.max_len // bs)
+        table_width = -(-(self.max_len + self._prefix) // bs)
         if self.num_blocks is None:
             self.num_blocks = B * table_width
         self._alloc = BlockStore(self.num_blocks, bs, B, table_width,
@@ -561,7 +611,8 @@ class ServingEngine:
         return min(max_new_tokens, self.max_len - len(prompt))
 
     def _worst_case_tokens(self, prompt, max_new_tokens: int) -> int:
-        return len(prompt) + self._clamped_budget(prompt, max_new_tokens)
+        return self._prefix + len(prompt) \
+            + self._clamped_budget(prompt, max_new_tokens)
 
     def _effective_prompt(self, r: Request) -> np.ndarray:
         """The original prompt plus any tokens generated before a
@@ -571,8 +622,11 @@ class ServingEngine:
         return np.concatenate([r.prompt, np.asarray(r.output, np.int32)])
 
     def _content_ids(self, r: Request) -> np.ndarray:
-        """Token ids at each cache position, for the prefix-cache chain."""
-        return np.concatenate([np.asarray(r.prompt, np.int64),
+        """Token ids at each cache position, for the prefix-cache chain:
+        -1 per vlm patch position (the request's ``chain_seed`` commits
+        the chain to the image), then prompt, then generated tokens."""
+        return np.concatenate([np.full(self._prefix, -1, np.int64),
+                               np.asarray(r.prompt, np.int64),
                                np.asarray(r.output, np.int64)])
 
     def _remaining_budget(self, r: Request) -> int:
@@ -581,12 +635,12 @@ class ServingEngine:
 
     def _prompt_digests(self, r: Request) -> List[bytes]:
         """Chain digests of the request's content, cached by length."""
-        n = len(r.prompt) + len(r.output)
+        n = self._prefix + len(r.prompt) + len(r.output)
         hit = self._digest_cache.get(r.uid)
         if hit is not None and hit[0] == n:
             return hit[1]
         digests = chain_hashes(self._content_ids(r), self._alloc.block_size,
-                               seed=self._chain_root)
+                               seed=r.chain_seed)
         self._digest_cache[r.uid] = (n, digests)
         return digests
 
@@ -693,21 +747,25 @@ class ServingEngine:
             eff_len = len(r.prompt) + len(r.output)
             digests = self._prompt_digests(r) if self.prefix_cache else []
             cached_blocks, pooled = self._alloc.match_digests(
-                digests, max_cached_tokens=eff_len - 1)
-            need_now = self._alloc.blocks_for(eff_len + 1) - cached_blocks
+                digests, max_cached_tokens=self._prefix + eff_len - 1,
+                min_cached_tokens=self._prefix)
+            need_now = self._alloc.blocks_for(
+                self._prefix + eff_len + 1) - cached_blocks
             if need_now > self._alloc.available - pooled:
                 break  # FIFO: wait for blocks rather than starve the head
             lane = free.pop(0)
             eff = self._effective_prompt(r)
             cached_len = self._alloc.admit(
                 lane, digests=digests if self.prefix_cache else None,
-                max_cached_tokens=eff_len - 1, seed=self._chain_root)
+                max_cached_tokens=self._prefix + eff_len - 1,
+                min_cached_tokens=self._prefix, seed=r.chain_seed)
             self._digest_cache.pop(r.uid, None)
-            self.stats.cached_prompt_tokens += cached_len
+            consumed = max(0, cached_len - self._prefix)
+            self.stats.cached_prompt_tokens += consumed
             self._prefilling.append(_Prefilling(
                 r, lane, self._remaining_budget(r), eff,
-                consumed=cached_len, cached_len=cached_len,
-                counted_cached=cached_len))
+                consumed=consumed, cached_len=cached_len,
+                counted_cached=consumed))
             self._queue.pop(0)
             self.stats.admissions += 1
 
@@ -730,7 +788,7 @@ class ServingEngine:
             if s not in self._prefilling:
                 continue
             take = min(cap, len(s.tokens) - s.consumed)
-            lo = s.consumed
+            lo = self._prefix + s.consumed
             if self._grow_for_writes(
                     s.lane, lo, lo + take,
                     alive=lambda s=s: s in self._prefilling):
@@ -748,17 +806,21 @@ class ServingEngine:
         for j, (s, take) in enumerate(zip(cohort, takes)):
             tokens[j, P - take:] = s.tokens[s.consumed:s.consumed + take]
             lengths[j] = take
-            starts[j] = s.consumed
+            starts[j] = self._prefix + s.consumed
         dev = self.device
         tables = torch.from_numpy(
             self._alloc.block_table()[[s.lane for s in cohort]]).to(dev)
 
         t0 = time.perf_counter()
+        patches = None
+        if first and self.cfg.family == "vlm":
+            patches = self._patch_batch([s.req for s in cohort])
         logits_new, self._cache = M.prefill_slots(
             self.cfg, self.params, self._cache,
             torch.from_numpy(tokens).to(dev),
             torch.from_numpy(lengths).to(dev), tables,
-            start=None if first else torch.from_numpy(starts).to(dev))
+            start=None if first else torch.from_numpy(starts).to(dev),
+            patch_embeds=patches)
 
         done_rows, done = [], []
         for j, (s, take) in enumerate(zip(cohort, takes)):
@@ -791,6 +853,17 @@ class ServingEngine:
         self.stats.prefill_tokens += int(sum(takes))
         self.stats.prefill_chunks += 1
 
+    def _patch_batch(self, reqs: List[Request]) -> torch.Tensor:
+        """The requests' images as one (n, num_patches, d_model) batch on
+        the device, zeros for a request without one, cast to bf16 before
+        the projection, as in the reference."""
+        cfg = self.cfg
+        pe = np.zeros((len(reqs), cfg.num_patches, cfg.d_model), np.float32)
+        for j, r in enumerate(reqs):
+            if r.patch_embeds is not None:
+                pe[j] = r.patch_embeds
+        return torch.from_numpy(pe).to(self.device, torch.bfloat16)
+
     # -- wave path -----------------------------------------------------------
     def _run_waves(self) -> Dict[int, List[int]]:
         """Lockstep wave batching, bucketed by exact prompt length (padding
@@ -819,12 +892,13 @@ class ServingEngine:
         cfg, dev = self.cfg, self.device
         B = len(wave)
         S = len(wave[0].prompt)  # waves are same-length by construction
-        toks = torch.from_numpy(
-            np.stack([r.prompt for r in wave]).astype(np.int32)).to(dev)
+        batch = {"tokens": torch.from_numpy(
+            np.stack([r.prompt for r in wave]).astype(np.int32)).to(dev)}
 
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = self._patch_batch(wave)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(cfg, self.params, {"tokens": toks},
-                                  self.max_len)
+        logits, cache = M.prefill(cfg, self.params, batch, self.max_len)
         synchronize(dev)
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_tokens += B * S

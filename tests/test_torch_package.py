@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.base import MoEConfig, get_config  # noqa: E402
+from repro_torch.configs.base import SSMConfig, get_config  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as prefill_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -107,11 +107,10 @@ def test_unported_options_raise():
                dict(kv_dtype="f8"), dict(kv_dtype="f8", mode="wave")):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, device="cpu", **kw)
-    moe = dataclasses.replace(cfg, family="moe", moe=MoEConfig(
-        num_experts=4, num_experts_per_tok=2))
+    ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
     for mode in ("auto", "wave"):
-        with pytest.raises(NotImplementedError, match="moe"):
-            ServingEngine(moe, params, device="cpu", mode=mode)
+        with pytest.raises(NotImplementedError, match="ssm"):
+            ServingEngine(ssm, params, device="cpu", mode=mode)
 
 
 def test_params_from_numpy_bf16_round_trip_is_bit_exact():
