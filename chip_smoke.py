@@ -73,7 +73,24 @@ outside the repository.  Phases, each of which raises on failure:
      lines must equal the JAX package's; ``ops.ssd`` at mamba2-1.3b's
      widths (one kernel launch); ``ops.attention`` at tinyllama-1.1b's
      heads, both against their plain versions;
-  8. the other attention families at full width, each with seeded random
+  8. speculative decoding and the async front end: the paged prefill
+     kernel at the verify pass's shape (8 lanes of SPEC_K + 1 = 5 rows,
+     lengths 1-5, starts 1-1000, tinyllama-1.1b's heads on bf16, int8 and
+     fp8 pools, and internvl2-26b's on bf16) against its plain version as
+     above; full-width tinyllama-1.1b's verify pass (``prefill_slots``
+     over 5 tokens behind a cached context) against five ``decode_step``s
+     from a copy of the same pool, within the model checks' limit on bf16
+     and int8 pools, with a wrong-block control that must fail it; the
+     12-request trace at temperature 0 with speculation off and on
+     (``spec_k`` 4) on bf16 and int8 pools (no decode-kernel launch under
+     speculation, prefill-kernel launches 22 x (chunks + verify passes),
+     every request ends, pool invariants hold, no block stays live; the
+     share of requests equal to the spec-off run is printed); and
+     ``repro_torch.launch.serve`` in process through the async front end
+     and a two-replica router with speculation on and replica 1 crashing
+     (a failover, every request accounted for, no leaked block; client
+     TTFT and ITL percentiles and tok/s);
+  9. the other attention families at full width, each with seeded random
      bf16 weights built on the card (init peak memory beside the
      weights' bytes) and freed before the next: qwen2-moe-a2.7b (moe)
      and internvl2-26b (vlm, 256 patch positions) through the model
@@ -85,7 +102,9 @@ outside the repository.  Phases, each of which raises on failure:
      of each MoE stage); stablelm-1.6b, phi3-medium-14b and granite-3-8b
      through the model checks on a bf16 pool and a 4-request run of 16
      new tokens; each run's launch counts as the 12-request runs';
-  9. a ``{"kernels": [...]}`` line, the card line, and the last line
+     internvl2-26b also serves 4 requests (two behind images) greedy
+     with speculation off and on, checked as in phase 8;
+ 10. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -449,6 +468,8 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
 REP6_HEADS = (48, 8, 128)
 PATCH_PREFIX = 16  # the patch-prefix case's prefix
 VLM_PREFIX = 256   # internvl2-26b's patch prefix (num_patches)
+SPEC_K = 4         # drafts per verify pass: P = SPEC_K + 1 rows per lane
+VERIFY = "verify"  # check_prefill's case of the speculative verify pass
 
 
 def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
@@ -456,11 +477,13 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     plain version at the prefill chunk's shapes with ``heads`` = (H, Hk,
     D): a first chunk, a first chunk behind a 16-position patch prefix
     (sharing the chunk's 128 rows), a first chunk behind internvl2-26b's
-    256 patch positions (ahead of a whole chunk: 384 rows) and a
+    256 patch positions (ahead of a whole chunk: 384 rows), a
     continuation (with a block-straddling start and a shared context
-    block); pools (and scales) bit for bit, bitwise equal launch to
-    launch.  ``cases`` picks some of them (default: all but the
-    256-position prefix)."""
+    block) and the speculative verify pass (``VERIFY``: SPEC_K + 1 = 5
+    rows, lengths 1-5, starts 1-1000, a shared context block); pools (and
+    scales) bit for bit, bitwise equal launch to launch.  ``cases`` picks
+    some of them (default: all but the 256-position prefix and the verify
+    pass)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
@@ -473,29 +496,36 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
     pool = [kp, vp] + ([] if ks is None else [ks, vs])
     kvd = None if ks is None else kv_dtype
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    chunk_lens = i32(128, 1, 77, 16, 128, 3, 100, 50)
+    # (name, starts or None, prefix, chunk rows, lengths)
     all_cases = (
-        ("first", None, 0),
-        (f"first, prefix {PATCH_PREFIX}", None, PATCH_PREFIX),
-        (f"first, prefix {VLM_PREFIX}", None, VLM_PREFIX),
-        ("continuation", torch.tensor([64, 5, 16, 300, 31, 600, 64, 1],
-                                      dtype=torch.int32, device=dev), 0))
+        ("first", None, 0, CHUNK, chunk_lens),
+        (f"first, prefix {PATCH_PREFIX}", None, PATCH_PREFIX, CHUNK,
+         chunk_lens),
+        (f"first, prefix {VLM_PREFIX}", None, VLM_PREFIX, CHUNK, chunk_lens),
+        ("continuation", i32(64, 5, 16, 300, 31, 600, 64, 1), 0, CHUNK,
+         chunk_lens),
+        (VERIFY, i32(64, 1, 1000, 300, 17, 5, 777, 128), 0, SPEC_K + 1,
+         i32(5, 1, 4, 5, 2, 3, 5, 5)))
     if cases is None:
-        cases = [c[0] for c in all_cases if c[2] != VLM_PREFIX]
-    rows = max(CHUNK + c[2] * (c[2] >= CHUNK) for c in all_cases
+        cases = [c[0] for c in all_cases
+                 if c[2] != VLM_PREFIX and c[0] != VERIFY]
+    rows = max(c[3] + c[2] * (c[2] >= c[3]) for c in all_cases
                if c[0] in cases)
     q_all = torch.randn(B, rows, H, D, generator=gen, device=dev).bfloat16()
     kn_all = torch.randn(B, rows, Hk, D, generator=gen, device=dev).bfloat16()
     vn_all = torch.randn(B, rows, Hk, D, generator=gen, device=dev).bfloat16()
-    all_lens = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50],
-                            dtype=torch.int32, device=dev)
 
     results = {}
-    for name, start, prefix in all_cases:
+    for name, start, prefix, P, all_lens in all_cases:
         if name not in cases:
             continue
-        # A prefix shorter than the chunk shares its 128 rows (lengths
+        # A prefix shorter than the chunk shares its P rows (lengths
         # clamped); a longer one comes ahead of a whole chunk.
-        S = CHUNK + prefix * (prefix >= CHUNK)
+        S = P + prefix * (prefix >= P)
         q, kn, vn = (x[:, :S].contiguous() for x in (q_all, kn_all, vn_all))
         lens = all_lens.clamp(max=S - prefix)
         sidx = torch.arange(S, device=dev)
@@ -861,6 +891,22 @@ def run_slice3_entry_points(torch, cfg, gen, card):
     return launches
 
 
+def first_chunk(torch, cfg, seed):
+    """The model checks' first prefill chunk: 4 lanes of 64, 40, 9 and 1
+    prompt tokens left-padded to 64 over their own 64-block tables.
+    Returns (generator, pool blocks, tables, lengths, tokens)."""
+    dev = "cuda"
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    nb = 4
+    N = nb * T + 1
+    tbl = torch.arange(1, N, dtype=torch.int32, device=dev).reshape(nb, T)
+    lens = torch.tensor([64, 40, 9, 1], dtype=torch.int32, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (nb, 64), generator=rng,
+                         device=dev)
+    toks[torch.arange(64, device=dev)[None] < (64 - lens)[:, None]] = 0
+    return rng, N, tbl, lens, toks
+
+
 def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
     """Full-width logits of a first chunk, a continuation's last position
     and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``
@@ -871,14 +917,8 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
     from dataclasses import replace
     from repro_torch.models import model as M
     dev = "cuda"
-    rng = torch.Generator(device=dev).manual_seed(1)
-    nb = 4
-    N = nb * T + 1
-    tbl = torch.arange(1, N, dtype=torch.int32, device=dev).reshape(nb, T)
-    lens = torch.tensor([64, 40, 9, 1], dtype=torch.int32, device=dev)
-    toks = torch.randint(1, cfg.vocab_size, (nb, 64), generator=rng,
-                         device=dev)
-    toks[torch.arange(64, device=dev)[None] < (64 - lens)[:, None]] = 0
+    rng, N, tbl, lens, toks = first_chunk(torch, cfg, 1)
+    nb = len(lens)
     l2 = torch.tensor([16, 3, 16, 1], dtype=torch.int32, device=dev)
     t2 = torch.randint(1, cfg.vocab_size, (nb, 16), generator=rng,
                        device=dev)
@@ -904,11 +944,12 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
     return a.float(), b[:, -1].float(), d[:, 0].float()
 
 
-def compare_logits(torch, what, got, want, share, card, enforce=True):
-    """Each of the three logit sets within ``share`` of want's range (only
+def compare_logits(torch, what, got, want, share, card, enforce=True,
+                   names=("prefill", "continuation", "decode")):
+    """Each logit set (one per name) within ``share`` of want's range (only
     printed when not ``enforce``)."""
     worst = 0.0
-    for name, x, y in zip(("prefill", "continuation", "decode"), got, want):
+    for name, x, y in zip(names, got, want):
         if not torch.isfinite(x).all():
             raise AssertionError(f"{what} {name} logits are not finite")
         span = (y.max() - y.min()).item()
@@ -922,6 +963,189 @@ def compare_logits(torch, what, got, want, share, card, enforce=True):
                                  f"(range {span}, limit {share * span})")
         worst = max(worst, err / span)
     return worst
+
+
+def verify_vs_decode(torch, cfg, params, kv_dtype, wrong=False):
+    """Full-width logits of SPEC_K + 1 = 5 tokens after a cached context
+    (4 lanes of 64, 40, 9 and 1 prompt tokens), scored from copies of one
+    pool two ways, kernels on: one verify pass (``prefill_slots`` with
+    ``start`` and ``all_logits``: the paged prefill kernel) and five
+    ``decode_step``s (the paged decode kernel).  ``wrong`` points the
+    decode steps' table entry of lane 0's first block at the trash block.
+    Returns both as (20, vocab) fp32."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    dev = "cuda"
+    rng, N, tbl, lens, toks = first_chunk(torch, cfg, 2)
+    nb, P = len(lens), SPEC_K + 1
+    draft = torch.randint(1, cfg.vocab_size, (nb, P), generator=rng,
+                          device=dev)
+    c = replace(cfg, attn_kernel="on", kv_dtype=kv_dtype)
+    cache = M.init_paged_cache(c, N, BS, device=dev)
+    _, cache = M.prefill_slots(c, params, cache, toks, lens, tbl)
+    copy = {k: v.clone() for k, v in cache.items()}
+    full = torch.full((nb,), P, dtype=torch.int32, device=dev)
+    ver, _ = M.prefill_slots(c, params, cache, draft, full, tbl, start=lens,
+                             all_logits=True)
+    dtbl = tbl.clone()
+    if wrong:
+        dtbl[0, 0] = 0
+    dec = []
+    for j in range(P):
+        d, copy = M.decode_step(c, params, copy, draft[:, j:j + 1], lens + j,
+                                block_tables=dtbl)
+        dec.append(d[:, 0])
+    torch.cuda.synchronize()
+    return (ver.float().reshape(nb * P, -1),
+            torch.stack(dec, 1).float().reshape(nb * P, -1))
+
+
+def check_verify_model(torch, cfg, params, card):
+    """The verify pass against decode at the model level, on bf16 and
+    int8 pools: within check_model's limit (5% of the logits' range);
+    a decode that reads one wrong block (16 of lane 0's 65-69 keys) must
+    differ from the verify pass by more than that limit."""
+    for kv_dtype in ("bf16", "int8"):
+        ver, dec = verify_vs_decode(torch, cfg, params, kv_dtype)
+        compare_logits(torch, f"{cfg.name} {kv_dtype} pool, verify pass vs "
+                       f"{SPEC_K + 1} decode steps", (ver,), (dec,), 0.05,
+                       card, names=("verify",))
+    ver, bad = verify_vs_decode(torch, cfg, params, "bf16", wrong=True)
+    span = (ver.max() - ver.min()).item()
+    err = (bad - ver).abs().max().item()
+    print(f"model check {cfg.name} control (decode steps reading one wrong "
+          f"block vs the verify pass) [{card}]: max|diff| {err:.4g} of "
+          f"range {span:.4g} (must exceed {0.05 * span:.4g})")
+    if err <= 0.05 * span:
+        raise AssertionError("verify check cannot see a decode that reads "
+                             "one wrong block: its limit is too loose")
+
+
+def run_spec(torch, cfg, params, card, kv_dtype="bf16", reqs=None,
+             images=None, max_new=32):
+    """The same requests at temperature 0 with speculation off, then
+    ``spec_decode="ngram"`` (``spec_k`` SPEC_K), each run's launch counts
+    set to 0 before and read after.  Asserts: every request ends with
+    ``max_new`` tokens, pool invariants hold and no block stays live
+    after either run; the spec run launches no decode kernel and the
+    prefill kernel once per layer per prefill chunk and verify pass.
+    Prints decode tok/s, ms per verify pass, the acceptance rate and the
+    share of requests whose tokens equal the spec-off run's (printed, not
+    gated: kernels score decode positions through another kernel under
+    speculation).  Returns the spec run's launches."""
+    from repro_torch.serving.engine import ServingEngine
+    reqs = trace(cfg) if reqs is None else reqs
+    images = [None] * len(reqs) if images is None else images
+    wrappers = launch_counts()
+    outs = {}
+    for spec in ("off", "ngram"):
+        eng = ServingEngine(
+            cfg, params, max_batch=B, max_len=MAX_LEN, eos_id=-1,
+            block_size=BS, prefill_chunk=CHUNK, attn_kernel="auto", seed=0,
+            device="cuda", kv_dtype=kv_dtype, spec_decode=spec,
+            spec_k=SPEC_K)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        uids = [eng.submit(p, max_new_tokens=max_new, patch_embeds=pe)
+                for p, pe in zip(reqs, images)]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        s = eng.stats
+        what = f"engine {cfg.name} (spec {spec}, {kv_dtype}, greedy)"
+        for u in uids:
+            toks = out[u]
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+                raise AssertionError(f"{what}: request {u} returned {toks}")
+        eng._alloc.check_invariants()
+        if eng.live_blocks:
+            raise AssertionError(f"{what}: {eng.live_blocks} blocks live "
+                                 f"after the run")
+        L = cfg.num_layers
+        if spec == "off":
+            want = {"paged_flash_decode": L * s.decode_steps,
+                    "paged_flash_prefill": L * s.prefill_chunks,
+                    "flash_decode": 0}
+            step = f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step"
+        else:
+            want = {"paged_flash_decode": 0,
+                    "paged_flash_prefill": L * (s.prefill_chunks
+                                                + s.spec_passes),
+                    "flash_decode": 0}
+            step = (f"{s.decode_s / max(s.spec_passes, 1) * 1e3:.2f} ms per "
+                    f"verify pass, {s.spec_passes} passes, acceptance "
+                    f"{s.spec_acceptance_rate:.3f} ({s.spec_accepted}/"
+                    f"{s.spec_proposed})")
+            if s.spec_passes == 0:
+                raise AssertionError(f"{what}: no verify pass ran")
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+        outs[spec] = [out[u] for u in uids]
+        print(f"{what} [{card}]: {len(uids)} requests, wall {wall:.2f} s; "
+              f"decode {s.tokens_per_s:.1f} tok/s ({s.decode_steps} steps, "
+              f"{step}); prefill {s.prefill_chunks} chunks; launches "
+              f"{launches}")
+    same = sum(a == b for a, b in zip(outs["off"], outs["ngram"])) / len(reqs)
+    print(f"engine {cfg.name} ({kv_dtype}) spec vs off [{card}]: "
+          f"{same:.2f} of requests token for token equal")
+    return launches
+
+
+def run_launcher(torch, card):
+    """``repro_torch.launch.serve.main`` in process, full-width
+    tinyllama-1.1b: an open-loop Poisson trace through the async front end
+    and a two-replica router, speculation on, replica 1 crashing at its
+    4th engine step.  Asserts: its summary parses, replica 1 died and at
+    least one request failed over, every request completed or surfaced as
+    a rejection, timeout or error, no block is live on either replica
+    afterwards, and the verify passes launched the prefill kernel and no
+    decode kernel (launches counted from two pump threads)."""
+    from repro_torch.launch import serve
+    n = 16
+    argv = ["--arch", ARCH, "--frontend", "async", "--replicas", "2",
+            "--spec-decode", "ngram", "--spec-k", str(SPEC_K),
+            "--fault-crash-replica", "1", "--fault-crash-tick", "4",
+            "--requests", str(n), "--max-new", "16", "--arrival-rate", "20",
+            "--temperature", "0", "--max-batch", "4"]
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    out = json.loads(buf.getvalue())
+    ft, routing = out["fault_tolerance"], out["routing"]
+    ended = sum(out[k] for k in ("completed", "rejected_backpressure",
+                                 "shed_breaker", "timeouts", "errors"))
+    what = "launcher (async, 2 replicas, spec, crash)"
+    if ft["replica_deaths"] != 1 or ft["failovers"] < 1 \
+            or ft["health"][1] != "dead":
+        raise AssertionError(f"{what}: no failover: {ft}")
+    if out["requests"] != n or ended != n:
+        raise AssertionError(f"{what}: {n} requests, {ended} ended: {out}")
+    if routing["live_blocks"] != [0, 0]:
+        raise AssertionError(f"{what}: blocks leaked: "
+                             f"{routing['live_blocks']}")
+    if launches["paged_flash_prefill"] <= 0 \
+            or launches["paged_flash_decode"] != 0:
+        raise AssertionError(f"{what}: launches {launches}")
+    tok_s = routing["generated_tokens"] / out["wall_s"]
+    print(f"{what} [{card}]: {n} requests at 20 req/s, completed "
+          f"{out['completed']}, failovers {ft['failovers']}, wall "
+          f"{out['wall_s']:.2f} s of {wall:.2f} s (warmup included); TTFT "
+          f"p50 {out['client_p50_ttft_s'] * 1e3:.1f} ms, p99 "
+          f"{out['client_p99_ttft_s'] * 1e3:.1f} ms; ITL p50 "
+          f"{out['client_p50_itl_s'] * 1e3:.1f} ms, p99 "
+          f"{out['client_p99_itl_s'] * 1e3:.1f} ms; {tok_s:.1f} tok/s "
+          f"({routing['generated_tokens']} tokens); launches {launches}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -1336,8 +1560,9 @@ def run_family(torch, arch, card):
     0 before and read after.  moe and vlm: kernels on vs off on bf16 and
     int8 pools, the 12-request trace on a bf16 pool (vlm: two images and
     the stub), a wave run of 4 requests of distinct lengths and 8 new
-    tokens, and (moe) a profiled decode step.  Dense: bf16 pool, 4
-    requests of 16 new tokens.  Returns {run: launches}."""
+    tokens, (moe) a profiled decode step and (vlm) 4 requests of 16
+    greedy tokens with speculation off and on (``run_spec``).  Dense: bf16
+    pool, 4 requests of 16 new tokens.  Returns {run: launches}."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     cfg = get_config(arch)
@@ -1374,6 +1599,12 @@ def run_family(torch, arch, card):
         launches["wave"], _ = run_engine(
             torch, cfg, params, card, mode="wave", reqs=wave,
             images=None if imgs is None else imgs[:4], max_new=8)
+        if cfg.family == "vlm":
+            # Speculation behind the patch prefix: two requests carry an
+            # image, two the stub.
+            launches["spec"] = run_spec(torch, cfg, params, card,
+                                        reqs=reqs[:4], images=imgs[:4],
+                                        max_new=16)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1500,12 +1731,31 @@ def main() -> int:
     # 7. The last three kernels' entry points.
     slice3 = run_slice3_entry_points(torch, cfg, gen, card)
 
-    # 8. The other attention families at full width, one at a time.
+    # 8. Speculative decoding and the async front end: the prefill kernel
+    # at the verify pass's shape on every pool, the verify pass against
+    # decode steps at the model level, the 12-request trace greedy with
+    # speculation off and on (bf16 and int8 pools), then the launcher
+    # through the front end and a two-replica router with a crash.
+    ver = {kd: check_prefill(torch, tiny, gen, kd, cases=(VERIFY,))[VERIFY]
+           for kd in ("bf16", "int8", "fp8")}
+    ver["bf16, heads REP6"] = check_prefill(torch, REP6_HEADS, gen,
+                                            cases=(VERIFY,))[VERIFY]
+    for kd, r in ver.items():
+        print(f"kernel paged_flash_prefill[{kd}, verify P={SPEC_K + 1}] "
+              f"[{card}]: max|err| {r['err']:.3g}; kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){rates(r)}")
+    check_verify_model(torch, cfg, params, card)
+    spec = {kd: run_spec(torch, cfg, params, card, kv_dtype=kd)
+            for kd in ("bf16", "int8")}
+    run_launcher(torch, card)
+
+    # 9. The other attention families at full width, one at a time.
     del params, bf16_engine, eng
     family = {arch: run_family(torch, arch, card)
               for arch in (MOE_ARCH, VLM_ARCH) + DENSE_ARCHS}
 
-    # 9. Result lines.  The quantized bodies report their int8 times (fp8
+    # 10. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -1556,6 +1806,17 @@ def main() -> int:
                      family[VLM_ARCH]["continuous"]["paged_flash_prefill"],
                      pre6["bf16"][f"first, prefix {VLM_PREFIX}"],
                      err=max(r["err"] for r in pre6["bf16"].values())),
+        kernel_entry(f"paged_flash_prefill[verify, P={SPEC_K + 1}]",
+                     pre_src, f"{pre_tpu}:231",
+                     spec["bf16"]["paged_flash_prefill"], ver["bf16"]),
+        kernel_entry(f"paged_flash_prefill[int8/fp8 pool, verify, "
+                     f"P={SPEC_K + 1}]", pre_src, f"{pre_tpu}:202",
+                     spec["int8"]["paged_flash_prefill"], ver["int8"],
+                     err=max(ver["int8"]["err"], ver["fp8"]["err"])),
+        kernel_entry(f"paged_flash_prefill[verify, heads {REP6_HEADS}]",
+                     pre_src, f"{pre_tpu}:231",
+                     family[VLM_ARCH]["spec"]["paged_flash_prefill"],
+                     ver["bf16, heads REP6"]),
         kernel_entry(f"flash_decode[heads {REP6_HEADS}]",
                      "src/repro_torch/csrc/dense_decode.cu", f"{dec_tpu}:78",
                      family[VLM_ARCH]["wave"]["flash_decode"], dense_vlm),

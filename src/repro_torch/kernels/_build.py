@@ -6,7 +6,9 @@ so a build takes seconds.  Libraries are built at first use into
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
 their sources and flags, so an edited source is rebuilt and an unchanged
 one is reused.  ``build_all()`` starts one ``nvcc`` per source at once
-and waits for all of them.
+and waits for all of them.  Building and loading hold one module lock, and
+each thread compiles into a temporary file of its own, so replica threads
+that launch their first kernel together build and load each library once.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine without ``nvcc``.
@@ -18,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -56,6 +59,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: Held across check, build and load (re-entrant: ``load`` builds through
+#: ``build_all``).
+_lock = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -93,52 +99,67 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     (registers, spills, shared memory) is kept beside each library as
     ``<library>.log``."""
     names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    pending = {}
-    seconds = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
-        pending[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT),
-                         tmp, out, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, out, t0) in pending.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_bytes(log)
-        if proc.returncode != 0:
-            failures.append(f"{name} (nvcc exit {proc.returncode}):\n"
-                            f"{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("kernel build failed: " + "\n".join(failures))
-    return seconds
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        pending = {}
+        seconds = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                seconds[name] = 0.0
+                continue
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            pending[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT),
+                             tmp, out, time.perf_counter())
+        failures = []
+        for name, (proc, tmp, out, t0) in pending.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            out.with_suffix(".log").write_bytes(log)
+            if proc.returncode != 0:
+                failures.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                                f"{log.decode(errors='replace')}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("kernel build failed: " + "\n".join(failures))
+        return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` with its entry point typed,
     built first if missing."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        entry, argtypes = ENTRY_POINTS[name]
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = _I
-        lib.repro_cuda_error_string.argtypes = [_I]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            entry, argtypes = ENTRY_POINTS[name]
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = _I
+            lib.repro_cuda_error_string.argtypes = [_I]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
+
+
+def launch(name: str, what: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry point with ``args`` and the current
+    stream of ``device``, with ``device`` made current for the call: a
+    ctypes launch goes to the calling thread's current device, which a
+    front-end pump thread has not set.  Raises on a CUDA error."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        code = getattr(lib, ENTRY_POINTS[name][0])(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, what)
 
 
 def kv_kind(what: str, k_pool, kv_scales) -> int:

@@ -57,12 +57,10 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: inputs must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    code = lib.repro_flash_attention(
+    _build.launch(
+        "flash_attention", "flash_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, Hk, D, int(causal), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "flash_attention")
+        B, Sq, Sk, H, Hk, D, int(causal), int(q.dtype == torch.bfloat16))
     flash_attention.launches += 1
     return out
 

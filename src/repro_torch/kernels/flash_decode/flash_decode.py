@@ -142,14 +142,12 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
     T = block_tables.shape[1]
     n_split, ws = _workspace(q, T * bs)
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode")
-    code = lib.repro_paged_decode(
+    _build.launch(
+        "paged_decode", "paged_flash_decode", q.device,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         lengths.data_ptr(), block_tables.data_ptr(), ws.data_ptr(),
         out.data_ptr(), B, H, Hk, D, bs, T, n_split,
-        int(q.dtype == torch.bfloat16), kind,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "paged_flash_decode")
+        int(q.dtype == torch.bfloat16), kind)
     paged_flash_decode.launches += 1
     return out
 
@@ -173,13 +171,11 @@ def flash_decode(q, k_cache, v_cache, lengths):
     B, S, Hk, D = k_cache.shape
     n_split, ws = _workspace(q, S)
     out = torch.empty_like(q)
-    lib = _build.load("dense_decode")
-    code = lib.repro_dense_decode(
+    _build.launch(
+        "dense_decode", "flash_decode", q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, S,
-        q.shape[1], Hk, D, n_split, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "flash_decode")
+        q.shape[1], Hk, D, n_split, int(q.dtype == torch.bfloat16))
     flash_decode.launches += 1
     return out
 

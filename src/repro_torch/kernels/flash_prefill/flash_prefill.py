@@ -136,16 +136,14 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
     ks, vs = (None, None) if kv_scales is None \
         else (kv_scales[0].data_ptr(), kv_scales[1].data_ptr())
     out = torch.empty((B, S, H * D), dtype=q.dtype, device=q.device)
-    lib = _build.load("paged_prefill")
-    code = lib.repro_paged_prefill(
+    _build.launch(
+        "paged_prefill", "paged_flash_prefill", q.device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, lengths.data_ptr(),
         None if start is None else start.data_ptr(),
         block_tables.data_ptr(), out.data_ptr(),
         B, S, H, Hk, D, bs, block_tables.shape[1], prefix,
-        int(q.dtype == torch.bfloat16), kind,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "paged_flash_prefill")
+        int(q.dtype == torch.bfloat16), kind)
     paged_flash_prefill.launches += 1
     if kv_scales is not None:
         return (out, k_pool, v_pool) + tuple(kv_scales)

@@ -106,13 +106,11 @@ def sclad_matmul(x, vals, rows, *, block_m: int = 128):
         if split + (wide > 0) > 1:
             ws = torch.empty(split + (wide > 0), M, nn * TILE,
                              dtype=torch.float32, device=x.device)
-    lib = _build.load("sclad_matmul")
-    code = lib.repro_sclad_matmul(
+    _build.launch(
+        "sclad_matmul", "sclad_matmul", x.device,
         x.data_ptr(), vals.data_ptr(), rows.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(), M, nk, nn, C, split, wide,
-        int(x.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, code, "sclad_matmul")
+        int(x.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16))
     sclad_matmul.launches += 1
     return y
 

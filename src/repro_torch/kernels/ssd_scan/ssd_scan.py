@@ -104,12 +104,11 @@ def ssd_scan(xdt, a, b, c, *, chunk: int = 128):
     y = torch.empty_like(xdt)
     state = torch.empty(BH, P, N, dtype=torch.float32, device=xdt.device)
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=xdt.device)
-    lib = _build.load("ssd_scan")
-    code = lib.repro_ssd_scan(
+    _build.launch(
+        "ssd_scan", "ssd_scan", xdt.device,
         xdt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         y.data_ptr(), state.data_ptr(), ws.data_ptr(), BH, S, P, N, chunk,
-        int(bf16), torch.cuda.current_stream(xdt.device).cuda_stream)
-    _build.check(lib, code, "ssd_scan")
+        int(bf16))
     ssd_scan.launches += 1
     return y, state
 

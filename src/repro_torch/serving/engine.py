@@ -23,7 +23,16 @@ scheduler is the reference's, line for line:
     blocks and concurrent lanes in the same memory);
   * both paged attention hot paths go through the hand-written kernels
     (``attn_kernel``: "auto" = kernels on the card, plain versions on the
-    CPU; "on" = kernels; "off" = plain versions).
+    CPU; "on" = kernels; "off" = plain versions);
+  * speculative decoding (``spec_decode="ngram"``, ``_spec_step``): a
+    host proposer (``serving.spec``) drafts up to ``spec_k`` tokens per
+    lane, one continuation chunk of ``spec_k + 1`` rows per live lane
+    scores [anchor | drafts] through the paged prefill path, the lane
+    keeps the longest draft prefix plain decode would have sampled, and
+    ``BlockStore.truncate`` rolls the rejected tail back;
+  * the async front end's surface: the ``on_token(uid, token)`` hook
+    (every token as a host sync observes it), ``pool_saturation`` and
+    ``live_blocks``.
 
 vlm note: the patch prefix is part of each lane's cache, so its positions
 enter the hash chain as sentinel ids and the patch embeddings' digest
@@ -44,8 +53,7 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
 Outside the port so far the engine raises ``NotImplementedError``:
-speculative decoding, meshes, ``kv_dtype="f8"`` and the ssm, hybrid and
-audio families.
+meshes, ``kv_dtype="f8"`` and the ssm, hybrid and audio families.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from repro_torch.serving.paged import (BlockStore, OutOfBlocks, TRASH_BLOCK,
                                        chain_hashes, chain_root_for)
 from repro_torch.serving.sampler import (SamplerConfig, positional_keys,
                                          request_keys, sample)
+from repro_torch.serving.spec import SPEC_DECODE_MODES, make_proposer
 
 #: Victim-selection policies for pool-pressure preemption.
 PREEMPT_POLICIES = ("youngest", "largest", "deadline")
@@ -142,7 +151,8 @@ class EngineStats:
     #: Live LOGICAL tokens summed over decode steps vs. pool tokens.
     used_token_steps: int = 0
     pool_token_steps: int = 0
-    #: Speculative decoding counters (the port does not speculate yet).
+    #: Speculative decoding: verify passes, drafts proposed and drafts
+    #: accepted.
     spec_passes: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
@@ -236,19 +246,34 @@ class ServingEngine:
                  attn_kernel: Optional[str] = None,
                  preempt_policy: str = "youngest",
                  kv_dtype: Optional[str] = None,
-                 spec_decode: str = "off", device: DeviceLike = None):
+                 spec_decode: str = "off", spec_k: int = 4,
+                 device: DeviceLike = None):
         """The reference engine's knobs (see its docstrings), plus
         ``device``: the card by default, ``"cpu"`` on request; ``params``
         must already live there.  Raises ``NotImplementedError`` for what
-        the port does not serve yet."""
+        the port does not serve yet (meshes, ``kv_dtype="f8"``).
+
+        ``spec_decode="ngram"`` / ``spec_k`` (continuous mode only):
+        speculative decoding.  Emitted tokens equal ``spec_decode="off"``
+        bit for bit on the plain path (greedy and stochastic: each verify
+        position samples with the positional key plain decode would use,
+        and positions advance only by accepted tokens).  Through the
+        kernels, decode positions are scored by the paged prefill kernel
+        instead of the paged decode kernel, which sums in another order:
+        logits agree to bf16 tolerance and a near-tie greedy argmax can
+        flip, as in the reference.  ``decode_steps`` is not used while
+        speculating."""
         if decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
+        if spec_decode not in SPEC_DECODE_MODES:
+            raise ValueError(
+                f"spec_decode {spec_decode!r} not in {SPEC_DECODE_MODES}")
+        if spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
         if preempt_policy not in PREEMPT_POLICIES:
             raise ValueError(
                 f"preempt_policy {preempt_policy!r} not in "
                 f"{PREEMPT_POLICIES}")
-        if spec_decode != "off":
-            raise NotImplementedError("speculative decoding is not ported")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported")
         M.check_family(cfg, "ServingEngine")
@@ -258,6 +283,11 @@ class ServingEngine:
         if mode not in ("continuous", "wave"):
             raise ValueError(f"mode {mode!r} not in ('auto', 'continuous', "
                              f"'wave')")
+        if spec_decode != "off" and mode != "continuous":
+            raise ValueError(
+                "spec_decode requires the continuous (paged) engine: the "
+                "verifier is the paged chunked-prefill path and rollback "
+                "is a BlockStore operation")
         if attn_kernel is not None:
             if attn_kernel not in ATTN_KERNEL_MODES:
                 raise ValueError(
@@ -286,6 +316,12 @@ class ServingEngine:
         self.stats = EngineStats()
         #: Poisoned-engine flag (see ``step()``).
         self.poisoned = False
+        #: Optional per-token hook ``on_token(uid, token)``, called on the
+        #: engine's (caller's) thread for every generated token as a host
+        #: sync observes it; the async front end streams through it.
+        #: Preemption recompute replays tokens as prompt, so no token is
+        #: announced twice.
+        self.on_token: Optional[Callable[[int, int], None]] = None
         self._queue: List[Request] = []
         self._instant: List[Tuple[int, List[int]]] = []  # zero-budget
         self._submit_t: Dict[int, float] = {}
@@ -297,6 +333,9 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.prefix_cache = prefix_cache
         self.decode_steps = decode_steps
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self._proposer = make_proposer(spec_decode)
         self.params = params
         if mode == "continuous":
             self._init_continuous()
@@ -410,6 +449,8 @@ class ServingEngine:
         self._prefill_step()
         if not self._host_active.any():
             return finished
+        if self._proposer is not None:
+            return self._spec_step(finished)
 
         K = self.decode_steps
         # Hand each about-to-decode lane the blocks its next (up to K)
@@ -455,6 +496,8 @@ class ServingEngine:
                 tok = int(tok_h[j, i])
                 r.output.append(tok)
                 emitted += 1
+                if self.on_token is not None:
+                    self.on_token(r.uid, tok)
                 self._host_pos[i] += 1
                 self._host_rem[i] -= 1
                 self.stats.generated_tokens += 1
@@ -503,12 +546,199 @@ class ServingEngine:
         return torch.stack([torch.stack(toks), torch.stack(actives)]) \
             .cpu().numpy()
 
+    def _spec_step(self, finished: List[Tuple[int, List[int]]]
+                   ) -> List[Tuple[int, List[int]]]:
+        """One speculative decode pass across all decoding lanes.
+
+        1. Each lane's ANCHOR: what plain decode would sample next.  In
+           steady state the previous verify pass sampled it already
+           (``_spec_next``); a lane fresh out of prefill or a recompute
+           samples it from its stored logits (``spec_anchor``, no model).
+        2. Host: the proposer drafts up to ``spec_k`` continuations from
+           the request's history (none past EOS or the budget).
+        3. Growth and the copy-on-write barrier over the whole chunk
+           (pool pressure preempts, as in decode).
+        4. ONE verify pass (``spec_verify``) over the live lanes' [anchor
+           | drafts] chunks: a continuation chunk through the paged
+           prefill path that writes the drafted K/V into the pool and
+           says how many drafts plain decode would have emitted.
+        5. Emit the accepted prefix (stopping at EOS or the budget, as
+           decode does) and ``BlockStore.truncate`` the rejected tail.
+
+        The verify pass hands back the last accepted position's logits
+        and their sample, which is the next pass's anchor, so the engine's
+        logits stay exactly plain decode's from pass to pass."""
+        t0 = time.perf_counter()
+        live = [int(i) for i in np.nonzero(self._host_active)[0]]
+        # Popped, not read: a lane that does not survive this pass derives
+        # its anchor again from replayed logits.
+        cached = {i: self._spec_next.pop(i) for i in list(self._spec_next)}
+        fresh = [i for i in live if i not in cached]
+        if fresh:
+            cached.update(zip(fresh, self.spec_anchor(fresh).tolist()))
+        chunks: Dict[int, List[int]] = {}
+        for i in live:
+            r = self._slot_req[i]
+            chunk = [cached[i]]
+            rem_after = int(self._host_rem[i]) - 1
+            if chunk[0] != self.eos_id and rem_after > 0:
+                k = min(self.spec_k, rem_after)
+                hist = [int(t) for t in r.prompt] + r.output + chunk
+                chunk += [int(d) for d in
+                          self._proposer.propose(hist, k)[:k]]
+            chunks[i] = chunk
+        for i in chunks:
+            if not self._host_active[i]:
+                continue  # preempted while an earlier lane grew
+            lo = self._prefix + int(self._host_pos[i])
+            self._grow_for_writes(
+                i, lo, lo + len(chunks[i]),
+                alive=lambda i=i: bool(self._host_active[i]))
+        # A lane preempted during growth drops its anchor; the recompute
+        # replays it.
+        lanes = [i for i in chunks if self._host_active[i]]
+        if not lanes:
+            self.stats.decode_s += time.perf_counter() - t0
+            return finished
+        self._note_peak()
+        for i in lanes:
+            self.stats.spec_proposed += len(chunks[i]) - 1
+        v, anext = self.spec_verify(lanes, [chunks[i] for i in lanes])
+        self.stats.decode_s += time.perf_counter() - t0
+
+        self.stats.peak_decode_lanes = max(self.stats.peak_decode_lanes,
+                                           len(lanes))
+        self.stats.spec_passes += 1
+        self.stats.decode_steps += 1
+        self.stats.slot_steps += self.max_batch
+        self.stats.used_token_steps += self._alloc.live_tokens
+        self.stats.pool_token_steps += self._alloc.num_blocks \
+            * self._alloc.block_size
+
+        bs = self._alloc.block_size
+        now = time.perf_counter()
+        for j, i in enumerate(lanes):
+            r = self._slot_req[i]
+            chunk = chunks[i]
+            lo = self._prefix + int(self._host_pos[i])
+            emitted, alive = 0, True
+            # Accepted tokens are exactly what plain decode would emit, so
+            # retirement is decode's: stop at EOS or budget zero.
+            for tok in chunk[:int(v[j]) + 1]:
+                r.output.append(tok)
+                emitted += 1
+                if self.on_token is not None:
+                    self.on_token(r.uid, tok)
+                self._host_pos[i] += 1
+                self._host_rem[i] -= 1
+                self.stats.generated_tokens += 1
+                if tok == self.eos_id or self._host_rem[i] <= 0:
+                    alive = False
+                    break
+            self.stats.spec_accepted += emitted - 1
+            self.stats.occupied_slot_steps += 1
+            # One host sync released `emitted` tokens: the ITL gap spreads
+            # over the ACCEPTED tokens only.
+            self._note_tokens(r.uid, emitted, now)
+            if emitted < len(chunk):
+                # Roll back the optimistic writes past the accepted prefix.
+                self._alloc.truncate(i, lo + emitted)
+            if self.prefix_cache and (lo + emitted) // bs != lo // bs:
+                self._alloc.commit_full(i, self._content_ids(r))
+            if not alive:
+                r.done = True
+                finished.append((r.uid, r.output))
+                self._slot_req[i] = None
+                self._host_active[i] = False
+                self._last_obs_t.pop(r.uid, None)
+                self._alloc.release(i)
+            else:
+                # The lane consumed its whole accepted prefix, so its
+                # position is where `anchor_next` was sampled.
+                self._spec_next[i] = int(anext[j])
+        return finished
+
+    def spec_anchor(self, lanes: List[int]) -> np.ndarray:
+        """The next token of each of ``lanes`` from its stored logits:
+        decode's sampling rule, with the key of the lane's position."""
+        idx = torch.tensor(lanes, device=self.device)
+        pos = torch.from_numpy(self._host_pos[lanes].astype(np.int32)) \
+            .to(self.device)
+        keys = positional_keys(self._keys[idx], pos)
+        return sample(self.sampler, self._logits[idx], keys).cpu().numpy()
+
+    def spec_verify(self, lanes: List[int], chunks: List[List[int]]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Score each lane's [anchor | drafts] chunk in ONE continuation
+        pass of (len(lanes), spec_k + 1) left-padded rows over the lanes'
+        cached context, writing the chunk's K/V into the pool.  Returns
+        per lane how many drafts plain decode would have emitted (``v``)
+        and the sample after the last accepted token (the next anchor);
+        the lanes' stored logits become that token's logits.  Only live
+        lanes are scored, so no row has length 0."""
+        dev, P, pfx = self.device, self.spec_k + 1, self._prefix
+        n = len(lanes)
+        tokens = np.full((n, P), self.pad_id, np.int32)
+        lengths = np.empty(n, np.int32)
+        starts = np.empty(n, np.int32)
+        for j, (i, chunk) in enumerate(zip(lanes, chunks)):
+            lengths[j] = len(chunk)
+            tokens[j, P - len(chunk):] = chunk
+            starts[j] = pfx + int(self._host_pos[i])
+        idx = torch.tensor(lanes, device=dev)
+        tok_d = torch.from_numpy(tokens).to(dev)
+        len_d = torch.from_numpy(lengths).to(dev)
+        start_d = torch.from_numpy(starts).to(dev)
+        tables = torch.from_numpy(self._alloc.block_table()[lanes]).to(dev)
+        logits_all, self._cache = M.prefill_slots(
+            self.cfg, self.params, self._cache, tok_d, len_d, tables,
+            start=start_d, all_logits=True)
+        pad = P - len_d
+        # Column c holds the token at position (start - pfx) + (c - pad);
+        # what decode emits after it samples column c's logits with the
+        # key of the NEXT position.
+        col = torch.arange(P, device=dev)[None]
+        nxt = (start_d - pfx)[:, None] \
+            + torch.clamp(col - pad[:, None], min=0) + 1
+        keys = positional_keys(self._keys[idx].repeat_interleave(P),
+                               nxt.reshape(-1))
+        expected = sample(self.sampler, logits_all.reshape(n * P, -1),
+                          keys).reshape(n, P)
+        # Draft at column c + 1 is accepted iff it equals what decode
+        # emits after column c; the pad columns lead the run.
+        ok = tok_d[:, 1:] == expected[:, :-1]
+        lead = torch.where(col[:, :-1] < pad[:, None], True, ok)
+        run = torch.cumprod(lead.to(torch.int32), dim=1).sum(1)
+        v = torch.minimum(torch.clamp(run - pad, min=0), len_d - 1)
+        sel = torch.clamp(pad + v, max=P - 1)
+        rows = torch.arange(n, device=dev)
+        self._logits[idx] = logits_all[rows, sel]
+        host = torch.stack([v.to(torch.int64),
+                            expected[rows, sel].to(torch.int64)]).cpu()
+        return host[0].numpy(), host[1].numpy()
+
     def has_pending_work(self) -> bool:
         """True while ``step()`` (or ``run()``) can make progress."""
         if self.mode != "continuous":
             return bool(self._queue or self._instant)
         return bool(self._queue or self._prefilling or self._instant
                     or self._host_active.any())
+
+    @property
+    def pool_saturation(self) -> float:
+        """Live (ref-counted) blocks over pool capacity, right now: the
+        saturation signal the front end's circuit breaker watches."""
+        if self.mode != "continuous":
+            return 0.0
+        return self._alloc.live_blocks / max(self._alloc.num_blocks, 1)
+
+    @property
+    def live_blocks(self) -> int:
+        """Blocks referenced by some in-flight lane: the load half of the
+        replica router's least-loaded fallback."""
+        if self.mode != "continuous":
+            return 0
+        return self._alloc.live_blocks
 
     def match_cached_blocks(self, prompt, patch_embeds=None) -> int:
         """How many leading blocks of ``prompt`` (behind ``patch_embeds``
@@ -559,6 +789,7 @@ class ServingEngine:
                 self._host_active[i] = False
                 self._host_rem[i] = 0
                 self._active[i] = False
+                self._spec_next.pop(i, None)
                 self._alloc.release(i)
                 self.stats.cancellations += 1
                 return True
@@ -605,6 +836,9 @@ class ServingEngine:
         self._host_active = np.zeros(B, bool)
         self._host_pos = np.zeros(B, np.int64)
         self._host_rem = np.zeros(B, np.int64)  # decode budget remaining
+        #: lane -> anchor token carried from the previous verify pass
+        #: (``_spec_step``); dropped whenever a request leaves its lane.
+        self._spec_next: Dict[int, int] = {}
 
     def _clamped_budget(self, prompt, max_new_tokens: int) -> int:
         """Decode budget clamped so the sequence fits ``max_len``."""
@@ -680,6 +914,9 @@ class ServingEngine:
             self._host_active[v] = False
             self._host_rem[v] = 0
             self._active[v] = False
+            # The carried anchor belongs to the evicted request; the
+            # recompute replays its logits and derives it again.
+            self._spec_next.pop(v, None)
             self._alloc.release(v)
             self._queue.insert(0, r)
         else:
@@ -921,6 +1158,8 @@ class ServingEngine:
             for i, r in enumerate(wave):
                 if not done[i] and len(r.output) < r.max_new_tokens:
                     r.output.append(int(nt[i]))
+                    if self.on_token is not None:
+                        self.on_token(r.uid, int(nt[i]))
                     self._note_tokens(r.uid, 1, now)
                     self.stats.generated_tokens += 1
                     if nt[i] == self.eos_id:

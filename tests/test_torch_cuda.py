@@ -242,6 +242,81 @@ def test_engine_runs_through_the_kernels(gen):
     assert paged_flash_prefill.launches - p0 == L * eng.stats.prefill_chunks
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_kernel_at_the_verify_shape(gen, dtype, kv_dtype):
+    """Speculation's verify pass: 8 rows of spec_k + 1 = 5 left-padded
+    tokens (lengths 1-5) behind contexts of 1-1000 positions, from the
+    main thread and from a worker thread (as a front end's pump launches
+    it): within TOL of the plain version, pools and scales bit for bit,
+    the two launches bitwise equal."""
+    from concurrent.futures import ThreadPoolExecutor
+    B, S, H, Hk, D, bs, T = 8, 5, 32, 4, 64, 16, 64
+    N = B * T + 1
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    kn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    vn = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([5, 1, 4, 5, 2, 3, 5, 5], dtype=torch.int32,
+                        device="cuda")
+    start = torch.tensor([64, 1, 1000, 300, 17, 5, 777, 128],
+                         dtype=torch.int32, device="cuda")
+    tbl = _tables(gen, B, T, N, start + lens, bs)
+    if kv_dtype == "bf16":
+        base = [torch.randn(N, bs, Hk, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2)]
+    else:
+        (kp, ks), (vp, vs) = (_qpool(gen, N, bs, Hk, D, kv_dtype)
+                              for _ in range(2))
+        base = [kp, vp, ks, vs]
+    pools = [[x.clone() for x in base] for _ in range(3)]
+
+    def call(fn, p):
+        if len(p) == 2:
+            return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start)[0]
+        return fn(q, kn, vn, p[0], p[1], lens, tbl, start=start,
+                  kv_scales=(p[2], p[3]), kv_dtype=kv_dtype)[0]
+    out = call(paged_flash_prefill, pools[0])
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        again = pool.submit(call, paged_flash_prefill, pools[1]).result()
+    torch.cuda.synchronize()
+    ref = call(prefill_attention_ref, pools[2])
+    real = torch.arange(S, device="cuda")[None] >= (S - lens)[:, None]
+    torch.testing.assert_close(out[real].float(), ref[real].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.isfinite(out).all()
+    assert torch.equal(_bytes(out), _bytes(again))
+    for a, b, c in zip(*pools):
+        assert torch.equal(_bytes(a), _bytes(c))
+        assert torch.equal(_bytes(b), _bytes(c))
+
+
+def test_spec_engine_runs_through_the_prefill_kernel(gen):
+    """Speculation on the card: every verify pass and prefill chunk
+    launches the prefill kernel once per layer, no decode kernel runs,
+    every request ends and no block stays live."""
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              num_heads=8, num_kv_heads=1, head_dim=64,
+                              d_model=128)
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=64, eos_id=-1,
+                        block_size=8, prefill_chunk=16, attn_kernel="on",
+                        spec_decode="ngram", spec_k=4)
+    d0, p0 = paged_flash_decode.launches, paged_flash_prefill.launches
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, size=n) for n in (3, 20)] \
+        + [np.tile(rng.integers(1, 256, size=2), 5)]
+    uids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    out = eng.run()
+    assert all(len(out[u]) == 8 for u in uids)
+    s = eng.stats
+    assert s.spec_passes > 0
+    assert paged_flash_decode.launches == d0
+    assert paged_flash_prefill.launches - p0 \
+        == cfg.num_layers * (s.prefill_chunks + s.spec_passes)
+    eng._alloc.check_invariants()
+    assert eng.live_blocks == 0
+
+
 def _qpool(gen, N, bs, Hk, D, kv_dtype):
     x = torch.randn(N, bs, Hk, D, generator=gen, device="cuda").bfloat16()
     return kv_quant.quantize(x, kv_dtype)

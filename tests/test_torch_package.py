@@ -103,8 +103,9 @@ def test_kernel_on_with_cpu_tensors_raises():
 def test_unported_options_raise():
     cfg = get_config("tinyllama-1.1b").reduced()
     params = M.init_params(cfg, 0, device="cpu")
-    for kw in (dict(spec_decode="ngram"), dict(mesh=object()),
-               dict(kv_dtype="f8"), dict(kv_dtype="f8", mode="wave")):
+    for kw in (dict(mesh=object()), dict(kv_dtype="f8"),
+               dict(kv_dtype="f8", mode="wave"),
+               dict(spec_decode="ngram", mesh=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, device="cpu", **kw)
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
