@@ -104,7 +104,30 @@ outside the repository.  Phases, each of which raises on failure:
      new tokens; each run's launch counts as the 12-request runs';
      internvl2-26b also serves 4 requests (two behind images) greedy
      with speculation off and on, checked as in phase 8;
- 10. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 10. the recurrent families at full width, one at a time as in phase 9
+     (mamba2-1.3b ssm, zamba2-7b hybrid, whisper-base audio): init peak
+     memory beside the weights' bytes; the SSD kernel at the model's
+     prefill shapes (8 rows x heads folded into rows, at every wave
+     prompt length, 16-512 positions, fp32, chunk min(256, S)) against
+     its plain version within SSD_TOL and a per-head relative limit of
+     1e-5 that the shifted-decay control must fail, bitwise launch to
+     launch, its bf16 tensor-core body timed beside; the dense decode
+     kernel at zamba2-7b's shared-attention heads (32 over 32 of 112)
+     and at whisper-base's (8 over 8 of 64) as in phase 3, with a
+     control at 112 (the plain output with columns 96-111 zeroed must
+     fail the check); ``prefill`` and two ``decode_step``s with the
+     kernels on vs off, on the weights cast to fp32 at 64 and 512
+     prompt tokens (whisper-base: 4) within 0.5% of the logits' range
+     (whisper-base 0.1%), with a control that must fail it (row 0
+     decoding from row 1's Mamba-2 caches or stripes); on the bf16
+     weights within 5% for whisper-base, printed for mamba2-1.3b and
+     zamba2-7b beside a witness (kernels off, scan chunk 128 vs 256);
+     then the wave engine (``mode="auto"``): 12 requests of 16-512
+     prompt tokens (mamba2-1.3b, zamba2-7b) or 8 of 4-64 (whisper-base),
+     32 new tokens each, with the SSD kernel launched once a Mamba-2
+     block a wave and the dense decode kernel once an attention layer a
+     decode step, the paged kernels never;
+ 11. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -132,6 +155,7 @@ TOL = 2e-2                    # kernel vs plain, bf16 outputs
 QUANT_GATE = {"int8": 0.05, "fp8": 0.12}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12        # fp32 outside the tensor cores
 WARMUP, ITERS = 3, 20
 SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's ~2 GHz
 #: The JAX package's kernel tolerances (tests/test_kernels.py): SCLD
@@ -294,10 +318,11 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
-def bound(nbytes: float, ops: float):
-    """Least time the card could take: (ms, what bounds it)."""
+def bound(nbytes: float, ops: float, peak: float = BF16_OPS_PER_S):
+    """Least time the card could take at ``peak`` operations a second:
+    (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -608,18 +633,21 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     return results
 
 
-def check_dense_decode(torch, cfg, gen, S=MAX_LEN):
+def check_dense_decode(torch, heads, gen, S=MAX_LEN):
     """Kernel 3 (dense stripes, the wave path's decode) vs its plain
-    version: 8 rows of (S, Hk, D) bf16 stripes at ``cfg``'s heads (S =
-    1024 by default; internvl2-26b's wave stripes add its 256 patch
+    version: 8 rows of (S, Hk, D) bf16 stripes at ``heads`` (H, Hk, D)
+    (S = 1024 by default; internvl2-26b's wave stripes add its 256 patch
     positions), mixed lengths, then lengths that straddle the split
-    boundaries; bitwise equal launch to launch."""
+    boundaries; bitwise equal launch to launch.  At a D that is not a
+    multiple of 32 (zamba2-7b's 112) a control: the plain output with
+    its columns past the last multiple of 32 zeroed must fail the
+    check."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.flash_decode import (
         SPLIT, flash_decode)
     from repro_torch.kernels.flash_decode.ref import decode_ref
     dev = "cuda"
-    H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, Hk, D = heads
     q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
     kc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
     vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
@@ -641,6 +669,17 @@ def check_dense_decode(torch, cfg, gen, S=MAX_LEN):
                                        decode_ref(q, kc, vc, lens2), lens2))
     same_launches(torch, what + " (split boundaries)", out2,
                   lambda: flash_decode(q, kc, vc, lens2))
+    if D % 32:
+        cut = ref.clone()
+        cut[..., D // 32 * 32:] = 0
+        try:
+            assert_close(torch, what + " control", cut[live], ref[live])
+        except AssertionError:
+            print(f"{what}: control with columns {D // 32 * 32}-{D - 1} "
+                  f"zeroed fails the check, as it must")
+        else:
+            raise AssertionError(f"{what}: the check passes an output "
+                                 f"missing its last {D % 32} columns")
     ms = cuda_ms(lambda: flash_decode(q, kc, vc, lens))
     plain_ms = cuda_ms(lambda: decode_ref(q, kc, vc, lens))
     mask = (torch.arange(S, device=dev)[None] < lens[:, None]
@@ -699,14 +738,29 @@ def check_sclad(torch, cfg):
     return results
 
 
-def ssd_inputs(torch, gen, BH, S, P, N):
+def ssd_inputs(torch, gen, BH, S, P, N, dtype=None):
     """The JAX suite's magnitudes: xdt ~ 0.1 N(0,1), a = -0.1 |N(0,1)|,
-    b, c ~ 0.3 N(0,1), bf16."""
+    b, c ~ 0.3 N(0,1), in ``dtype`` (bf16 by default)."""
+    dtype = dtype or torch.bfloat16
+
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
-    return ((rnd(BH, S, P) * 0.1).bfloat16(),
-            (-rnd(BH, S).abs() * 0.1).bfloat16(),
-            (rnd(BH, S, N) * 0.3).bfloat16(), (rnd(BH, S, N) * 0.3).bfloat16())
+    return ((rnd(BH, S, P) * 0.1).to(dtype),
+            (-rnd(BH, S).abs() * 0.1).to(dtype),
+            (rnd(BH, S, N) * 0.3).to(dtype), (rnd(BH, S, N) * 0.3).to(dtype))
+
+
+def ssd_work(BH, S, P, N, chunk, elem):
+    """(bytes, operations) of one SSD scan: xdt, a, b, c read and y
+    written in ``elem``-byte elements, the fp32 state written; the
+    chunked form's operations: per chunk, the causal half of (C B^T) and
+    of its product with xdt, C state^T, and the state update."""
+    nbytes = elem * (2 * BH * S * P + BH * S + 2 * BH * S * N) \
+        + 4 * BH * P * N
+    q = chunk
+    ops = BH * (S // q) * (q * (q + 1) // 2 * (2 * N + 2 * P)
+                           + 4 * q * P * N)
+    return nbytes, ops
 
 
 def check_ssd(torch, gen, card):
@@ -763,15 +817,7 @@ def check_ssd(torch, gen, card):
               + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
                  if per_kernel else "device time not measured (the "
                  "profiler recorded no device events)"))
-        # Bytes: xdt, a, b, c read and y written (bf16), the fp32 state
-        # written.  Operations of the chunked form: per chunk, the causal
-        # half of (C B^T) and of its product with xdt, C state^T, and the
-        # state update.
-        nbytes = 2 * (2 * BH * S * P + BH * S + 2 * BH * S * N) \
-            + 4 * BH * P * N
-        q = chunk
-        ops = BH * (S // q) * (q * (q + 1) // 2 * (2 * N + 2 * P)
-                               + 4 * q * P * N)
+        nbytes, ops = ssd_work(BH, S, P, N, chunk, 2)
         bound_ms, bound_by = bound(nbytes, ops)
         results[name] = dict(err=err, ms=ms, plain_ms=plain[BH, P, N],
                              library_ms=None, bound_ms=bound_ms,
@@ -1068,13 +1114,13 @@ def run_spec(torch, cfg, params, card, kv_dtype="bf16", reqs=None,
         if spec == "off":
             want = {"paged_flash_decode": L * s.decode_steps,
                     "paged_flash_prefill": L * s.prefill_chunks,
-                    "flash_decode": 0}
+                    "flash_decode": 0, "ssd_scan": 0}
             step = f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step"
         else:
             want = {"paged_flash_decode": 0,
                     "paged_flash_prefill": L * (s.prefill_chunks
                                                 + s.spec_passes),
-                    "flash_decode": 0}
+                    "flash_decode": 0, "ssd_scan": 0}
             step = (f"{s.decode_s / max(s.spec_passes, 1) * 1e3:.2f} ms per "
                     f"verify pass, {s.spec_passes} passes, acceptance "
                     f"{s.spec_acceptance_rate:.3f} ({s.spec_accepted}/"
@@ -1247,9 +1293,23 @@ def launch_counts():
         flash_decode, paged_flash_decode)
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     return {"paged_flash_decode": paged_flash_decode,
             "paged_flash_prefill": paged_flash_prefill,
-            "flash_decode": flash_decode}
+            "flash_decode": flash_decode, "ssd_scan": ssd_scan}
+
+
+def recurrent_layers(cfg):
+    """(attention layers, Mamba-2 blocks) a wave step runs: the attention
+    families' layers are all attention; an ssm stack has none; a
+    hybrid's attention is its shared block once a group; whisper's
+    decoder layers each have one self-attention."""
+    from repro_torch.models import model as M
+    if cfg.family == "ssm":
+        return 0, cfg.num_layers
+    if cfg.family == "hybrid":
+        return M.hybrid_layout(cfg)[0], cfg.num_layers
+    return cfg.num_layers, 0
 
 
 def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto",
@@ -1296,20 +1356,24 @@ def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto",
                                            for t in toks):
             raise AssertionError(f"{what}: request {u} returned {toks}")
     if eng.mode == "wave":
-        # Every decode step but each wave's last (which only samples);
-        # waves group the requests by prompt length, B at most.
+        # The dense decode kernel once an attention layer every decode
+        # step but each wave's last (which only samples), the SSD kernel
+        # once a Mamba-2 block a wave; waves group the requests by prompt
+        # length, B at most.
         sizes = {}
         for p in reqs:
             sizes[len(p)] = sizes.get(len(p), 0) + 1
         waves = sum(-(-n // B) for n in sizes.values())
-        want = {"flash_decode": L * (s.decode_steps - waves),
-                "paged_flash_decode": 0, "paged_flash_prefill": 0}
-        if launches != want or want["flash_decode"] <= 0:
+        attn, ssm = recurrent_layers(cfg)
+        want = {"flash_decode": attn * (s.decode_steps - waves),
+                "paged_flash_decode": 0, "paged_flash_prefill": 0,
+                "ssd_scan": ssm * waves}
+        if launches != want or want["flash_decode"] + want["ssd_scan"] <= 0:
             raise AssertionError(f"{what}: launches {launches}, want {want}")
     else:
         want = {"paged_flash_decode": L * s.decode_steps,
                 "paged_flash_prefill": L * s.prefill_chunks,
-                "flash_decode": 0}
+                "flash_decode": 0, "ssd_scan": 0}
         if launches != want or s.decode_steps == 0:
             raise AssertionError(f"{what}: launches {launches}, want {want}")
         if expect_hits and s.cached_prompt_tokens <= 0:
@@ -1610,6 +1674,225 @@ def run_family(torch, arch, card):
     return launches
 
 
+#: The recurrent families' configs at full width, served in waves.
+SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = "mamba2-1.3b", "zamba2-7b", "whisper-base"
+#: Their prefill scans' rows as the model hands them to the kernel, and
+#: the fp32 body's per-head relative limit (the CPU tests' 1e-5).
+SSD_ROWS, SSD_REL_FP32 = 8, 1e-5
+#: The wave runs' prompt lengths: every SSD chunk form (shorter than a
+#: chunk, one chunk, two), and whisper-base's short transcripts.
+RECURRENT_LENS = (16, 64, 128, 256, 512)
+AUDIO_LENS = (4, 16, 32, 64)
+
+
+def check_ssd_model(torch, cfg, gen, card):
+    """Kernel 4 at ``cfg``'s prefill shapes: SSD_ROWS rows x H heads
+    folded into rows, at every wave prompt length (RECURRENT_LENS), fp32
+    (what the model hands it: the exact fp32 body), chunk
+    min(``ssm.chunk_size``, S) as the model calls it; against the plain
+    recurrence within SSD_TOL and per head within SSD_REL_FP32, which the
+    shifted-decay control must exceed 3x; bitwise equal launch to
+    launch.  The bf16 tensor-core body is timed on the same inputs
+    rounded to bf16, beside it.  Returns {S: result}."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    s = cfg.ssm
+    BH, P, N = SSD_ROWS * s.nheads(cfg.d_model), s.head_dim, s.state_size
+    results = {}
+    for S in RECURRENT_LENS:
+        chunk = min(s.chunk_size, S)
+        xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N, torch.float32)
+        y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
+        y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        what = f"ssd_scan ({cfg.name} prefill, {SSD_ROWS} x {S}, fp32)"
+        err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
+                  assert_close(torch, what + " state", st, st_ref, SSD_TOL,
+                               SSD_TOL))
+        same_launches(torch, what, torch.cat([y.flatten(), st.flatten()]),
+                      lambda: torch.cat([t.flatten() for t in ssd_scan(
+                          xdt, a, b, c, chunk=chunk)]))
+        rel = max(rel_err(torch, what, y, y_ref, SSD_REL_FP32),
+                  rel_err(torch, what + " state", st, st_ref, SSD_REL_FP32))
+        yx, stx = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk)
+        control = min(rel_err(torch, what, o, r, float("inf"))
+                      for o, r in ((yx, y_ref), (stx, st_ref)))
+        if not control > 3 * SSD_REL_FP32:
+            raise AssertionError(f"{what}: the relative check would pass "
+                                 f"the shifted-decay control {control}")
+        ms = cuda_ms(lambda: ssd_scan(xdt, a, b, c, chunk=chunk))
+        plain_ms = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c))
+        xb, ab, bb, cb = (t.bfloat16() for t in (xdt, a, b, c))
+        bf16_ms = cuda_ms(lambda: ssd_scan(xb, ab, bb, cb, chunk=chunk))
+        nbytes, ops = ssd_work(BH, S, P, N, chunk, 4)
+        bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
+        bf16_bound = bound(ssd_work(BH, S, P, N, chunk, 2)[0], ops)
+        print(f"kernel ssd_scan[{cfg.name} prefill, {SSD_ROWS} x {S}, "
+              f"chunk {chunk}] "
+              f"[{card}]: max|err| {err:.3g}, per-head relative {rel:.3g} "
+              f"(limit {SSD_REL_FP32:g}; control {control:.3g}); fp32 body "
+              f"{ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by}), bf16 "
+              f"tensor-core body {bf16_ms:.4f} ms (bound {bf16_bound[0]:.6f}"
+              f" ms, {bf16_bound[1]}), plain {plain_ms:.4f} ms")
+        results[S] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bound_ms,
+                          bound_by=bound_by, nbytes=nbytes, ops=ops,
+                          bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound[0])
+    return results
+
+
+def recurrent_logits(torch, cfg, params, mode, S, swap=False):
+    """Full-width logits of a wave's prefill (4 rows of S tokens; audio's
+    behind zero frames, a transcript's opening special tokens) and two
+    decode steps with ``attn_kernel=mode``.  ``swap`` hands row 0 row 1's
+    Mamba-2 caches (every block's SSM state and conv window: ssm, hybrid)
+    or self-attention stripes (audio) before the decode steps."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    dev = "cuda"
+    rng = torch.Generator(device=dev).manual_seed(3)
+    nb = 4
+    toks = torch.randint(1, cfg.vocab_size, (nb, S + 2), generator=rng,
+                         device=dev)
+    batch = {"tokens": toks[:, :S]}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(nb, cfg.encdec.encoder_seq_len,
+                                      cfg.d_model, dtype=torch.bfloat16,
+                                      device=dev)
+    c = replace(cfg, attn_kernel=mode)
+    first, cache = M.prefill(c, params, batch, S + 8)
+    if swap:
+        # Batch is axis 1 of the stacked leaves, axis 2 of a hybrid's
+        # (groups, per, B, ...) ones.
+        if cfg.family == "audio":
+            leaves = [(cache["k"], 1), (cache["v"], 1)]
+        elif cfg.family == "ssm":
+            leaves = [(x, 1) for x in cache.values()]
+        else:
+            leaves = [(x, 2) for x in cache["groups"].values()] \
+                + [(x, 1) for x in cache.get("tail", {}).values()]
+        for x, axis in leaves:
+            x.select(axis, 0).copy_(x.select(axis, 1))
+    out = [first.float()]
+    for i in range(2):
+        d, cache = M.decode_step(c, params, cache, toks[:, S + i:S + i + 1],
+                                 S + i)
+        out.append(d[:, 0].float())
+    torch.cuda.synchronize()
+    return out
+
+
+def as_fp32(tree):
+    """A parameter tree with every leaf cast to fp32."""
+    if isinstance(tree, dict):
+        return {k: as_fp32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+#: The fp32-weight kernels-on-vs-off limit, a share of the logits'
+#: range, per family.  Set between the sound readings and the swapped-row
+#: control on an NVIDIA H100 80GB HBM3 (700 W): sound mamba2-1.3b
+#: 0.15-0.18%, zamba2-7b 0.08-0.10%, whisper-base 0.0015%; control
+#: 64-66% (ssm, hybrid) and 0.78% (whisper-base, whose random-weight
+#: logits barely depend on the self-attention context).
+RECURRENT_FP32_SHARE = {"ssm": 0.005, "hybrid": 0.005, "audio": 0.001}
+#: The prompt lengths of the model checks: a chunk shorter than
+#: ssm.chunk_size and two full chunks (whisper: a transcript's opening).
+MODEL_LENS = {"ssm": (64, 512), "hybrid": (64, 512), "audio": (4,)}
+
+
+def check_recurrent_model(torch, cfg, params, card):
+    """recurrent_logits with the kernels on vs off on the seeded weights
+    cast to fp32, at each of MODEL_LENS, within RECURRENT_FP32_SHARE of
+    the range, and a control that must exceed it: row 0 decoding from row
+    1's caches.  The fp32 run takes the same SSD body as serving (the
+    model scans in fp32 either way) and the dense decode's fp32 body (the
+    bf16 one is held to its plain version above).  With the bf16 weights
+    on vs off is held to the model checks' 5% for whisper-base; for ssm
+    and hybrid it is printed, as an MoE's free routing is in check_model,
+    beside a witness of its cause: off vs off with only the scan's
+    summation order changed (chunk 128 for 256).  48-81 bf16 Mamba-2
+    blocks turn such rounding-level differences into a sizeable share of
+    the range."""
+    from dataclasses import replace
+    names = ("prefill", "decode 1", "decode 2")
+    share = RECURRENT_FP32_SHARE[cfg.family]
+    p32 = as_fp32(params)
+    for S in MODEL_LENS[cfg.family]:
+        off = recurrent_logits(torch, cfg, p32, "off", S)
+        on = recurrent_logits(torch, cfg, p32, "on", S)
+        compare_logits(torch, f"{cfg.name} wave, {S} tokens, fp32 weights, "
+                       f"kernels on vs off", on, off, share, card,
+                       names=names)
+    bad = recurrent_logits(torch, cfg, p32, "off", S, swap=True)
+    span = (off[1].max() - off[1].min()).item()
+    err = (bad[1] - off[1]).abs().max().item()
+    print(f"model check {cfg.name} control (row 0 decoding from row 1's "
+          f"{'stripes' if cfg.family == 'audio' else 'Mamba-2 caches'}) "
+          f"[{card}]: max|wrong-off| {err:.4g} of range {span:.4g} (must "
+          f"exceed {share * span:.4g})")
+    if err <= share * span:
+        raise AssertionError(f"model check {cfg.name} cannot see a wrong "
+                             f"decode: its limit is too loose")
+    del p32, off, on, bad
+    torch.cuda.empty_cache()
+    off = recurrent_logits(torch, cfg, params, "off", S)
+    compare_logits(torch, f"{cfg.name} wave, bf16 weights, kernels on vs "
+                   f"off", recurrent_logits(torch, cfg, params, "on", S),
+                   off, 0.05, card, enforce=cfg.family == "audio",
+                   names=names)
+    if cfg.family != "audio":
+        c128 = replace(cfg, ssm=replace(cfg.ssm, chunk_size=128))
+        compare_logits(torch, f"{cfg.name} wave, bf16 weights, witness: "
+                       f"kernels off, chunk 128 vs 256",
+                       recurrent_logits(torch, c128, params, "off", S), off,
+                       0.05, card, enforce=False, names=names)
+
+
+def run_recurrent(torch, arch, gen, card):
+    """One recurrent config at full width with seeded random bf16 weights
+    (the Mamba-2 leaves the reference fixes at its values), freed
+    afterwards: init peak memory, its kernels at the model's shapes (K4
+    at the prefill's, K3 at the attention heads'), check_recurrent_model,
+    and the wave engine on 12 requests (8 for audio) of 32 new tokens.
+    Returns (kernel results, the engine run's launches)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"params {arch} [{card}]: {M.param_count(cfg) / 1e9:.3f} B, "
+          f"{weights / 2**30:.2f} GiB in {time.perf_counter() - t0:.1f} s; "
+          f"init peak {peak / 2**30:.2f} GiB ({peak / weights:.3f}x)")
+    kernels = {}
+    if cfg.family != "audio":
+        kernels["ssd"] = check_ssd_model(torch, cfg, gen, card)
+    if cfg.family != "ssm":
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        r = check_dense_decode(torch, heads, gen)
+        print(f"kernel flash_decode[dense, heads {heads}] [{card}]: max|err|"
+              f" {r['err']:.3g}; kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}){rates(r)}")
+        kernels["dense"] = r
+    check_recurrent_model(torch, cfg, params, card)
+    rng = np.random.default_rng(5)
+    lens = AUDIO_LENS * 2 if cfg.family == "audio" \
+        else [RECURRENT_LENS[i % 5] for i in range(12)]
+    reqs = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
+    launches, _ = run_engine(torch, cfg, params, card, reqs=reqs)
+    del params
+    torch.cuda.empty_cache()
+    return kernels, launches
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -1665,7 +1948,7 @@ def main() -> int:
                               cases=("first", f"first, prefix {VLM_PREFIX}",
                                      "continuation"))
             for kd in ("bf16", "int8", "fp8")}
-    dense = check_dense_decode(torch, cfg, gen)
+    dense = check_dense_decode(torch, tiny, gen)
     # The new families' heads: qwen2-moe-a2.7b 16 over 16 of 128 (rep 1),
     # internvl2-26b 48 over 8 of 128 (rep 6).
     moe_cfg, vlm_cfg = get_config(MOE_ARCH), get_config(VLM_ARCH)
@@ -1674,7 +1957,7 @@ def main() -> int:
     dec_vlm = check_decode(torch, vlm_cfg, gen)
     pre_moe = check_prefill(torch, moe_heads, gen,
                             cases=("first", "continuation"))
-    dense_vlm = check_dense_decode(torch, vlm_cfg, gen,
+    dense_vlm = check_dense_decode(torch, REP6_HEADS, gen,
                                    S=MAX_LEN + VLM_PREFIX)
     rows = [(f"paged_flash_decode[{kd}]", r) for kd, r in dec.items()]
     rows += [(f"paged_flash_prefill[{kd}, {k}]", v)
@@ -1755,7 +2038,11 @@ def main() -> int:
     family = {arch: run_family(torch, arch, card)
               for arch in (MOE_ARCH, VLM_ARCH) + DENSE_ARCHS}
 
-    # 10. Result lines.  The quantized bodies report their int8 times (fp8
+    # 10. The recurrent families at full width, one at a time.
+    recurrent = {arch: run_recurrent(torch, arch, gen, card)
+                 for arch in (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH)}
+
+    # 11. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -1834,11 +2121,25 @@ def main() -> int:
                      slice3["flash_attention"], attn["causal"],
                      err=max(r["err"] for r in attn.values())),
     ]
+    dense_src = "src/repro_torch/csrc/dense_decode.cu"
+    ssd_src, ssd_tpu = ("src/repro_torch/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan/ssd_scan.py:66")
+    for arch in (HYBRID_ARCH, AUDIO_ARCH):
+        r, run = recurrent[arch][0]["dense"], recurrent[arch][1]
+        c = get_config(arch)
+        kernels.append(kernel_entry(
+            f"flash_decode[heads {(c.num_heads, c.num_kv_heads, c.head_dim)}]",
+            dense_src, f"{dec_tpu}:78", run["flash_decode"], r))
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        res, run = recurrent[arch][0]["ssd"], recurrent[arch][1]
+        kernels.append(kernel_entry(
+            f"ssd_scan[{arch} prefill]", ssd_src, ssd_tpu, run["ssd_scan"],
+            res[512], err=max(r["err"] for r in res.values())))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launches on the main "
                                  f"path")
-        if k["library_ms"] is None and k["name"] != "ssd_scan":
+        if k["library_ms"] is None and not k["name"].startswith("ssd_scan"):
             raise AssertionError(f"{k['name']}: no library time")
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

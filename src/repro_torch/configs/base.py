@@ -242,17 +242,18 @@ def _ensure_imported():
     global _IMPORTED
     if _IMPORTED:
         return
-    # Import every config module so registrations run.  The port serves
-    # the attention families (dense, moe, vlm); the mamba2, zamba2 and
-    # whisper configs land here with the ssm, hybrid and audio families.
+    # Import every config module so registrations run.
     from repro_torch.configs import (  # noqa: F401
         granite_3_8b,
         internvl2_26b,
+        mamba2_1_3b,
         phi3_medium_14b,
         qwen2_moe_a2_7b,
         qwen3_moe_235b_a22b,
         stablelm_1_6b,
         tinyllama_1_1b,
+        whisper_base,
+        zamba2_7b,
     )
 
     _IMPORTED = True

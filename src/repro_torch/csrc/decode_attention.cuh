@@ -9,8 +9,8 @@
 // min(lengths[b], width), width = T * bs (paged) or S (dense), with an
 // fp32 online softmax.  The templates take a row-address policy
 // (PagedRows / DenseRows: position -> pool row), the payload type (bf16,
-// int8 or fp8 e4m3 with fp32 scales) and D (64 or 128); q's type picks
-// the body.
+// int8 or fp8 e4m3 with fp32 scales) and D (64 or 128; the dense kernel
+// also 112, bf16 only); q's type picks the body.
 //
 // Bound on this card.  The work reads each live K/V row once (2 * n * Hk
 // rows of D payload elements, plus a 4-byte scale on a SCLAD pool) and
@@ -78,6 +78,12 @@ constexpr int kWarpKeys = kSplit / kWarps;  // 32: one per lane
 constexpr int kStageKeys = 16;              // keys per cp.async group
 constexpr int kRowTile = 16;                // query rows per m tile
 constexpr int kMaxRep = 32;                 // query heads per kv head
+
+// Columns of a D-vector a lane owns where one lane holds columns lane,
+// lane + 32, ...: ceil(D / 32), the last one partial when D is a multiple
+// of 16 but not of 32 (112).
+template <int D>
+constexpr int kLaneCols = (D + 31) / 32;
 
 // Row-address policies: n(b) is row b's live positions, row(b, h, pos) the
 // (N * bs * Hk or B * S * Hk) row index of position pos of kv head h; its
@@ -160,6 +166,8 @@ __device__ __forceinline__ void stage_keys(const WarpSmem<T, D, P>& sm,
   using L = Layout<T, D, P>;
   constexpr int kPieces = D * int(sizeof(P)) / 16;  // 16-byte pieces a row
   constexpr int kElems = 16 / int(sizeof(P));
+  static_assert(kStageKeys * kPieces % 32 == 0,
+                "a stage's pieces must split evenly over the warp's lanes");
   const bool live = p0 + lane < n;
   const long long row = live ? rows.row(b, h, p0 + lane) : 0;
   if constexpr (L::kQuant) {
@@ -234,15 +242,9 @@ __device__ __forceinline__ void merge_warps(const WarpSmem<T, D, P>& sm,
   }
 }
 
-// 2^x on the special-function unit (ex2.approx.ftz: 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// SCLAD keys t of stage st, payload * scale in fp32 rounded to bf16, into
-// the warp's bf16 tiles (8 elements a lane a step).
+// SCLAD keys t of stage st, payload * scale in fp32 rounded to bf16
+// (paged_attention.cuh's dequant8), into the warp's bf16 tiles (8
+// elements a lane a step).
 template <int D, typename P>
 __device__ __forceinline__ void dequant_stage(
     const WarpSmem<bf16, D, P>& sm, int st, int lane) {
@@ -253,21 +255,11 @@ __device__ __forceinline__ void dequant_stage(
     const int e = lane + 32 * i;
     const int t = st * kStageKeys + e / kChunks, c = e % kChunks;
 #pragma unroll
-    for (int kv = 0; kv < 2; ++kv) {
-      const uint2 w = *reinterpret_cast<const uint2*>(
-          sm.stage[kv] + t * L::kRowBytes + c * 8);
-      const float s = sm.scale[kv][t];
-      uint4 o;
-      o.x = mma::pack_bf16x2(byte_to_float<P>(w.x) * s,
-                             byte_to_float<P>(w.x >> 8) * s);
-      o.y = mma::pack_bf16x2(byte_to_float<P>(w.x >> 16) * s,
-                             byte_to_float<P>(w.x >> 24) * s);
-      o.z = mma::pack_bf16x2(byte_to_float<P>(w.y) * s,
-                             byte_to_float<P>(w.y >> 8) * s);
-      o.w = mma::pack_bf16x2(byte_to_float<P>(w.y >> 16) * s,
-                             byte_to_float<P>(w.y >> 24) * s);
-      *reinterpret_cast<uint4*>(sm.conv[kv] + t * L::kStride + c * 8) = o;
-    }
+    for (int kv = 0; kv < 2; ++kv)
+      *reinterpret_cast<uint4*>(sm.conv[kv] + t * L::kStride + c * 8) =
+          dequant8<P>(*reinterpret_cast<const uint2*>(
+                          sm.stage[kv] + t * L::kRowBytes + c * 8),
+                      sm.scale[kv][t]);
   }
 }
 
@@ -358,7 +350,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kWarpKeys / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(fmaf(s[j][e], scale_log2, -m_scaled[e / 2]));
+        const float p =
+            mma::fast_exp2(fmaf(s[j][e], scale_log2, -m_scaled[e / 2]));
         s[j][e] = p;
         l[e / 2] += p;
       }
@@ -434,7 +427,7 @@ __device__ __forceinline__ float staged_elem(const unsigned char* row, int d,
 
 // ---- fp32 q: the exact-fp32 body of the split pass.  Lane t scores key
 // t against 16 query rows (fp32 FMAs, q broadcast from shared memory);
-// for P @ V lane c owns columns c, c + 32, ...
+// for P @ V lane c owns columns c, c + 32, ... below D (kLaneCols).
 template <int D, typename P, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_exact_kernel(const float* __restrict__ q, const P* __restrict__ k,
@@ -486,23 +479,25 @@ __global__ void __launch_bounds__(kThreads)
       p[r] = live ? exp2f(fmaf(s, scale_log2, -m_scaled[r])) : 0.f;
       l[r] = warp_sum(p[r]);
     }
-    float acc[kRowTile][D / 32];
+    constexpr int kCols = kLaneCols<D>;
+    float acc[kRowTile][kCols];
 #pragma unroll
     for (int r = 0; r < kRowTile; ++r)
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[r][i] = 0.f;
+      for (int i = 0; i < kCols; ++i) acc[r][i] = 0.f;
     for (int t = 0; t < nk; ++t) {
       const unsigned char* vrow = sm.stage[1] + t * L::kRowBytes;
       const float vsc = L::kQuant ? sm.scale[1][t] : 1.f;
-      float vv[D / 32];
+      float vv[kCols];
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i)
-        vv[i] = staged_elem<P>(vrow, lane + 32 * i, vsc);
+      for (int i = 0; i < kCols; ++i)
+        vv[i] = lane + 32 * i < D ? staged_elem<P>(vrow, lane + 32 * i, vsc)
+                                  : 0.f;
 #pragma unroll
       for (int r = 0; r < kRowTile; ++r) {
         const float pr = __shfl_sync(0xffffffffu, p[r], t);
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) acc[r][i] = fmaf(pr, vv[i], acc[r][i]);
+        for (int i = 0; i < kCols; ++i) acc[r][i] = fmaf(pr, vv[i], acc[r][i]);
       }
     }
 #pragma unroll
@@ -513,7 +508,8 @@ __global__ void __launch_bounds__(kThreads)
         sm.ml[rr] = l[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) sm.mo[rr * D + lane + 32 * i] = acc[r][i];
+      for (int i = 0; i < kCols; ++i)
+        if (lane + 32 * i < D) sm.mo[rr * D + lane + 32 * i] = acc[r][i];
     }
     __syncthreads();
     merge_warps(sm, ws, ws_ml, grow0 + mt * kRowTile,
@@ -523,7 +519,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- The combine pass: one warp per (row, query head) merges the live
-// splits' partials in split order and writes the output in q's type.
+// splits' partials in split order and writes the output in q's type;
+// lane c owns columns c, c + 32, ... below D.
 template <typename T, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     decode_combine_kernel(const float* __restrict__ ws, Rows rows,
@@ -540,19 +537,21 @@ __global__ void __launch_bounds__(kThreads)
   float m = -INFINITY;
   for (int s = lane; s < live; s += 32) m = fmaxf(m, wml[2 * s]);
   m = warp_max(m);
-  float l = 0.f, o[D / 32];
+  constexpr int kCols = kLaneCols<D>;
+  float l = 0.f, o[kCols];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < kCols; ++i) o[i] = 0.f;
   for (int s = 0; s < live; ++s) {
     const float c = exp2f(wml[2 * s] - m);
     l = fmaf(c, wml[2 * s + 1], l);
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i)
-      o[i] = fmaf(c, wo[s * D + lane + 32 * i], o[i]);
+    for (int i = 0; i < kCols; ++i)
+      if (lane + 32 * i < D) o[i] = fmaf(c, wo[s * D + lane + 32 * i], o[i]);
   }
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i)
-    out[grow * D + lane + 32 * i] = from_float<T>(live ? o[i] / l : 0.f);
+  for (int i = 0; i < kCols; ++i)
+    if (lane + 32 * i < D)
+      out[grow * D + lane + 32 * i] = from_float<T>(live ? o[i] / l : 0.f);
 }
 
 // The split pass's body for q of type T.

@@ -22,6 +22,10 @@
 // on the tensor cores, fp32 q exact; a second kernel merges the splits in
 // a fixed order.  A call is two device launches.
 //
+// Head dims 64, 128 and 112 (zamba2-7b's shared attention, 3584 / 32):
+// the body's lanes hold ceil(D / 32) columns each, so a D that is a
+// multiple of 16 but not of 32 loses no column.
+//
 // Predicted at chip_smoke.py's shapes (8 rows of (1024, 4, 64) stripes,
 // lengths 0-1024): 0.008-0.020 ms, against 0.144 ms for the kernel it
 // replaces.
@@ -49,10 +53,14 @@ extern "C" int repro_dense_decode(const void* q, const void* k_cache,
   float* w = static_cast<float*>(ws);
   if (D == 64 && q_bf16)
     return launch<bf16, 64, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+  if (D == 112 && q_bf16)
+    return launch<bf16, 112, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
   if (D == 128 && q_bf16)
     return launch<bf16, 128, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
   if (D == 64 && !q_bf16)
     return launch<float, 64, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+  if (D == 112 && !q_bf16)
+    return launch<float, 112, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
   if (D == 128 && !q_bf16)
     return launch<float, 128, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);

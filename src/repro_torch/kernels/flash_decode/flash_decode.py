@@ -26,7 +26,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode.ref import decode_ref, paged_decode_ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)  # the paged kernel's head dims
+#: The dense kernel's: also zamba2-7b's shared attention, 3584 / 32 = 112.
+DENSE_HEAD_DIMS = (64, 112, 128)
 MAX_REP = 32  # query heads per kv head the kernel holds in one block
 #: Positions a block of the split pass walks (``kSplit`` in
 #: ``csrc/decode_attention.cuh``).
@@ -59,12 +61,12 @@ def _workspace(q, width):
                                 dtype=torch.float32, device=q.device)
 
 
-def _check_q(what, q, Hk, D):
+def _check_q(what, q, Hk, D, head_dims=HEAD_DIMS):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: q dtype {q.dtype} not bf16/fp32")
-    if q.dim() != 3 or q.shape[2] != D or D not in HEAD_DIMS:
+    if q.dim() != 3 or q.shape[2] != D or D not in head_dims:
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)}, head dim "
-                         f"{D} (D in {HEAD_DIMS})")
+                         f"{D} (D in {head_dims})")
     H = q.shape[1]
     if Hk <= 0 or H % Hk or H // Hk > MAX_REP:
         raise ValueError(f"{what}: H={H} Hk={Hk} unsupported")
@@ -103,7 +105,8 @@ def _check_dense(q, k_cache, v_cache, lengths):
             or v_cache.shape != k_cache.shape or k_cache.dim() != 4 \
             or k_cache.shape[0] != B:
         raise TypeError("flash_decode: k/v caches must be bf16 (B, S, Hk, D)")
-    _check_q("flash_decode", q, k_cache.shape[2], k_cache.shape[3])
+    _check_q("flash_decode", q, k_cache.shape[2], k_cache.shape[3],
+             DENSE_HEAD_DIMS)
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError("flash_decode: lengths must be (B,) int32")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
@@ -158,7 +161,8 @@ paged_flash_decode.launches = 0
 def flash_decode(q, k_cache, v_cache, lengths):
     """Decode attention over dense per-row K/V stripes.
 
-    q:        (B, H, D) one new token per row, bf16 or fp32;
+    q:        (B, H, D) one new token per row, bf16 or fp32, D in
+              ``DENSE_HEAD_DIMS``;
     k_cache/v_cache: (B, S, Hk, D) bf16 stripes (row b's position j at
               [b, j]);
     lengths:  (B,) int32 valid positions per row (read up to min(len, S)).

@@ -5,10 +5,14 @@
 
 ``--arch`` takes every registered config: the dense family
 (tinyllama-1.1b, stablelm-1.6b, phi3-medium-14b, granite-3-8b), the moe
-family (qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and the vlm family
+family (qwen2-moe-a2.7b, qwen3-moe-235b-a22b), the vlm family
 (internvl2-26b, every request behind the zero patch-embedding stub, as
-in ``repro.launch.serve``).  Weights are random, drawn from ``--seed``
-(nothing is downloaded).  Runs on the CUDA card by default; ``--device
+in ``repro.launch.serve``), and the recurrent families, served in waves
+(``--mode auto`` resolves to ``wave``; ``continuous`` raises): ssm
+(mamba2-1.3b) and hybrid (zamba2-7b), whose prompts longer than the SSD
+chunk (256; 32 reduced) must be a multiple of it, and audio
+(whisper-base, behind zero stub frames).  Weights are random, drawn from
+``--seed`` (nothing is downloaded).  Runs on the CUDA card by default; ``--device
 cpu`` (with ``--reduced``) runs the plain PyTorch path on the CPU.
 ``--kv-dtype int8|fp8`` stores the paged pool SCLAD-compressed;
 ``--mode wave`` serves lockstep waves over dense stripes instead of

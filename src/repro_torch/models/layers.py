@@ -1,8 +1,10 @@
-"""Transformer layers of the attention families: norm, rotary
-embeddings, QKV projection, full causal attention (``_sdpa``,
-``chunked_attention``, ``attention``), SwiGLU/GeGLU/GELU MLP, and
-single-token decode attention over a paged pool (bf16 or SCLAD int8/fp8)
-or dense stripes.
+"""Transformer layers: norms (and Mamba-2's gated RMSNorm), rotary and
+sinusoidal positions, QKV projection, full causal or bidirectional
+attention (``_sdpa``, ``chunked_attention``, ``self_attend``,
+``attention``), cross
+attention over precomputed K/V, SwiGLU/GeGLU/GELU MLP, and single-token
+decode attention over a paged pool (bf16 or SCLAD int8/fp8) or dense
+stripes.
 
 Port of the serving-path functions of ``repro.models.layers``, as plain
 functions on tensors over explicit parameter dictionaries.  The
@@ -69,6 +71,15 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm: norm(x * silu(z)), the gate rounded to
+    x's dtype before the product, as in the reference."""
+    xf = (x * F.silu(z.float()).to(x.dtype)).float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale.float()).to(x.dtype)
+
+
 def rope_frequencies(cfg: ModelConfig) -> Tuple[int, np.ndarray]:
     """Returns (rotary_dim, inv_freq[rotary_dim // 2]) as float32 numpy,
     computed exactly as the reference does."""
@@ -103,6 +114,20 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
     x1, x2 = x_rot.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(seq_len: int, d: int,
+                         device: torch.device) -> torch.Tensor:
+    """Whisper's absolute sinusoidal embeddings (seq_len, d) in bf16,
+    computed in fp32 numpy as the reference does; on ``device``, copied
+    there once per length."""
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    dim = np.arange(d // 2, dtype=np.float32)[None, :]
+    ang = pos / np.power(10_000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
 
 
 def _project_qkv(cfg: ModelConfig, p: Params, xq: torch.Tensor,
@@ -193,29 +218,44 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor, causal: bool = True,
               use_rope: bool = True) -> torch.Tensor:
-    """Full self-attention over x (B, S, d) -> (B, S, d): blockwise at and
-    above ``CHUNKED_ATTN_THRESHOLD`` tokens (when S divides into
-    ``Q_CHUNK``s), one masked ``_sdpa`` below."""
+    """Full self-attention over x (B, S, d) -> (B, S, d) (``self_attend``
+    of its projections)."""
     q, k, v = _project_qkv(cfg, p, x, x)
     if use_rope:
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
-    S = x.shape[1]
+    return self_attend(cfg, q, k, v, causal) @ p["wo"]
+
+
+def self_attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """q (B, S, H, D) over k/v (B, S, Hk, D) of the same positions ->
+    (B, S, H*D): blockwise at and above ``CHUNKED_ATTN_THRESHOLD`` tokens
+    (when S divides into ``Q_CHUNK``s), one masked ``_sdpa`` below."""
+    S = q.shape[1]
     if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0:
-        out = chunked_attention(q, k, v, causal)
-    else:
-        mask = None
-        if causal:
-            mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                         device=x.device))
-        out = _sdpa(cfg, q, k, v, mask)
-    return out @ p["wo"]
+        return chunked_attention(q, k, v, causal)
+    mask = None
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+    return _sdpa(cfg, q, k, v, mask)
+
+
+def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    ctx_k: torch.Tensor, ctx_v: torch.Tensor) -> torch.Tensor:
+    """x (B, Sq, d) attends, unmasked, over precomputed ctx_k / ctx_v
+    (B, Skv, Hk, D) -> (B, Sq, d).  Plain PyTorch: the reference has no
+    kernel here."""
+    B, Sq, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+    return _sdpa(cfg, q, ctx_k, ctx_v) @ p["wo"]
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      position: torch.Tensor, block_tables=None,
-                     kv_scales=None):
+                     kv_scales=None, use_rope: bool = True):
     """Single-token decode attention, with the cache written in place.
 
     x: (B, 1, d); position: (B,) int32 per-row index of the new token.
@@ -233,16 +273,18 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
       * dense (``block_tables=None``): k_cache/v_cache are (B, S, Hk, D)
         bf16 stripes and the new K/V lands at ``[b, pos]``.
 
-    Writes happen in place, where the reference returns new caches.  The
-    read goes through ``decode_ops.decode_attention`` with lengths =
-    pos + 1.  Returns (out (B, 1, d), k_cache, v_cache), plus (k_scale,
-    v_scale) when ``kv_scales`` is given.
+    ``use_rope=False`` (whisper: absolute positions) leaves q and k
+    unrotated.  Writes happen in place, where the reference returns new
+    caches.  The read goes through ``decode_ops.decode_attention`` with
+    lengths = pos + 1.  Returns (out (B, 1, d), k_cache, v_cache), plus
+    (k_scale, v_scale) when ``kv_scales`` is given.
     """
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, x)
     pos = position.to(torch.int32)
-    q = apply_rope(cfg, q, pos[:, None])
-    k = apply_rope(cfg, k, pos[:, None])
+    if use_rope:
+        q = apply_rope(cfg, q, pos[:, None])
+        k = apply_rope(cfg, k, pos[:, None])
     rows = torch.arange(B, device=x.device)
     if block_tables is None:
         if kv_scales is not None:

@@ -1,33 +1,47 @@
-"""The attention families' model: init, paged prefill chunks and decode,
-and the wave path's dense-cache prefill and decode.
+"""The model of every family: init, paged prefill chunks and decode
+(the attention families), and the wave path's dense-cache prefill and
+decode (all six).
 
-Port of the serving path of ``repro.models.model`` for the families with
-attention KV caches:
+Port of the serving path of ``repro.models.model``:
 
   * dense — GQA decoder blocks (tinyllama, stablelm, phi3, granite);
   * moe — the same attention with an MoE FFN (``models.moe``; qwen2-moe,
     qwen3-moe), whose routing skips pads and dead lanes;
   * vlm — a dense backbone behind a stub patch-embedding prefix
     (internvl2): ``num_patches`` projected embeddings take the cache
-    positions before the prompt's.
+    positions before the prompt's;
+  * ssm — a stack of Mamba-2 blocks (``models.ssm``; mamba2);
+  * hybrid — Mamba-2 groups of ``hybrid.attn_every`` blocks, each followed
+    by one shared attention block (zamba2), then a tail of Mamba-2 blocks;
+  * audio — whisper's encoder over stub frame embeddings and a decoder
+    with causal self-attention and cross-attention, sinusoidal positions,
+    no rope.
 
 Parameters are a plain dictionary laid out as the reference's tree —
-``embed``, ``final_norm``, ``lm_head``, ``patch_proj`` (vlm), and
-``blocks`` whose leaves stack the layers on axis 0 — so weights carry
-across unchanged (``models.convert``).  Layers run in a Python loop where
-the reference scans.  Two caches:
+``embed``, ``final_norm``, ``lm_head``, ``patch_proj`` (vlm), and stacked
+block leaves: ``blocks`` (L, ...) for dense/moe/vlm/ssm, ``groups``
+(groups, per, ...), ``tail`` (tail, ...) and an unstacked
+``shared_attn`` for hybrid, ``enc_blocks`` / ``enc_norm`` /
+``dec_blocks`` for audio — so weights carry across unchanged
+(``models.convert``).  Layers run in Python loops where the reference
+scans.  Two caches:
 
-  * the paged pool (continuous batching): (L, N, bs, Hk, D) ``k``/``v``
-    leaves, bf16 or — for a SCLAD ``kv_dtype`` ("int8"/"fp8") — the
-    compressed payload plus (L, N, bs, Hk) fp32 ``k_scale``/``v_scale``;
-  * dense stripes (the wave path): (L, B, ctx, Hk, D) bf16, ctx =
-    max_len plus the vlm patch prefix.
+  * the paged pool (continuous batching, attention families only): (L,
+    N, bs, Hk, D) ``k``/``v`` leaves, bf16 or — for a SCLAD ``kv_dtype``
+    ("int8"/"fp8") — the compressed payload plus (L, N, bs, Hk) fp32
+    ``k_scale``/``v_scale``;
+  * the wave path's dense caches (``init_cache``): (L, B, ctx, Hk, D)
+    bf16 stripes, ctx = max_len plus the vlm patch prefix; stacked
+    ``conv``/``state`` Mamba-2 caches for ssm (and hybrid's ``groups`` /
+    ``tail``, beside its (groups, B, max_len, Hk, D) ``attn_k``/``attn_v``
+    stripes); self-attention stripes plus ``cross_k``/``cross_v`` of the
+    encoder's frames for audio.
 
-Both are updated IN PLACE by ``prefill_slots``, ``decode_step`` and
+Caches are updated IN PLACE by ``prefill_slots``, ``decode_step`` and
 ``copy_cache_block``, which return the same dict to keep the reference's
 signatures.  Plain large products are ``@``, as the reference leaves them
 to XLA; decode and chunked-prefill attention go through the kernels'
-entry points.
+entry points, and so does the ssm and hybrid prefill's SSD scan.
 """
 from __future__ import annotations
 
@@ -39,7 +53,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_prefill import ops as prefill_ops
-from repro_torch.models import kv_quant, layers, moe as moe_lib
+from repro_torch.models import kv_quant, layers, moe as moe_lib, ssm as ssm_lib
 
 Params = Dict[str, Any]
 
@@ -47,15 +61,26 @@ Params = Dict[str, Any]
 #: ("f8", float8 stripes and pools without scales, is not ported).
 SERVED_KV_DTYPES = ("bf16", "fp", "int8", "fp8")
 
-#: The families with attention KV caches, the ones the port serves.
+#: The families with attention KV caches: the paged pool's.
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 
-def check_family(cfg: ModelConfig, what: str) -> None:
+def check_paged(cfg: ModelConfig, what: str) -> None:
+    """The paged pool holds attention K/V: the recurrent families (ssm,
+    hybrid, audio) have no block-addressable cache, as in the
+    reference."""
     if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
-            f"{what}: the port serves the {ATTENTION_FAMILIES} families, "
-            f"not {cfg.family!r}")
+            f"{what}: paged KV caches cover the attention families "
+            f"{ATTENTION_FAMILIES}, not {cfg.family!r}")
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(groups, Mamba-2 blocks a group, tail blocks) of a hybrid stack:
+    zamba2-7b's 81 layers are 13 groups of 6 and a tail of 3."""
+    per = cfg.hybrid.attn_every
+    groups = cfg.num_layers // per
+    return groups, per, cfg.num_layers - groups * per
 
 
 def _tree_map(fn, tree):
@@ -67,11 +92,14 @@ def _tree_map(fn, tree):
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree's shapes, as the reference's ``init_params``
     lays it out: moe blocks hold ``moe`` (``moe.param_shapes``) where
-    dense ones hold ``mlp``; vlm adds the (d, d) ``patch_proj``."""
-    check_family(cfg, "param_shapes")
+    dense ones hold ``mlp``; vlm adds the (d, d) ``patch_proj``; ssm
+    blocks hold ``ln`` and ``mamba`` (``ssm.param_shapes``), stacked
+    (groups, per, ...) and (tail, ...) in a hybrid beside one unstacked
+    ``shared_attn`` dense block; audio has ``enc_blocks``, ``enc_norm``
+    and ``dec_blocks`` (self- and cross-attention)."""
     d, h, hk, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim)
-    L = cfg.num_layers
+    L, fam = cfg.num_layers, cfg.family
 
     def norm():
         n = {"scale": (d,)}
@@ -79,24 +107,53 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             n["bias"] = (d,)
         return n
 
-    attn = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
-            "wo": (h * hd, d)}
-    if cfg.qkv_bias:
-        attn.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
-    block = {"ln_attn": norm(), "attn": attn, "ln_mlp": norm()}
-    if cfg.family == "moe":
-        block["moe"] = moe_lib.param_shapes(cfg)
-    else:
-        block["mlp"] = layers.mlp_shapes(cfg)
-    shapes: Dict[str, Any] = {
-        "embed": (cfg.vocab_size, d),
-        "final_norm": norm(),
-        "blocks": _tree_map(lambda s: (L,) + s, block),
-    }
+    def attn():
+        a = {"wq": (d, h * hd), "wk": (d, hk * hd), "wv": (d, hk * hd),
+             "wo": (h * hd, d)}
+        if cfg.qkv_bias:
+            a.update(bq=(h * hd,), bk=(hk * hd,), bv=(hk * hd,))
+        return a
+
+    def stack(lead, block):
+        return _tree_map(lambda s: lead + s, block)
+
+    def dense_block():
+        return {"ln_attn": norm(), "attn": attn(), "ln_mlp": norm(),
+                "mlp": layers.mlp_shapes(cfg)}
+
+    def ssm_block():
+        return {"ln": norm(), "mamba": ssm_lib.param_shapes(cfg)}
+
+    shapes: Dict[str, Any] = {"embed": (cfg.vocab_size, d),
+                              "final_norm": norm()}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
-    if cfg.family == "vlm":
-        shapes["patch_proj"] = (d, d)
+    if fam == "moe":
+        shapes["blocks"] = stack((L,), {
+            "ln_attn": norm(), "attn": attn(), "ln_mlp": norm(),
+            "moe": moe_lib.param_shapes(cfg)})
+    elif fam in ("dense", "vlm"):
+        shapes["blocks"] = stack((L,), dense_block())
+        if fam == "vlm":
+            shapes["patch_proj"] = (d, d)
+    elif fam == "ssm":
+        shapes["blocks"] = stack((L,), ssm_block())
+    elif fam == "hybrid":
+        groups, per, tail = hybrid_layout(cfg)
+        shapes["groups"] = stack((groups, per), ssm_block())
+        if tail:
+            shapes["tail"] = stack((tail,), ssm_block())
+        shapes["shared_attn"] = dense_block()
+    elif fam == "audio":
+        shapes["enc_blocks"] = stack((cfg.encdec.num_encoder_layers,),
+                                     dense_block())
+        shapes["enc_norm"] = norm()
+        shapes["dec_blocks"] = stack((L,), {
+            "ln_self": norm(), "self_attn": attn(), "ln_cross": norm(),
+            "cross_attn": attn(), "ln_mlp": norm(),
+            "mlp": layers.mlp_shapes(cfg)})
+    else:
+        raise ValueError(fam)
     return shapes
 
 
@@ -113,7 +170,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     """Seeded random parameters with the reference's distributions (not
     its bits): N(0, 1/fan_in) weights, N(0, 0.02^2) embeddings, unit norm
     scales, zero biases; the MoE router in fp32 whatever ``dtype`` is, as
-    in the reference.  Drawn on ``device`` from one explicit
+    in the reference; the Mamba-2 leaves the reference fixes take its
+    values (``ssm.fixed_leaf``: ``A_log``, ``D`` and ``dt_bias`` in
+    fp32).  Drawn on ``device`` from one explicit
     ``torch.Generator``, in fp32 pieces of at most 256 MiB
     (``layers.INIT_CHUNK``), so init peaks that much above the weights."""
     dev = resolve_device(device)
@@ -122,6 +181,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
 
     def make(path, shape):
         name = path[-1]
+        if "mamba" in path:
+            fixed = ssm_lib.fixed_leaf(name, shape, dtype, dev)
+            if fixed is not None:
+                return fixed
         if name == "embed":
             return layers.embed_init(gen, shape, dtype)
         if name == "scale":
@@ -139,9 +202,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     return walk(shapes, ())
 
 
-def layer_params(params: Params, layer: int) -> Params:
-    """One layer's view of the stacked ``blocks`` leaves."""
-    return _tree_map(lambda v: v[layer], params["blocks"])
+def layer_params(params: Params, layer: int, key: str = "blocks",
+                 group: Optional[int] = None) -> Params:
+    """One layer's view of the stacked ``key`` leaves (a hybrid's
+    ``groups`` take the group index first)."""
+    if group is None:
+        return _tree_map(lambda v: v[layer], params[key])
+    return _tree_map(lambda v: v[group, layer], params[key])
 
 
 def check_kv_dtype(cfg: ModelConfig) -> None:
@@ -159,18 +226,61 @@ def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16
 
 
+def _zeros_like_stacked(one: Params, lead: Tuple[int, ...]) -> Params:
+    return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                           device=v.device) for k, v in one.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Params:
-    """Dense KV stripes for the wave path: (L, batch, ctx, Hk, hd) ``k``
-    and ``v`` in ``kv_store_dtype``, zeros; ctx = max_len, plus
-    ``num_patches`` for the vlm family's patch prefix."""
-    check_family(cfg, "init_cache")
+               device: DeviceLike = None,
+               conv_dtype: torch.dtype = torch.bfloat16) -> Params:
+    """The wave path's dense caches, zeros, as the reference lays them
+    out: (L, batch, ctx, Hk, hd) ``k`` and ``v`` stripes in
+    ``kv_store_dtype`` (ctx = max_len, plus ``num_patches`` for the vlm
+    family's patch prefix); ssm: the Mamba-2 cache (``conv``, ``state``)
+    stacked (L, ...); hybrid: ``groups`` stacked (groups, per, ...),
+    ``tail`` (tail, ...) and the shared block's (groups, batch, max_len,
+    Hk, hd) ``attn_k``/``attn_v``; audio: ``k``/``v`` stripes and the
+    encoder frames' (L, batch, frames, Hk, hd) ``cross_k``/``cross_v``.
+    ``conv_dtype``: the Mamba-2 conv windows' (bf16, the reference's;
+    ``prefill`` passes its compute dtype, which the reference's prompt
+    pass leaves there)."""
     dev = resolve_device(device)
-    ctx = max_len + (cfg.num_patches if cfg.family == "vlm" else 0)
-    shape = (cfg.num_layers, batch, ctx, cfg.num_kv_heads, cfg.head_dim)
-    kvd = kv_store_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=kvd, device=dev),
-            "v": torch.zeros(shape, dtype=kvd, device=dev)}
+    fam, L = cfg.family, cfg.num_layers
+
+    def stripes(lead, ctx):
+        return _stripes(cfg, lead + (batch, ctx), dev)
+
+    if fam in ATTENTION_FAMILIES:
+        ctx = max_len + (cfg.num_patches if fam == "vlm" else 0)
+        return {"k": stripes((L,), ctx), "v": stripes((L,), ctx)}
+    if fam == "audio":
+        F_ = cfg.encdec.encoder_seq_len
+        return {"k": stripes((L,), max_len), "v": stripes((L,), max_len),
+                "cross_k": stripes((L,), F_), "cross_v": stripes((L,), F_)}
+    one = ssm_lib.init_mamba_cache(cfg, batch, dev, conv_dtype)
+    if fam == "ssm":
+        return _zeros_like_stacked(one, (L,))
+    groups, per, tail = hybrid_layout(cfg)
+    cache = {"groups": _zeros_like_stacked(one, (groups, per)),
+             **_hybrid_stripes(cfg, batch, max_len, dev)}
+    if tail:
+        cache["tail"] = _zeros_like_stacked(one, (tail,))
+    return cache
+
+
+def _stripes(cfg: ModelConfig, lead: Tuple[int, ...], dev) -> torch.Tensor:
+    """Zero K (or V) stripes (*lead, Hk, hd) in ``kv_store_dtype``."""
+    return torch.zeros(lead + (cfg.num_kv_heads, cfg.head_dim),
+                       dtype=kv_store_dtype(cfg), device=dev)
+
+
+def _hybrid_stripes(cfg: ModelConfig, batch: int, max_len: int, dev):
+    """A hybrid's shared-attention stripes, (groups, batch, max_len, Hk,
+    hd) for K and for V."""
+    lead = (hybrid_layout(cfg)[0], batch, max_len)
+    return {"attn_k": _stripes(cfg, lead, dev),
+            "attn_v": _stripes(cfg, lead, dev)}
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -185,7 +295,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     per-head scales, initialised to ones (an all-zero payload row's scale
     by the quantizer's convention).  Block identity (sharing,
     copy-on-write, LRU) covers payload and scales as one unit."""
-    check_family(cfg, "init_paged_cache")
+    check_paged(cfg, "init_paged_cache")
     check_kv_dtype(cfg)
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
@@ -233,18 +343,9 @@ def _attn_block_body(cfg: ModelConfig, blk: Params, x: torch.Tensor,
     """One layer over a plain causal window (the wave path's prefill;
     every token routes, as in the reference):
     returns (x_out, k, v) with k/v of this call's tokens in the compute
-    dtype.  Blockwise attention at and above
-    ``layers.CHUNKED_ATTN_THRESHOLD`` tokens, one masked ``_sdpa``
-    below."""
+    dtype (``layers.self_attend``)."""
     q, k, v = _attn_qkv(cfg, blk, x, positions)
-    S = x.shape[1]
-    if S >= layers.CHUNKED_ATTN_THRESHOLD and S % layers.Q_CHUNK == 0:
-        a = layers.chunked_attention(q, k, v, causal=True)
-    else:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                     device=x.device))
-        a = layers._sdpa(cfg, q, k, v, mask)
-    return _attn_post(cfg, blk, x, a), k, v
+    return _attn_post(cfg, blk, x, layers.self_attend(cfg, q, k, v)), k, v
 
 
 def _attn_post(cfg: ModelConfig, blk: Params, x: torch.Tensor,
@@ -313,7 +414,7 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
     ``all_logits``, per-position logits (Bn, P, vocab) over the chunk's
     token columns (rows < pad junk; the patch prefix excluded).
     """
-    check_family(cfg, "prefill_slots")
+    check_paged(cfg, "prefill_slots")
     quantized = kv_quant.is_quantized(cfg.kv_dtype)
     Bn, P = tokens.shape
     dev = tokens.device
@@ -366,31 +467,121 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     tokens: (B, 1); position: a scalar or (B,) int32 index of each row's
     new token among the prompt and generated tokens (a vlm row's cache
-    position adds ``num_patches``).  With ``block_tables`` (B, T) int32
-    the cache is the paged pool (bf16 or SCLAD, ``init_paged_cache``);
-    without, it is the wave path's dense stripes (``init_cache``), written
-    at ``[rows, pos]``.  ``active`` (B,) bool marks live lanes: the moe
-    family routes only those (dead lanes consume no expert capacity);
-    attention ignores it (dead lanes are masked by their trash tables).
+    position adds ``num_patches``; audio takes one scalar, as the
+    reference does).  With ``block_tables`` (B, T) int32 the cache is the
+    paged pool (bf16 or SCLAD, ``init_paged_cache``; attention families
+    only); without, it is the wave path's dense cache (``init_cache``):
+    stripes written at ``[rows, pos]``, Mamba-2 windows and states
+    replaced.  ``active`` (B,) bool marks live lanes: the moe family
+    routes only those (dead lanes consume no expert capacity); attention
+    ignores it (dead lanes are masked by their trash tables).
 
     Returns (logits (B, 1, vocab), cache) with the cache written in place.
     """
-    check_family(cfg, "decode_step")
+    fam = cfg.family
+    if block_tables is not None:
+        check_paged(cfg, "decode_step")
     h = params["embed"][tokens.long()]
-    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    prefix = cfg.num_patches if fam == "vlm" else 0
     pos = (torch.as_tensor(position, dtype=torch.int32, device=h.device)
            + prefix).expand(tokens.shape[0])
-    valid = None if active is None else active[:, None]
-    for layer in range(cfg.num_layers):
-        blk = layer_params(params, layer)
-        scales = None if block_tables is None \
-            else _layer_scales(cache, layer)
-        a = layers.attention_decode(
-            cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], h),
-            cache["k"][layer], cache["v"][layer], pos, block_tables,
-            kv_scales=scales)[0]
-        h = _ffn(cfg, blk, h + a, valid)
+    if fam in ATTENTION_FAMILIES:
+        valid = None if active is None else active[:, None]
+        for layer in range(cfg.num_layers):
+            blk = layer_params(params, layer)
+            scales = None if block_tables is None \
+                else _layer_scales(cache, layer)
+            a = layers.attention_decode(
+                cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], h),
+                cache["k"][layer], cache["v"][layer], pos, block_tables,
+                kv_scales=scales)[0]
+            h = _ffn(cfg, blk, h + a, valid)
+    elif fam == "ssm":
+        for layer in range(cfg.num_layers):
+            h = _mamba_decode(cfg, layer_params(params, layer), cache,
+                              (layer,), h)
+    elif fam == "hybrid":
+        groups, per, tail = hybrid_layout(cfg)
+        shared = params["shared_attn"]
+        for g in range(groups):
+            for i in range(per):
+                h = _mamba_decode(cfg, layer_params(params, i, "groups", g),
+                                  cache["groups"], (g, i), h)
+            a = layers.attention_decode(
+                cfg, shared["attn"],
+                layers.apply_norm(cfg, shared["ln_attn"], h),
+                cache["attn_k"][g], cache["attn_v"][g], pos)[0]
+            h = _ffn(cfg, shared, h + a)
+        for i in range(tail):
+            h = _mamba_decode(cfg, layer_params(params, i, "tail"),
+                              cache["tail"], (i,), h)
+    elif fam == "audio":
+        if torch.as_tensor(position).dim() != 0:
+            raise ValueError("audio decode takes one scalar position")
+        table = layers.sinusoidal_positions(cache["k"].shape[2],
+                                            cfg.d_model, h.device)
+        h = h + table[pos[0].long()]
+        for layer in range(cfg.num_layers):
+            blk = layer_params(params, layer, "dec_blocks")
+            h = h + layers.attention_decode(
+                cfg, blk["self_attn"],
+                layers.apply_norm(cfg, blk["ln_self"], h),
+                cache["k"][layer], cache["v"][layer], pos,
+                use_rope=False)[0]
+            h = h + layers.cross_attention(
+                cfg, blk["cross_attn"],
+                layers.apply_norm(cfg, blk["ln_cross"], h),
+                cache["cross_k"][layer].to(h.dtype),
+                cache["cross_v"][layer].to(h.dtype))
+            h = h + layers.apply_mlp(
+                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
+    else:
+        raise ValueError(fam)
     return unembed(cfg, params, h), cache
+
+
+def _mamba_decode(cfg: ModelConfig, blk: Params, caches: Params, idx,
+                  h: torch.Tensor) -> torch.Tensor:
+    """One Mamba-2 block's decode step, its window and state at ``idx``
+    of the stacked ``caches`` replaced in place; returns h plus the
+    block's output."""
+    y, new = ssm_lib.apply_mamba_decode(
+        cfg, blk["mamba"], {k: v[idx] for k, v in caches.items()},
+        layers.apply_norm(cfg, blk["ln"], h))
+    for k, v in new.items():
+        caches[k][idx] = v
+    return h + y
+
+
+def _mamba_prefill(cfg: ModelConfig, blk: Params, caches: Params, idx,
+                   h: torch.Tensor) -> torch.Tensor:
+    """One Mamba-2 block over the prompt, its final state and conv window
+    written at ``idx`` of the stacked ``caches``; returns h plus the
+    block's output."""
+    y, st = ssm_lib.apply_mamba_block(cfg, blk["mamba"],
+                                      layers.apply_norm(cfg, blk["ln"], h))
+    for k, v in st.items():
+        caches[k][idx] = v
+    return h + y
+
+
+def encode_audio(cfg: ModelConfig, params: Params,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, F, d) -> (B, F,
+    d): sinusoidal positions, bidirectional rope-free attention, the
+    ``enc_norm``.  The frames are taken in the parameters' dtype: the
+    reference's layer scan needs them there (bf16 frames with fp32
+    parameters change its carry's type and do not trace)."""
+    h = frames.to(params["embed"].dtype) + layers.sinusoidal_positions(
+        frames.shape[1], cfg.d_model, frames.device)[None]
+    for layer in range(cfg.encdec.num_encoder_layers):
+        blk = layer_params(params, layer, "enc_blocks")
+        h = h + layers.attention(
+            cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], h),
+            None, causal=False, use_rope=False)
+        h = h + layers.apply_mlp(
+            cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
+    return layers.apply_norm(cfg, params["enc_norm"], h)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
@@ -398,19 +589,65 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     """The wave path's prompt pass: ``batch["tokens"]`` (B, S) int, all
     rows the same length, through every layer at once — behind the
     projected ``batch["patch_embeds"]`` (B, num_patches, d) for the vlm
-    family; each layer's K/V lands in fresh dense stripes
-    (``init_cache``, (L, B, ctx, Hk, hd) bf16) at positions [0, prefix +
-    S).  Returns (last-position logits (B, vocab), cache)."""
-    check_family(cfg, "prefill")
+    family, over the encoded ``batch["frames"]`` (B, F, d) for audio —
+    into fresh dense caches (``init_cache``): each attention layer's K/V
+    lands in its stripes at positions [0, prefix + S); audio also stores
+    each decoder layer's cross K/V of the frames; each Mamba-2 block
+    leaves its final state and conv window.  An ssm or hybrid prompt
+    longer than ``ssm.chunk_size`` must be a multiple of it
+    (``ssm.ssd_chunked``).  Returns (last-position logits (B, vocab),
+    cache)."""
     tokens = batch["tokens"]
-    B = tokens.shape[0]
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    B, S = tokens.shape
+    fam = cfg.family
+    dev = tokens.device
     h = params["embed"][tokens.long()]
-    if cfg.family == "vlm":
+    if fam == "vlm":
         h = torch.cat([_project_patches(params, batch["patch_embeds"],
                                         h.dtype), h], dim=1)
+    positions = torch.arange(h.shape[1], device=dev)
+    cache = init_cache(cfg, B, max_len, device=dev, conv_dtype=h.dtype)
+    if fam == "ssm":
+        for layer in range(cfg.num_layers):
+            h = _mamba_prefill(cfg, layer_params(params, layer), cache,
+                               (layer,), h)
+        return unembed(cfg, params, h[:, -1]), cache
+    if fam == "hybrid":
+        groups, per, tail = hybrid_layout(cfg)
+        for g in range(groups):
+            for i in range(per):
+                h = _mamba_prefill(cfg, layer_params(params, i, "groups", g),
+                                   cache["groups"], (g, i), h)
+            h, k, v = _attn_block_body(cfg, params["shared_attn"], h,
+                                       positions)
+            cache["attn_k"][g, :, :S] = k.to(cache["attn_k"].dtype)
+            cache["attn_v"][g, :, :S] = v.to(cache["attn_v"].dtype)
+        for i in range(tail):
+            h = _mamba_prefill(cfg, layer_params(params, i, "tail"),
+                               cache["tail"], (i,), h)
+        return unembed(cfg, params, h[:, -1]), cache
+    if fam == "audio":
+        enc = encode_audio(cfg, params, batch["frames"])
+        h = h + layers.sinusoidal_positions(S, cfg.d_model, dev)[None]
+        hk, hd = cfg.num_kv_heads, cfg.head_dim
+        for layer in range(cfg.num_layers):
+            blk = layer_params(params, layer, "dec_blocks")
+            xn = layers.apply_norm(cfg, blk["ln_self"], h)
+            q, k, v = layers._project_qkv(cfg, blk["self_attn"], xn, xn)
+            h = h + layers.self_attend(cfg, q, k, v) @ blk["self_attn"]["wo"]
+            ck = (enc @ blk["cross_attn"]["wk"]).reshape(B, -1, hk, hd)
+            cv = (enc @ blk["cross_attn"]["wv"]).reshape(B, -1, hk, hd)
+            h = h + layers.cross_attention(
+                cfg, blk["cross_attn"],
+                layers.apply_norm(cfg, blk["ln_cross"], h), ck, cv)
+            h = h + layers.apply_mlp(
+                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
+            for name, x in (("k", k), ("v", v)):
+                cache[name][layer, :, :S] = x.to(cache[name].dtype)
+            cache["cross_k"][layer] = ck.to(cache["cross_k"].dtype)
+            cache["cross_v"][layer] = cv.to(cache["cross_v"].dtype)
+        return unembed(cfg, params, h[:, -1]), cache
     S = h.shape[1]
-    positions = torch.arange(S, device=tokens.device)
     for layer in range(cfg.num_layers):
         h, k, v = _attn_block_body(cfg, layer_params(params, layer), h,
                                    positions)

@@ -1,9 +1,11 @@
 """Serving engine: continuous batching over a ref-counted paged KV cache,
 and the lockstep wave path.
 
-Port of ``repro.serving.engine`` for the families with attention KV
-caches (dense, moe, vlm), both modes.  The continuous path's host-side
-scheduler is the reference's, line for line:
+Port of ``repro.serving.engine``: both modes for the families with
+attention KV caches (dense, moe, vlm), the wave path for the recurrent
+ones (ssm, hybrid, audio), which have no block-addressable cache.  The
+continuous path's host-side scheduler is the reference's, line for
+line:
 
   * one pool of fixed-size KV blocks (``model.init_paged_cache``)
     addressed through per-lane block tables;
@@ -42,10 +44,12 @@ same token ids behind different images never do.
 
 ``mode="wave"`` (``_run_waves``) is the reference's lockstep baseline:
 requests grouped by exact prompt length, each wave prefilled in one pass
-into dense (L, B, ctx, Hk, D) stripes (``model.prefill``) and decoded
-together through the dense flash-decode kernel until every member is
-done.  ``mode="auto"`` picks continuous for the attention families, as
-the reference does.
+into dense caches (``model.prefill``: (L, B, ctx, Hk, D) stripes,
+Mamba-2 states, whisper's cross K/V of zero stub frames) and decoded
+together — attention through the dense flash-decode kernel — until every
+member is done.  ``mode="auto"`` picks continuous for the attention
+families and wave for the others, as the reference does; an ssm or
+hybrid prompt longer than ``ssm.chunk_size`` must be a multiple of it.
 
 Device state (pool, logits, positions, active mask, budgets, sampling
 keys) is updated in place.  Sampling keys are POSITIONAL (see
@@ -53,7 +57,7 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
 Outside the port so far the engine raises ``NotImplementedError``:
-meshes, ``kv_dtype="f8"`` and the ssm, hybrid and audio families.
+meshes and ``kv_dtype="f8"``.
 """
 from __future__ import annotations
 
@@ -276,13 +280,16 @@ class ServingEngine:
                 f"{PREEMPT_POLICIES}")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported")
-        M.check_family(cfg, "ServingEngine")
         if mode == "auto":
             mode = "continuous" if cfg.family in CONTINUOUS_FAMILIES \
                 else "wave"
         if mode not in ("continuous", "wave"):
             raise ValueError(f"mode {mode!r} not in ('auto', 'continuous', "
                              f"'wave')")
+        if mode == "continuous" and cfg.family not in CONTINUOUS_FAMILIES:
+            raise ValueError(
+                f"family {cfg.family!r} has no block-addressable KV cache; "
+                f"use mode='wave'")
         if spec_decode != "off" and mode != "continuous":
             raise ValueError(
                 "spec_decode requires the continuous (paged) engine: the "
@@ -1134,6 +1141,10 @@ class ServingEngine:
 
         if cfg.family == "vlm":
             batch["patch_embeds"] = self._patch_batch(wave)
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (B, cfg.encdec.encoder_seq_len, cfg.d_model),
+                dtype=torch.bfloat16, device=dev)
         t0 = time.perf_counter()
         logits, cache = M.prefill(cfg, self.params, batch, self.max_len)
         synchronize(dev)
@@ -1168,8 +1179,9 @@ class ServingEngine:
                     done[i] = True
             if done.all():
                 break
+            # One position a wave: the wave's rows share their length.
             logits, cache = M.decode_step(cfg, self.params, cache,
-                                          next_tok[:, None], pos)
+                                          next_tok[:, None], pos[0])
             logits = logits[:, 0]
         synchronize(dev)
         self.stats.decode_s += time.perf_counter() - t0

@@ -384,7 +384,8 @@ def test_quantized_prefill_kernel_matches_plain(gen, H, Hk, D, prefix,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64), (16, 2, 128)])
+@pytest.mark.parametrize("H,Hk,D", [(32, 4, 64), (16, 2, 128),
+                                    (32, 32, 112), (8, 8, 64)])
 def test_dense_decode_kernel_matches_plain(gen, dtype, H, Hk, D):
     B, S = 4, 300
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
@@ -488,8 +489,14 @@ def test_split_decode_kernel_across_split_boundaries(gen, H, Hk, D, dtype,
     assert torch.equal(_bytes(out), _bytes(again))
 
 
+#: The dense kernel's heads: the split set, zamba2-7b's shared attention
+#: (32 heads of 112) at rep 1, 2 and 4, and whisper-base's (8 of 64).
+DENSE_SPLIT_HEADS = SPLIT_HEADS + [(32, 32, 112), (64, 32, 112),
+                                   (128, 32, 112), (8, 8, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("H,Hk,D", SPLIT_HEADS)
+@pytest.mark.parametrize("H,Hk,D", DENSE_SPLIT_HEADS)
 def test_split_dense_decode_kernel_across_split_boundaries(gen, H, Hk, D,
                                                            dtype):
     B, S = len(SPLIT_LENGTHS), WIDTH
@@ -536,6 +543,109 @@ def test_split_decode_lane_alone_equals_lane_in_batch(gen, layout, dtype):
                 q[i:i + 1], kp, vp, lens[i:i + 1],
                 tbl[i:i + 1, :-(-n // bs)].contiguous(), kv_scales=sc)
         assert torch.equal(_bytes(alone[0]), _bytes(out[i])), i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_decode_at_112_keeps_every_column(gen, dtype):
+    """At D = 112 a lane of the fp32 body and of the combine pass holds
+    ceil(112 / 32) = 4 columns; the comparison would see the last 16
+    columns dropped (the plain output with them zeroed fails it)."""
+    B, H, Hk, D, S = 4, 32, 32, 112, 300
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(B, S, Hk, D, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([5, 129, 300, 64], dtype=torch.int32, device="cuda")
+    out = flash_decode(q, kc, vc, lens).float()
+    ref = decode_ref(q, kc, vc, lens).float()
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    cut = ref.clone()
+    cut[..., 96:] = 0
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(cut, ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+#: mamba2-1.3b's and zamba2-7b's prefill scans as the model hands them to
+#: the kernel (8 rows x heads folded into rows, fp32, chunk 256):
+#: (rows, S, P, N).
+MODEL_SSD = [(512, 256, 64, 128), (512, 512, 64, 128),
+             (896, 256, 64, 64), (896, 512, 64, 64)]
+
+
+@pytest.mark.parametrize("BH,S,P,N", MODEL_SSD)
+def test_ssd_kernel_at_the_models_prefill_shapes(gen, BH, S, P, N):
+    """The fp32 body at the model's shapes against the plain recurrence
+    (per head to 1e-5 relative), bitwise launch to launch, and the
+    shifted-decay control."""
+    rng = np.random.default_rng(BH + S)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).cuda()
+    xdt, a = mk(BH, S, P) * 0.1, -mk(BH, S).abs() * 0.1
+    b, c = mk(BH, S, N) * 0.3, mk(BH, S, N) * 0.3
+    y, st = ssd_scan(xdt, a, b, c, chunk=256)
+    yr, sr = ssd_scan_ref(xdt, a, b, c)
+    assert max(ssd_rel(y, yr), ssd_rel(st, sr)) <= SSD_REL[torch.float32]
+    y2, st2 = ssd_scan(xdt, a, b, c, chunk=256)
+    assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(st.view(torch.int32), st2.view(torch.int32))
+    y3, st3 = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=256)
+    assert min(ssd_rel(y3, yr), ssd_rel(st3, sr)) > 3 * SSD_REL[torch.float32]
+
+
+def _recurrent_cfg(arch):
+    """The reduced config with heads the kernels take: zamba2-7b's shared
+    attention at head dim 112 (2 heads), whisper-base's at 64."""
+    cfg = get_config(arch).reduced()
+    if arch == "zamba2-7b":
+        return dataclasses.replace(cfg, num_heads=2, num_kv_heads=2,
+                                   head_dim=112)
+    if arch == "whisper-base":
+        return dataclasses.replace(cfg, num_heads=2, num_kv_heads=2,
+                                   head_dim=64)
+    return cfg
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b",
+                                  "whisper-base"])
+def test_recurrent_wave_engine_runs_through_the_kernels(gen, arch):
+    """mode 'auto' serves the recurrent families in waves: the SSD kernel
+    once a Mamba-2 block a wave, the dense decode kernel once an attention
+    layer a decode step (but each wave's last, which only samples), the
+    paged kernels never; the model's logits with the kernels on and off
+    agree."""
+    cfg = _recurrent_cfg(arch)
+    params = M.init_params(cfg, 0, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=2, max_len=96, eos_id=-1,
+                        attn_kernel="on")
+    assert eng.mode == "wave"
+    wrappers = (ssd_scan, flash_decode, paged_flash_decode,
+                paged_flash_prefill)
+    before = [w.launches for w in wrappers]
+    rng = np.random.default_rng(0)
+    lens = (7, 7, 64) if cfg.family != "audio" else (7, 7, 12)
+    uids = [eng.submit(rng.integers(1, 256, size=n), max_new_tokens=4)
+            for n in lens]
+    out = eng.run()
+    assert all(len(out[u]) == 4 for u in uids)
+    got = [w.launches - b for w, b in zip(wrappers, before)]
+    waves, steps = 2, eng.stats.decode_steps
+    ssm = 0 if cfg.family == "audio" else cfg.num_layers
+    attn = {"ssm": 0, "audio": cfg.num_layers}.get(cfg.family) \
+        if cfg.family != "hybrid" else M.hybrid_layout(cfg)[0]
+    assert got == [ssm * waves, attn * (steps - waves), 0, 0]
+    toks = torch.from_numpy(rng.integers(1, 256, (2, 64))).cuda()
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(2, cfg.encdec.encoder_seq_len,
+                                      cfg.d_model, dtype=torch.bfloat16,
+                                      device="cuda")
+    logits = {}
+    for mode in ("on", "off"):
+        c = dataclasses.replace(cfg, attn_kernel=mode)
+        _, cache = M.prefill(c, params, batch, 96)
+        logits[mode], _ = M.decode_step(c, params, cache, toks[:, :1],
+                                        torch.tensor(64))
+    span = (logits["off"].max() - logits["off"].min()).item()
+    assert (logits["on"] - logits["off"]).abs().max().item() <= 0.05 * span
 
 
 SCLD_TOL = {torch.float32: (1e-4, 2e-2), torch.bfloat16: (1e-1, 5e-2)}

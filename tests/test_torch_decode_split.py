@@ -76,6 +76,29 @@ def test_the_plan_reads_shapes_only():
                             lens, tbl, (scales, scales)) == 1
 
 
+def test_dense_plan_takes_head_dim_112():
+    """zamba2-7b's shared attention (32 heads of 3584 / 32 = 112): the
+    dense wrapper takes D = 112 and sizes its workspace D + 2 floats a
+    split as at 64 and 128; the paged kernel keeps D in {64, 128}."""
+    B, H, Hk, D, S = 8, 32, 32, 112, 1000
+    q = _meta(B, H, D)
+    lens = _meta(B, dtype=torch.int32)
+    stripes = _meta(B, S, Hk, D)
+    fd._check_dense(q, stripes, stripes, lens)
+    n_split, ws = fd._workspace(q, S)
+    assert n_split == fd.decode_splits(S) == 8
+    assert ws.numel() == B * H * n_split * (D + 2)
+    assert fd.DENSE_HEAD_DIMS == (64, 112, 128)
+    for d in (96, 120):
+        bad = _meta(B, S, Hk, d)
+        with pytest.raises(ValueError, match="head dim"):
+            fd._check_dense(_meta(B, H, d), bad, bad, lens)
+    pool = _meta(17, 16, Hk, D)
+    with pytest.raises(ValueError, match="head dim"):
+        fd._check_inputs(q, pool, pool, lens, _meta(B, 4, dtype=torch.int32),
+                         None)
+
+
 def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
     B, H, Hk, D, N, bs, T = 2, 8, 1, 64, 5, 4, 2
     q = torch.zeros(B, H, D, dtype=torch.bfloat16)
@@ -211,7 +234,8 @@ def test_split_model_matches_paged_plain(kv_dtype, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hk,D", [(4, 4, 64), (24, 4, 64), (32, 1, 128)])
+@pytest.mark.parametrize("H,Hk,D", [(4, 4, 64), (24, 4, 64), (32, 1, 128),
+                                    (32, 32, 112), (8, 8, 64), (8, 2, 112)])
 def test_split_model_matches_dense_plain(H, Hk, D, dtype):
     B, S = len(LENS), 640
     rng = np.random.default_rng(4)

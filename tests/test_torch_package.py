@@ -108,10 +108,11 @@ def test_unported_options_raise():
                dict(spec_decode="ngram", mesh=object())):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, device="cpu", **kw)
+    # Every family is served; the recurrent ones only in wave mode.
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
-    for mode in ("auto", "wave"):
-        with pytest.raises(NotImplementedError, match="ssm"):
-            ServingEngine(ssm, params, device="cpu", mode=mode)
+    assert ServingEngine(ssm, params, device="cpu").mode == "wave"
+    with pytest.raises(ValueError, match="block-addressable"):
+        ServingEngine(ssm, params, device="cpu", mode="continuous")
 
 
 def test_params_from_numpy_bf16_round_trip_is_bit_exact():
