@@ -127,7 +127,26 @@ outside the repository.  Phases, each of which raises on failure:
      32 new tokens each, with the SSD kernel launched once a Mamba-2
      block a wave and the dense decode kernel once an attention layer a
      decode step, the paged kernels never;
- 11. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 11. training on one card, the kernels' launch counts set to 0 before
+     each run and read after: full-width tinyllama-1.1b (bf16 weights
+     from seed 0) takes TRAIN_STEPS AdamW steps on one TokenStream batch
+     of 4 x 2048 tokens, with no kernel launch (the grad path is plain
+     autograd), finite losses and grad norms, and a last loss LOSS_DROP
+     below the first (ms a step after a warm-up step, tok/s, peak memory,
+     model-FLOP share 6 N tokens / (t x 989 TFLOP/s)); its no-grad
+     ``forward`` on the same batch launches the flash-attention kernel
+     once a layer and agrees with the kernels-off forward within
+     FORWARD_SHARE of the logits' range on the bf16 weights and on the
+     weights cast to fp32, where K5 called non-causal (the control) must
+     fail both; K5 alone at the forward's shape (4 x 2048, 32 over 4
+     heads of 64) against its plain version and SDPA; mamba2-1.3b at
+     full width: every gradient leaf finite and non-zero, two train steps
+     of 2 x 512 tokens with no kernel launch, then a no-grad forward that
+     launches the SSD kernel once a block; a reduced fp32 tinyllama's
+     loss and every gradient on the card against the CPU port's; and
+     ``repro_torch.launch.train`` in process (reduced): 3 steps and a
+     restart to 6 against 6 uninterrupted steps;
+ 12. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -136,11 +155,16 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# A fixed cuBLAS workspace, set before torch loads: the training phase's
+# restart check runs under deterministic algorithms, which need it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -825,48 +849,54 @@ def check_ssd(torch, gen, card):
     return results
 
 
+def time_attention(torch, gen, B, Sq, Sk, H, Hk, D, causal):
+    """Kernel 5 vs its plain version on random bf16 q (B, Sq, H, D) and
+    k/v (B, Sk, Hk, D): max error, kernel, plain and
+    ``scaled_dot_product_attention`` times, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = assert_close(torch, f"flash_attention (B={B}, Sq={Sq}, Sk={Sk}, "
+                       f"causal={causal})", out,
+                       attention_ref(q, k, v, causal=causal))
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # SDPA's is_causal aligns top-left: give it the bottom-right mask
+    # when Sq < Sk.
+    mask = None
+    if causal and Sq != Sk:
+        mask = torch.ones(Sq, Sk, dtype=torch.bool,
+                          device="cuda").tril(Sk - Sq)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True))
+    pairs = sum(min(Sk, i + 1 + Sk - Sq) for i in range(Sq)) \
+        if causal else Sq * Sk
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    ops = 4 * D * H * pairs * B
+    bound_ms, bound_by = bound(nbytes, ops)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
+                ops=ops)
+
+
 def check_attention(torch, cfg, gen):
     """Kernel 5 vs its plain version at tinyllama-1.1b's heads (32 query
     heads, 4 kv heads, head dim 64), batch 1, bf16: causal over 2048
     positions, causal with 512 queries over 2048 keys (bottom-right
     aligned), and 128 queries over 2048 keys not causal."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     H, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    results = {}
-    for name, Sq, Sk, causal in (("causal", SEQ, SEQ, True),
-                                 ("causal Sq<Sk", 512, SEQ, True),
-                                 ("cross", 128, SEQ, False)):
-        q = torch.randn(1, Sq, H, D, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(1, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(1, Sk, Hk, D, generator=gen, device="cuda").bfloat16()
-        out = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = assert_close(torch, f"flash_attention ({name})", out,
-                           attention_ref(q, k, v, causal=causal))
-        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        # SDPA's is_causal aligns top-left: give it the bottom-right mask
-        # when Sq < Sk.
-        mask = None
-        if causal and Sq != Sk:
-            mask = torch.ones(Sq, Sk, dtype=torch.bool,
-                              device="cuda").tril(Sk - Sq)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True))
-        pairs = sum(min(Sk, i + 1 + Sk - Sq) for i in range(Sq)) \
-            if causal else Sq * Sk
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-        ops = 4 * D * H * pairs
-        bound_ms, bound_by = bound(nbytes, ops)
-        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, nbytes=nbytes, ops=ops)
-    return results
+    return {name: time_attention(torch, gen, 1, Sq, Sk, H, Hk, D, causal)
+            for name, Sq, Sk, causal in (("causal", SEQ, SEQ, True),
+                                         ("causal Sq<Sk", 512, SEQ, True),
+                                         ("cross", 128, SEQ, False))}
 
 
 def run_slice3_entry_points(torch, cfg, gen, card):
@@ -1893,6 +1923,374 @@ def run_recurrent(torch, arch, gen, card):
     return kernels, launches
 
 
+#: The training phase's tinyllama-1.1b batch and run: one TokenStream batch
+#: of TRAIN_B x TRAIN_S tokens (S = 2048: the plain attention takes its
+#: blockwise path under autograd) repeated for TRAIN_STEPS AdamW steps,
+#: warmup 1, cosine to 0.1 x TRAIN_LR at the last step.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 8, 1e-3
+#: The last of those losses must sit this far below the first (nats): on
+#: one repeated batch the unigram statistics alone are worth several nats.
+LOSS_DROP = 1.0
+#: The no-grad forward with the kernels on vs off, as a share of the
+#: logits' range: on the bf16 weights check_model's 5%; on the weights
+#: cast to fp32 (K5's fp32 body against the plain fp32 attention) 0.1%.
+FORWARD_SHARE = {"bf16": 0.05, "fp32": 0.001}
+#: mamba2-1.3b's train steps: B x S = 2 x 512, two SSD chunks of 256.
+MAMBA_B, MAMBA_S, MAMBA_STEPS = 2, 512, 2
+#: Card against CPU: each gradient leaf within this share of its largest
+#: element (fp32 summed in another order; the embedding's gradient
+#: accumulates with atomics on the card), the loss within 1e-5 relative.
+GRAD_TOL = 1e-4
+#: The launcher's restart: final parameters of 3 steps + a restart to 6
+#: against 6 uninterrupted steps, under deterministic algorithms.
+RESTART_TOL = 1e-5
+
+
+def all_kernels():
+    """Every kernel wrapper, by name (the engine's four and the two no
+    served path calls)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.sclad_matmul.sclad_matmul import sclad_matmul
+    return dict(launch_counts(), flash_attention=flash_attention,
+                sclad_matmul=sclad_matmul)
+
+
+def zero_launches():
+    for w in all_kernels().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {k: w.launches for k, w in all_kernels().items()}
+
+
+def train_batch(torch, cfg, B, S, seed=0):
+    """Batch 0 of the port's TokenStream on the card."""
+    from repro_torch.training import data
+    b = data.TokenStream(data.DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=S, global_batch=B,
+                                         seed=seed)).batch(0)
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def event_ms(torch, fn, iters=3):
+    """Mean ms of ``fn()`` over ``iters`` calls after one warm-up, CUDA
+    events around the loop."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_train_steps(torch, cfg, params, batch, card):
+    """TRAIN_STEPS of ``make_train_step`` on ``batch``, kernel launch
+    counts set to 0 before and read after (all must stay 0: the grad path
+    is plain autograd).  The first step is the warm-up; each later one is
+    timed by CUDA events.  Gates: finite losses, grad norms above 0, the
+    last loss LOSS_DROP below the first."""
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    step = steps.make_train_step(cfg, opt.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS))
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    metrics, ms = [], []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt_state, m = step(params, opt_state, batch)
+        end.record()
+        metrics.append(m)
+        if i:
+            ms.append((start, end))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    step_ms = sum(s.elapsed_time(e) for s, e in ms) / len(ms)
+    tokens = batch["tokens"].numel()
+    flops = 6 * M.param_count(cfg) * tokens
+    print(f"train {cfg.name} B={batch['tokens'].shape[0]} "
+          f"S={batch['tokens'].shape[1]} [{card}]: losses "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in norms]}; {step_ms:.1f} ms/step (mean of "
+          f"{len(ms)} after a warm-up step), {tokens / step_ms * 1e3:.0f} "
+          f"tok/s, peak memory {peak / 2**30:.2f} GiB, model-FLOP share "
+          f"{flops / (step_ms * 1e-3 * BF16_OPS_PER_S):.2%} of 989 "
+          f"TFLOP/s; launches {launches}")
+    if not all(math.isfinite(x) for x in losses + norms) \
+            or min(norms) <= 0:
+        raise AssertionError(f"train {cfg.name}: losses {losses}, grad "
+                             f"norms {norms}")
+    if any(launches.values()):
+        raise AssertionError(f"train {cfg.name}: a kernel launched on the "
+                             f"grad path: {launches}")
+    return params, opt_state, losses, step_ms
+
+
+def forward_logits(torch, cfg, params, batch, mode):
+    """The no-grad full-sequence forward's logits with attn_kernel=mode."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        logits, _ = M.forward(replace(cfg, attn_kernel=mode), params,
+                              {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    return logits.float()
+
+
+@contextlib.contextmanager
+def non_causal_flash_attention():
+    """The control: every ``ops.attention`` call the forward makes runs
+    K5 non-causal (each position also sees the ones after it)."""
+    from repro_torch.models import layers
+    real = layers.attn_ops.attention
+    layers.attn_ops.attention = \
+        lambda q, k, v, causal=True, **kw: real(q, k, v, causal=False, **kw)
+    try:
+        yield
+    finally:
+        layers.attn_ops.attention = real
+
+
+def check_forward(torch, cfg, params, batch, card):
+    """The no-grad forward through K5 (kernels on) against the plain one
+    (off) on the training batch: K5 launches once a layer; logits within
+    FORWARD_SHARE of the range on the bf16 weights and on the weights
+    cast to fp32; the non-causal control must exceed both limits.  Also
+    the forward's ms on and off.  Returns the kernels-on run's K5
+    launches."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    zero_launches()
+    on = forward_logits(torch, cfg, params, batch, "auto")
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.num_layers
+    print(f"forward {cfg.name} no-grad launches [{card}]: {launches}")
+    if launches != want:
+        raise AssertionError(f"forward: launches {launches}, want {want}")
+    off = forward_logits(torch, cfg, params, batch, "off")
+
+    def forward(mode):
+        from dataclasses import replace
+        from repro_torch.models import model as M
+        with torch.no_grad():
+            M.forward(replace(cfg, attn_kernel=mode), params,
+                      {"tokens": batch["tokens"]})
+
+    times = {m: event_ms(torch, lambda: forward(m))
+             for m in ("auto", "off")}
+    print(f"forward {cfg.name} B={TRAIN_B} S={TRAIN_S} no-grad [{card}]: "
+          f"kernels on {times['auto']:.1f} ms, off {times['off']:.1f} ms")
+    compare_logits(torch, f"{cfg.name} forward bf16, kernels on vs off",
+                   [on], [off], FORWARD_SHARE["bf16"], card,
+                   names=("logits",))
+    with non_causal_flash_attention():
+        bad = forward_logits(torch, cfg, params, batch, "auto")
+    del on
+    p32 = as_fp32(params)
+    off32 = forward_logits(torch, cfg, p32, batch, "off")
+    compare_logits(torch, f"{cfg.name} forward fp32 weights, kernels on vs "
+                   f"off", [forward_logits(torch, cfg, p32, batch, "auto")],
+                   [off32], FORWARD_SHARE["fp32"], card, names=("logits",))
+    with non_causal_flash_attention():
+        bad32 = forward_logits(torch, cfg, p32, batch, "auto")
+    for what, x, ref, share in (("bf16", bad, off, FORWARD_SHARE["bf16"]),
+                                ("fp32", bad32, off32,
+                                 FORWARD_SHARE["fp32"])):
+        span = (ref.max() - ref.min()).item()
+        err = (x - ref).abs().max().item()
+        print(f"forward control (K5 non-causal, {what} weights) [{card}]: "
+              f"max|wrong-off| {err:.4g} of range {span:.4g} (must exceed "
+              f"{share * span:.4g})")
+        if err <= share * span:
+            raise AssertionError(f"forward check ({what}) cannot see a "
+                                 f"non-causal attention: its limit is too "
+                                 f"loose")
+    flash_attention.launches = 0
+    return launches["flash_attention"]
+
+
+def check_mamba_training(torch, card):
+    """mamba2-1.3b at full width, bf16 (the reference's fp32 A_log, D,
+    dt_bias): every leaf's gradient finite and non-zero, MAMBA_STEPS
+    train steps with no kernel launch, then one no-grad forward over the
+    same batch through K4, once a Mamba-2 block.  Returns that forward's
+    K4 launches."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    cfg = get_config(SSM_ARCH)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    batch = train_batch(torch, cfg, MAMBA_B, MAMBA_S)
+    zero_launches()
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    loss = M.loss_fn(cfg, tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    bad = [path for (path, _), g in zip(tree.flatten(params), grads)
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    names = sorted({p.rsplit("/", 1)[-1] for p, _ in tree.flatten(params)})
+    print(f"train {cfg.name} gradients [{card}]: loss {loss.item():.4f}; "
+          f"{len(grads)} leaves ({', '.join(names)}), "
+          f"{len(grads) - len(bad)} finite and non-zero")
+    if bad:
+        raise AssertionError(f"{cfg.name}: zero or non-finite gradients "
+                             f"in {bad}")
+    del leaves, loss, grads
+    step = steps.make_train_step(cfg, opt.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=MAMBA_STEPS))
+    opt_state = opt.init(params)
+    losses = []
+    for _ in range(MAMBA_STEPS):
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    launches = read_launches()
+    print(f"train {cfg.name} B={MAMBA_B} S={MAMBA_S} [{card}]: losses "
+          f"{[round(x, 4) for x in losses]}; launches {launches}")
+    if any(launches.values()) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name} train steps: losses {losses}, "
+                             f"launches {launches}")
+    logits = forward_logits(torch, cfg, params, batch, "auto")
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want["ssd_scan"] = cfg.num_layers
+    print(f"forward {cfg.name} no-grad launches [{card}]: {launches}")
+    if launches != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} forward: launches {launches}, "
+                             f"want {want}")
+    del params, opt_state, logits
+    torch.cuda.empty_cache()
+    return want["ssd_scan"]
+
+
+def check_card_against_cpu(torch, card):
+    """A reduced tinyllama (d_model 256, 4 heads over 2 of 64, 2 layers)
+    in fp32 with every parameter from one numpy draw: loss and every
+    gradient on the card against the CPU port's, within GRAD_TOL of each
+    leaf's largest element."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = replace(get_config(ARCH).reduced(), d_model=256, num_heads=4,
+                  num_kv_heads=2, head_dim=64)
+    rng = np.random.default_rng(0)
+    host = tree.map_leaves(
+        lambda p: torch.from_numpy(
+            0.05 * rng.standard_normal(p.shape).astype(np.float32)),
+        M.init_params(cfg, 0, device="cpu", dtype=torch.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 257)))
+    out = []
+    for dev in ("cuda", "cpu"):
+        leaves = [p.detach().to(dev).requires_grad_(True)
+                  for p in tree.leaves(host)]
+        loss = M.loss_fn(cfg, tree.unflatten(host, leaves),
+                         {"tokens": toks[:, :-1].to(dev),
+                          "labels": toks[:, 1:].to(dev)})
+        out.append((loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)]))
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = out
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(card_grads, cpu_grads))
+    print(f"card vs CPU {cfg.name} fp32 [{card}]: loss {card_loss:.6f} vs "
+          f"{cpu_loss:.6f}; worst gradient leaf max|Δ| / max|g| "
+          f"{worst:.3g} over {len(cpu_grads)} leaves (limit {GRAD_TOL})")
+    if abs(card_loss - cpu_loss) > 1e-5 * abs(cpu_loss) \
+            or not worst <= GRAD_TOL:
+        raise AssertionError("card vs CPU: the loss or a gradient differs")
+
+
+def check_restart(torch, card):
+    """``repro_torch.launch.train`` in process on the card: 6 steps
+    uninterrupted against 3 steps, then a restart from their checkpoint
+    to 6; the final parameters within RESTART_TOL.  Reduced: a
+    full-width checkpoint is ~13 GB of npz (bf16 weights and two fp32
+    moments, saved as fp32).  Deterministic algorithms are on for the
+    run (cuBLAS's workspace is fixed at the top of this script), so the
+    two runs take the same reductions."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.launch import train as train_cli
+    root = ROOT / "build" / "train_restart"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", ARCH, "--reduced", "--batch", "2", "--seq", "64",
+            "--ckpt-every", "3", "--device", "cuda"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            full = train_cli.main(args + ["--steps", "6", "--ckpt",
+                                          str(root / "a")])
+            train_cli.main(args + ["--steps", "3", "--ckpt",
+                                   str(root / "b")])
+            resumed = train_cli.main(args + ["--steps", "6", "--ckpt",
+                                             str(root / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    worst = max((a.float() - b.float()).abs().max().item() for a, b in
+                zip(tree.leaves(full.params), tree.leaves(resumed.params)))
+    lines = [ln for ln in buf.getvalue().splitlines() if "finished" in ln]
+    print(f"launcher restart [{card}]: {lines}; step "
+          f"{int(resumed.opt_state.step)}; final parameters max|Δ| "
+          f"{worst:.3g} (limit {RESTART_TOL})")
+    if resumed.step != 6 or int(resumed.opt_state.step) != 6 \
+            or not worst <= RESTART_TOL:
+        raise AssertionError("the restarted run did not resume the "
+                             "uninterrupted one")
+
+
+def run_training(torch, gen, card):
+    """The training phase: full-width tinyllama-1.1b train steps, its
+    no-grad forward through K5 against the plain forward (and K5 alone at
+    the forward's shape), mamba2-1.3b's gradients and train steps, the
+    card against the CPU, and the launcher's restart.  Returns (K5's
+    timings at the forward's shape, the forward's K5 launches, the
+    mamba2 forward's K4 launches)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    batch = train_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    trained, _, losses, _ = run_train_steps(torch, cfg, params, batch, card)
+    if not losses[-1] < losses[0] - LOSS_DROP:
+        raise AssertionError(f"train {cfg.name}: the loss fell from "
+                             f"{losses[0]:.4f} to {losses[-1]:.4f}, less "
+                             f"than {LOSS_DROP}")
+    del trained
+    torch.cuda.empty_cache()
+    k5_launches = check_forward(torch, cfg, params, batch, card)
+    del params
+    torch.cuda.empty_cache()
+    k5 = time_attention(torch, gen, TRAIN_B, TRAIN_S, TRAIN_S,
+                        cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, True)
+    print(f"kernel flash_attention[forward, B={TRAIN_B}] [{card}]: max|err| "
+          f"{k5['err']:.3g}; kernel {k5['ms']:.4f} ms, plain "
+          f"{k5['plain_ms']:.4f} ms, sdpa {k5['library_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.6f} ms ({k5['bound_by']}){rates(k5)}; "
+          f"{k5_launches} launches a forward")
+    k4_launches = check_mamba_training(torch, card)
+    check_card_against_cpu(torch, card)
+    check_restart(torch, card)
+    return k5, k5_launches, k4_launches
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -2042,7 +2440,10 @@ def main() -> int:
     recurrent = {arch: run_recurrent(torch, arch, gen, card)
                  for arch in (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH)}
 
-    # 11. Result lines.  The quantized bodies report their int8 times (fp8
+    # 11. Training on one card.
+    k5_fwd, k5_fwd_launches, _ = run_training(torch, gen, card)
+
+    # 12. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -2135,6 +2536,11 @@ def main() -> int:
         kernels.append(kernel_entry(
             f"ssd_scan[{arch} prefill]", ssd_src, ssd_tpu, run["ssd_scan"],
             res[512], err=max(r["err"] for r in res.values())))
+    kernels.append(kernel_entry(
+        f"flash_attention[forward, B={TRAIN_B}]",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:72",
+        k5_fwd_launches, k5_fwd))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launches on the main "

@@ -144,6 +144,12 @@ class ModelConfig:
             assert self.num_heads % self.num_kv_heads == 0
 
     @property
+    def decode_kernel(self) -> str:
+        """Deprecated read-only alias of ``attn_kernel`` (the knob selects
+        the prefill kernel too), kept as the reference keeps it."""
+        return self.attn_kernel
+
+    @property
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 

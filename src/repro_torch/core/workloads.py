@@ -67,3 +67,22 @@ PAPER_MODELS: Dict[str, LLMWorkload] = {
                               70e9),
 }
 
+
+
+def from_model_config(cfg) -> LLMWorkload:
+    """Adapter: repro_torch.configs.base.ModelConfig -> LLMWorkload."""
+    from repro_torch.models import model as M  # lazy: core needs no torch
+
+    heads = cfg.num_heads or max(cfg.d_model // 128, 1)
+    kv = cfg.num_kv_heads or heads
+    return LLMWorkload(
+        name=cfg.name,
+        d_model=cfg.d_model,
+        num_layers=cfg.num_layers,
+        num_heads=heads,
+        kv_heads=kv,
+        d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size,
+        params=float(M.param_count(cfg)),
+        params_active=float(M.param_count_active(cfg)),
+    )

@@ -162,6 +162,20 @@ def launch(name: str, what: str, device: torch.device, *args) -> None:
     check(lib, code, what)
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad is enabled and a CUDA input requires grad.  No
+    kernel has a backward (the reference's Pallas kernels have no VJP
+    either): its ``torch.empty`` output would reach autograd detached, and
+    the gradient would silently stop there."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_cuda and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel has no "
+            f"backward; call it under torch.no_grad() or take the plain "
+            f"PyTorch route")
+
+
 def kv_kind(what: str, k_pool, kv_scales) -> int:
     """The ``kv_kind`` code of a pool for the paged entry points; raises
     unless the pool is bf16 without scales, or int8 / float8_e4m3fn with

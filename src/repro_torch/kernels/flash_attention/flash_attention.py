@@ -41,6 +41,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                          f"leaves the first {Sq - Sk} rows with no key")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
+    _build.refuse_grad("flash_attention", q, k, v)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all inputs must be on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) \

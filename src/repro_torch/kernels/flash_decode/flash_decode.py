@@ -137,6 +137,8 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, lengths, block_tables,
                                 kv_scales=kv_scales)
+    _build.refuse_grad("paged_flash_decode", q, k_pool, v_pool,
+                       *(kv_scales or ()))
     kind = _check_inputs(q, k_pool, v_pool, lengths, block_tables, kv_scales)
     B, H, D = q.shape
     _, bs, Hk, _ = k_pool.shape
@@ -171,6 +173,7 @@ def flash_decode(q, k_cache, v_cache, lengths):
     """
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, lengths)
+    _build.refuse_grad("flash_decode", q, k_cache, v_cache)
     _check_dense(q, k_cache, v_cache, lengths)
     B, S, Hk, D = k_cache.shape
     n_split, ws = _workspace(q, S)

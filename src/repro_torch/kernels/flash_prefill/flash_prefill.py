@@ -129,6 +129,8 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
                                      lengths, block_tables, start=start,
                                      prefix=prefix, kv_scales=kv_scales,
                                      kv_dtype=kv_dtype)
+    _build.refuse_grad("paged_flash_prefill", q, k_new, v_new, k_pool,
+                       v_pool, *(kv_scales or ()))
     kind = _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths,
                          block_tables, start, prefix, kv_scales, kv_dtype)
     B, S, H, D = q.shape

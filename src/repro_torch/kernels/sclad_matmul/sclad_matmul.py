@@ -83,6 +83,7 @@ def sclad_matmul(x, vals, rows, *, block_m: int = 128):
                          f"{nk} * {TILE} and M % block_m ({block_m}) == 0")
     if x.device.type == "cpu":
         return sclad_matmul_ref(x, vals, rows)
+    _build.refuse_grad("sclad_matmul", x, vals)
     if vals.device != x.device or rows.device != x.device:
         raise ValueError("sclad_matmul: all inputs must be on one device")
     if x.dtype not in DTYPES or vals.dtype not in DTYPES:

@@ -80,6 +80,7 @@ def ssd_scan(xdt, a, b, c, *, chunk: int = 128):
                          f"{chunk}")
     if xdt.device.type == "cpu":
         return ssd_scan_ref(xdt, a, b, c)
+    _build.refuse_grad("ssd_scan", xdt, a, b, c)
     if any(t.device != xdt.device for t in (a, b, c)):
         raise ValueError("ssd_scan: all inputs must be on one device")
     if xdt.dtype not in (torch.float32, torch.bfloat16) \

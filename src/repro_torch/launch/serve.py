@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import warnings
 
 import numpy as np
 
@@ -56,6 +57,22 @@ from repro_torch.serving.router import ROUTER_POLICIES, run_open_loop_router
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.spec import SPEC_DECODE_MODES
 from repro_torch.serving.warmup import trace_prompt_lens, warmup_prefill
+
+
+def resolve_attn_kernel_arg(attn_kernel, decode_kernel) -> str:
+    """Fold the deprecated ``--decode-kernel`` spelling into
+    ``--attn-kernel`` (with a DeprecationWarning), defaulting to "auto"."""
+    if decode_kernel is not None:
+        warnings.warn(
+            "--decode-kernel is deprecated; the knob now selects the "
+            "prefill kernel too — use --attn-kernel",
+            DeprecationWarning, stacklevel=2)
+        if attn_kernel is not None and attn_kernel != decode_kernel:
+            raise SystemExit(
+                f"conflicting --attn-kernel {attn_kernel} and "
+                f"--decode-kernel {decode_kernel}")
+        return decode_kernel
+    return attn_kernel or "auto"
 
 
 def main(argv=None):
@@ -85,12 +102,16 @@ def main(argv=None):
                          "prompt prefix")
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode iterations per host sync")
-    ap.add_argument("--attn-kernel", default="auto",
+    ap.add_argument("--attn-kernel", default=None,
                     choices=["auto", "on", "off"],
                     help="paged attention implementation for decode AND "
                          "prefill: the CUDA kernels on the card with "
                          "'auto', always with 'on', the plain PyTorch "
-                         "versions with 'off'")
+                         "versions with 'off' (default: 'auto')")
+    ap.add_argument("--decode-kernel", default=None,
+                    choices=["auto", "on", "off"],
+                    help="DEPRECATED alias of --attn-kernel (the knob now "
+                         "selects the prefill kernel too)")
     ap.add_argument("--preempt-policy", default="youngest",
                     choices=list(PREEMPT_POLICIES),
                     help="which in-flight request pool pressure preempts")
@@ -180,6 +201,8 @@ def main(argv=None):
                                  f"--replicas {args.replicas}")
     if args.fault_seed is not None and args.frontend != "async":
         raise SystemExit("--fault-seed requires --frontend async")
+    attn_kernel = resolve_attn_kernel_arg(args.attn_kernel,
+                                          args.decode_kernel)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -194,7 +217,7 @@ def main(argv=None):
             block_size=args.block_size, num_blocks=args.num_blocks,
             prefill_chunk=args.prefill_chunk or None,
             prefix_cache=args.prefix_cache, decode_steps=args.decode_steps,
-            attn_kernel=args.attn_kernel, preempt_policy=args.preempt_policy,
+            attn_kernel=attn_kernel, preempt_policy=args.preempt_policy,
             spec_decode=args.spec_decode, spec_k=args.spec_k,
             sampler=SamplerConfig(temperature=args.temperature, top_k=50),
             device=device)

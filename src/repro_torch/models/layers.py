@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.models import kv_quant
 
@@ -217,22 +219,44 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor, causal: bool = True,
-              use_rope: bool = True) -> torch.Tensor:
+              use_rope: bool = True, use_kernel: bool = False
+              ) -> torch.Tensor:
     """Full self-attention over x (B, S, d) -> (B, S, d) (``self_attend``
-    of its projections)."""
+    of its projections, ``use_kernel`` as there)."""
     q, k, v = _project_qkv(cfg, p, x, x)
     if use_rope:
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
-    return self_attend(cfg, q, k, v, causal) @ p["wo"]
+    return self_attend(cfg, q, k, v, causal, use_kernel) @ p["wo"]
+
+
+#: The flash-attention kernel's query and key tile: S must divide into it.
+FLASH_TILE = 128
+
+
+def fits_flash_attention(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether self-attention of these shapes meets the flash-attention
+    kernel's rules: S a multiple of its 128-position tiles, a head dim
+    in ``HEAD_DIMS`` (64, 128), as many keys as queries.  Whisper-base's
+    1500 encoder frames and zamba2-7b's head dim 112 do not."""
+    S, D = q.shape[1], q.shape[3]
+    return S % FLASH_TILE == 0 and D in HEAD_DIMS and k.shape[1] == S
 
 
 def self_attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+                v: torch.Tensor, causal: bool = True,
+                use_kernel: bool = False) -> torch.Tensor:
     """q (B, S, H, D) over k/v (B, S, Hk, D) of the same positions ->
-    (B, S, H*D): blockwise at and above ``CHUNKED_ATTN_THRESHOLD`` tokens
-    (when S divides into ``Q_CHUNK``s), one masked ``_sdpa`` below."""
-    S = q.shape[1]
+    (B, S, H*D).  With ``use_kernel`` (the no-grad full-sequence forward on
+    the card) through ``flash_attention.ops.attention`` where
+    ``fits_flash_attention``; otherwise the reference's arithmetic:
+    blockwise at and above ``CHUNKED_ATTN_THRESHOLD`` tokens (when S
+    divides into ``Q_CHUNK``s), one masked ``_sdpa`` below."""
+    B, S, H, D = q.shape
+    if use_kernel and fits_flash_attention(q, k):
+        return attn_ops.attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal) \
+            .reshape(B, S, H * D)
     if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0:
         return chunked_attention(q, k, v, causal)
     mask = None

@@ -1,8 +1,9 @@
-"""The model of every family: init, paged prefill chunks and decode
-(the attention families), and the wave path's dense-cache prefill and
-decode (all six).
+"""The model of every family: init, the full-sequence forward and the
+training loss, paged prefill chunks and decode (the attention families),
+and the wave path's dense-cache prefill and decode (all six).
 
-Port of the serving path of ``repro.models.model``:
+Port of ``repro.models.model`` (its sharding specs wait for the
+tensor-parallel slice):
 
   * dense — GQA decoder blocks (tinyllama, stablelm, phi3, granite);
   * moe — the same attention with an MoE FFN (``models.moe``; qwen2-moe,
@@ -42,20 +43,33 @@ Caches are updated IN PLACE by ``prefill_slots``, ``decode_step`` and
 signatures.  Plain large products are ``@``, as the reference leaves them
 to XLA; decode and chunked-prefill attention go through the kernels'
 entry points, and so does the ssm and hybrid prefill's SSD scan.
+
+``forward`` (and ``loss_fn`` over it) is differentiated by plain torch
+autograd, as the reference differentiates its jnp attention and scan: no
+kernel has a backward.  With grad disabled on the card it routes
+self-attention through the flash-attention kernel and the Mamba-2 scans
+through the SSD kernel (``kernel_route``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_decode.ops import resolve_kernel
 from repro_torch.kernels.flash_prefill import ops as prefill_ops
 from repro_torch.models import kv_quant, layers, moe as moe_lib, ssm as ssm_lib
 
 Params = Dict[str, Any]
+
+#: Weight of the MoE load-balancing loss in ``loss_fn``.
+MOE_AUX_COEF = 0.01
 
 #: Pool representations the port serves: bf16 and the SCLAD encodings
 #: ("f8", float8 stripes and pools without scales, is not ported).
@@ -163,6 +177,20 @@ def param_count(cfg: ModelConfig) -> int:
             return sum(count(v) for v in tree.values())
         return math.prod(tree)
     return count(param_shapes(cfg))
+
+
+def param_count_active(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE experts scaled by top-k/E), summed
+    in the reference's leaf order."""
+    total = 0.0
+    for path, shape in tree_lib.flatten(param_shapes(cfg)):
+        keys = path.split("/")
+        n = float(math.prod(shape))
+        if cfg.moe is not None and "moe" in keys and "shared" not in keys \
+                and keys[-1] in ("w_gate", "w_up", "w_down"):
+            n *= cfg.moe.num_experts_per_tok / cfg.moe.num_experts
+        total += n
+    return int(total)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
@@ -360,10 +388,18 @@ def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor,
     """x plus the MLP — or, in a moe block, the MoE FFN, with
     ``moe_valid`` (x's leading dims, bool) keeping pads and dead lanes
     out of the expert capacity — of the normed x."""
+    return _ffn_aux(cfg, blk, x, moe_valid)[0]
+
+
+def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor,
+             moe_valid: Optional[torch.Tensor] = None):
+    """``_ffn`` and the MoE load-balancing loss: (x_out, aux), aux None
+    for an MLP block."""
     xn = layers.apply_norm(cfg, blk["ln_mlp"], x)
     if "moe" in blk:
-        return x + moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid)[0]
-    return x + layers.apply_mlp(cfg, blk["mlp"], xn)
+        y, aux = moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid)
+        return x + y, aux
+    return x + layers.apply_mlp(cfg, blk["mlp"], xn), None
 
 
 def _project_patches(params: Params, patch_embeds: torch.Tensor,
@@ -554,34 +590,212 @@ def _mamba_decode(cfg: ModelConfig, blk: Params, caches: Params, idx,
 
 
 def _mamba_prefill(cfg: ModelConfig, blk: Params, caches: Params, idx,
-                   h: torch.Tensor) -> torch.Tensor:
-    """One Mamba-2 block over the prompt, its final state and conv window
-    written at ``idx`` of the stacked ``caches``; returns h plus the
-    block's output."""
+                   h: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """One Mamba-2 block over the prompt (the SSD kernel's route with
+    ``use_kernel``), its final state and conv window written at ``idx``
+    of the stacked ``caches``; returns h plus the block's output."""
     y, st = ssm_lib.apply_mamba_block(cfg, blk["mamba"],
-                                      layers.apply_norm(cfg, blk["ln"], h))
+                                      layers.apply_norm(cfg, blk["ln"], h),
+                                      use_kernel=use_kernel)
     for k, v in st.items():
         caches[k][idx] = v
     return h + y
 
 
-def encode_audio(cfg: ModelConfig, params: Params,
-                 frames: torch.Tensor) -> torch.Tensor:
+def encode_audio(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+                 remat: bool = False, use_kernel: bool = False
+                 ) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, F, d) -> (B, F,
     d): sinusoidal positions, bidirectional rope-free attention, the
     ``enc_norm``.  The frames are taken in the parameters' dtype: the
     reference's layer scan needs them there (bf16 frames with fp32
-    parameters change its carry's type and do not trace)."""
+    parameters change its carry's type and do not trace).  ``remat`` and
+    ``use_kernel`` as in ``backbone``."""
     h = frames.to(params["embed"].dtype) + layers.sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device)[None]
-    for layer in range(cfg.encdec.num_encoder_layers):
-        blk = layer_params(params, layer, "enc_blocks")
-        h = h + layers.attention(
-            cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], h),
-            None, causal=False, use_rope=False)
-        h = h + layers.apply_mlp(
-            cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
+
+    def body(x, blk):
+        x = x + layers.attention(
+            cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], x),
+            None, causal=False, use_rope=False, use_kernel=use_kernel)
+        return x + layers.apply_mlp(
+            cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], x))
+
+    h = _run_blocks(body, h, params["enc_blocks"], remat)
     return layers.apply_norm(cfg, params["enc_norm"], h)
+
+
+# ---------------------------------------------------------------------------
+# The full-sequence forward (training, evaluation) and the loss
+# ---------------------------------------------------------------------------
+
+def kernel_route(cfg: ModelConfig, device: torch.device) -> bool:
+    """Whether the full-sequence forward takes the kernels: only with
+    grad disabled (no kernel has a backward, so a kernel would hand
+    autograd a detached result), then as ``cfg.attn_kernel`` resolves on
+    ``device``.  ``attn_kernel="on"`` with grad enabled raises."""
+    if torch.is_grad_enabled():
+        if cfg.attn_kernel == "on":
+            raise ValueError(
+                "attn_kernel='on' with grad enabled: the kernels have no "
+                "backward; run the forward under torch.no_grad() or use "
+                "'auto'/'off'")
+        return False
+    return resolve_kernel(cfg.attn_kernel, device)
+
+
+def _unstack(tree) -> List[Params]:
+    """The per-layer views of stacked leaves (leading axis), one
+    ``unbind`` per leaf: autograd stacks their gradients back in one
+    pass, where indexing layer by layer would build a full-size gradient
+    for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _maybe_remat(fn, remat: bool):
+    """``fn`` under activation checkpointing when ``remat`` and grad is
+    enabled: its activations are recomputed in the backward pass (the
+    reference's ``jax.checkpoint``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+
+
+def _run_blocks(body, h: torch.Tensor, stacked: Params,
+                remat: bool) -> torch.Tensor:
+    """h through ``body(h, block)`` for each block of the ``stacked``
+    leaves, each block rematerialized when ``remat``."""
+    step = _maybe_remat(body, remat)
+    for blk in _unstack(stacked):
+        h = step(h, blk)
+    return h
+
+
+def _pad_to_multiple(h: torch.Tensor, mult: int):
+    """h (B, S, d) zero-padded at the end to a multiple of ``mult``
+    positions; returns (h, S)."""
+    S = h.shape[1]
+    return F.pad(h, (0, 0, 0, (-S) % mult)), S
+
+
+def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
+             positions: torch.Tensor, remat: bool = False,
+             encoder_out: Optional[torch.Tensor] = None,
+             use_kernel: bool = False):
+    """The layer stack on embedded input h (B, S, d), causal over all S
+    positions.  ``remat``: each block (and each hybrid group) under
+    activation checkpointing.  ``use_kernel`` (``kernel_route``): self-
+    attention through the flash-attention kernel where its shape rules
+    hold (``layers.fits_flash_attention``), the Mamba-2 scans through the
+    SSD kernel.  Returns (h, aux), aux the MoE load-balancing loss summed
+    over layers (0 for the other families), a 0-d fp32 tensor."""
+    fam = cfg.family
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def mamba(x, blk):
+        return x + ssm_lib.apply_mamba_block(
+            cfg, blk["mamba"], layers.apply_norm(cfg, blk["ln"], x),
+            use_kernel=use_kernel)[0]
+
+    if fam in ATTENTION_FAMILIES:
+        def body(x, blk):
+            q, k, v = _attn_qkv(cfg, blk, x, positions)
+            a = layers.self_attend(cfg, q, k, v, use_kernel=use_kernel)
+            return _ffn_aux(cfg, blk, x + a @ blk["attn"]["wo"])
+        step = _maybe_remat(body, remat)
+        for blk in _unstack(params["blocks"]):
+            h, a = step(h, blk)
+            if a is not None:
+                aux = aux + a
+    elif fam == "ssm":
+        h = _run_blocks(mamba, h, params["blocks"], remat)
+    elif fam == "hybrid":
+        shared = params["shared_attn"]
+
+        def group(x, grp):
+            x = _run_blocks(mamba, x, grp, remat)
+            x = x + layers.attention(
+                cfg, shared["attn"],
+                layers.apply_norm(cfg, shared["ln_attn"], x), positions,
+                use_kernel=use_kernel)
+            return _ffn(cfg, shared, x)
+        h = _run_blocks(group, h, params["groups"], remat)
+        if "tail" in params:
+            h = _run_blocks(mamba, h, params["tail"], remat)
+    elif fam == "audio":
+        if encoder_out is None:
+            raise ValueError("the audio backbone needs encoder_out")
+        B, Fr = encoder_out.shape[:2]
+        hk, hd = cfg.num_kv_heads, cfg.head_dim
+
+        def body(x, blk):
+            x = x + layers.attention(
+                cfg, blk["self_attn"],
+                layers.apply_norm(cfg, blk["ln_self"], x), positions,
+                causal=True, use_rope=False, use_kernel=use_kernel)
+            ck = (encoder_out @ blk["cross_attn"]["wk"]).reshape(B, Fr, hk,
+                                                                 hd)
+            cv = (encoder_out @ blk["cross_attn"]["wv"]).reshape(B, Fr, hk,
+                                                                 hd)
+            x = x + layers.cross_attention(
+                cfg, blk["cross_attn"],
+                layers.apply_norm(cfg, blk["ln_cross"], x), ck, cv)
+            return x + layers.apply_mlp(
+                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], x))
+        h = _run_blocks(body, h, params["dec_blocks"], remat)
+    else:
+        raise ValueError(fam)
+    return h, aux
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  batch: ``tokens`` (B, S) int, plus
+    ``patch_embeds`` (B, num_patches, d) for vlm (a prefix whose
+    positions are cut from the logits) or ``frames`` (B, F, d) for audio.
+    At S >= ``CHUNKED_ATTN_THRESHOLD`` the sequence is zero-padded to a
+    multiple of ``Q_CHUNK`` (causal: the pads change no real position).
+    Kernels as ``kernel_route`` decides, once.  Returns (logits (B, S,
+    vocab) in the parameters' dtype, aux loss)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    use_kernel = kernel_route(cfg, tokens.device)
+    h = params["embed"][tokens.long()]
+    encoder_out = None
+    prefix = 0
+    if cfg.family == "vlm":
+        patches = _project_patches(params, batch["patch_embeds"], h.dtype)
+        h = torch.cat([patches, h], dim=1)
+        prefix = patches.shape[1]
+    elif cfg.family == "audio":
+        encoder_out = encode_audio(cfg, params, batch["frames"], remat,
+                                   use_kernel)
+        h = h + layers.sinusoidal_positions(S, cfg.d_model,
+                                            tokens.device)[None]
+    h, _ = _pad_to_multiple(h, layers.Q_CHUNK
+                            if h.shape[1] >= layers.CHUNKED_ATTN_THRESHOLD
+                            else 1)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, aux = backbone(cfg, params, h, positions, remat, encoder_out,
+                      use_kernel)
+    return unembed(cfg, params, h[:, prefix:prefix + S]), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params,
+            batch: Dict[str, Any]) -> torch.Tensor:
+    """Next-token cross-entropy against ``batch["labels"]`` (B, S), fp32
+    logits, averaged over B * S, plus ``MOE_AUX_COEF`` times the MoE aux
+    loss; the forward runs with ``remat``."""
+    logits, aux = forward(cfg, params, batch, remat=True)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    return (logz - gold).mean() + MOE_AUX_COEF * aux
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
@@ -607,24 +821,26 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
                                         h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=dev)
     cache = init_cache(cfg, B, max_len, device=dev, conv_dtype=h.dtype)
+    ssd_kernel = resolve_kernel(cfg.attn_kernel, dev) \
+        if fam in ("ssm", "hybrid") else False
     if fam == "ssm":
         for layer in range(cfg.num_layers):
             h = _mamba_prefill(cfg, layer_params(params, layer), cache,
-                               (layer,), h)
+                               (layer,), h, ssd_kernel)
         return unembed(cfg, params, h[:, -1]), cache
     if fam == "hybrid":
         groups, per, tail = hybrid_layout(cfg)
         for g in range(groups):
             for i in range(per):
                 h = _mamba_prefill(cfg, layer_params(params, i, "groups", g),
-                                   cache["groups"], (g, i), h)
+                                   cache["groups"], (g, i), h, ssd_kernel)
             h, k, v = _attn_block_body(cfg, params["shared_attn"], h,
                                        positions)
             cache["attn_k"][g, :, :S] = k.to(cache["attn_k"].dtype)
             cache["attn_v"][g, :, :S] = v.to(cache["attn_v"].dtype)
         for i in range(tail):
             h = _mamba_prefill(cfg, layer_params(params, i, "tail"),
-                               cache["tail"], (i,), h)
+                               cache["tail"], (i,), h, ssd_kernel)
         return unembed(cfg, params, h[:, -1]), cache
     if fam == "audio":
         enc = encode_audio(cfg, params, batch["frames"])

@@ -1,15 +1,18 @@
 """Mamba-2 block (SSD, state-space duality, arXiv:2405.21060): prefill
 over a whole prompt and the O(1)-state single-token decode.
 
-Port of ``repro.models.ssm``.  The prefill's scan has two routes, picked
-by ``cfg.attn_kernel`` as the attention kernels are
-(``kernels.flash_decode.ops.resolve_kernel``):
+Port of ``repro.models.ssm``.  The prefill's scan has two routes; the
+caller picks one with ``apply_mamba_block``'s ``use_kernel`` (the wave
+prefill from ``cfg.attn_kernel`` and the device, as the attention
+kernels are picked; the full-sequence forward only with grad disabled,
+since the kernel has no backward):
 
-  * the kernel route (CUDA tensors under "auto", or "on"): the scan goes
-    through ``kernels.ssd_scan.ops.ssd``, the hand-written SSD kernel, in
-    fp32 (its exact fp32 bodies), from a zero state (``ssd_via_kernel``);
-  * the plain route (CPU tensors, or "off"): ``ssd_chunked``, a twin of
-    the reference's chunked algorithm in fp32.
+  * the kernel route: the scan goes through ``kernels.ssd_scan.ops.ssd``,
+    the hand-written SSD kernel, in fp32 (its exact fp32 bodies), from a
+    zero state (``ssd_via_kernel``);
+  * the plain route: ``ssd_chunked``, a twin of the reference's chunked
+    algorithm in fp32, and the training path's (plain autograd, as the
+    reference differentiates its jnp scan).
 
 Both need S <= chunk or S % chunk == 0, as the reference asserts: the
 wave path groups prompts by exact length, so padding would change the
@@ -25,7 +28,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_decode.ops import resolve_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm_gated
 
@@ -197,12 +199,13 @@ def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
 
 
 def apply_mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      initial_state=None):
+                      initial_state=None, *, use_kernel: bool = False):
     """x: (B, S, d) -> (out (B, S, d), {"state": final SSM state (B, H,
     P, N) fp32, "conv": the last k - 1 raw conv inputs (B, k - 1, conv
-    channels) in x's dtype}).  The scan takes the kernel route or the
-    plain one (module docstring); the kernel starts from a zero state, so
-    ``initial_state`` on that route raises."""
+    channels) in x's dtype}).  The scan takes the kernel route with
+    ``use_kernel``, else the plain one (module docstring); the kernel
+    starts from a zero state, so ``initial_state`` on that route
+    raises."""
     d_inner, H, G, N, P, conv_dim = dims(cfg)
     B_, S_, _ = x.shape
     k = cfg.ssm.conv_kernel
@@ -217,7 +220,7 @@ def apply_mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    if resolve_kernel(cfg.attn_kernel, x.device):
+    if use_kernel:
         if initial_state is not None:
             raise ValueError("the SSD kernel scans from a zero state: "
                              "initial_state needs attn_kernel='off'")

@@ -64,6 +64,7 @@ from __future__ import annotations
 import hashlib
 import math
 import time
+import warnings
 from dataclasses import dataclass, field, replace as dc_replace
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -251,7 +252,8 @@ class ServingEngine:
                  preempt_policy: str = "youngest",
                  kv_dtype: Optional[str] = None,
                  spec_decode: str = "off", spec_k: int = 4,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 decode_kernel: Optional[str] = None):
         """The reference engine's knobs (see its docstrings), plus
         ``device``: the card by default, ``"cpu"`` on request; ``params``
         must already live there.  Raises ``NotImplementedError`` for what
@@ -266,7 +268,9 @@ class ServingEngine:
         instead of the paged decode kernel, which sums in another order:
         logits agree to bf16 tolerance and a near-tie greedy argmax can
         flip, as in the reference.  ``decode_steps`` is not used while
-        speculating."""
+        speculating.  ``decode_kernel`` is the deprecated spelling of
+        ``attn_kernel``: it warns, and raises on a conflicting
+        ``attn_kernel``."""
         if decode_steps < 1:
             raise ValueError("decode_steps must be >= 1")
         if spec_decode not in SPEC_DECODE_MODES:
@@ -295,6 +299,16 @@ class ServingEngine:
                 "spec_decode requires the continuous (paged) engine: the "
                 "verifier is the paged chunked-prefill path and rollback "
                 "is a BlockStore operation")
+        if decode_kernel is not None:
+            warnings.warn(
+                "ServingEngine(decode_kernel=...) is deprecated; the knob "
+                "now selects the prefill kernel too — use attn_kernel=",
+                DeprecationWarning, stacklevel=2)
+            if attn_kernel is not None and attn_kernel != decode_kernel:
+                raise ValueError(
+                    f"conflicting attn_kernel={attn_kernel!r} and "
+                    f"decode_kernel={decode_kernel!r}")
+            attn_kernel = decode_kernel
         if attn_kernel is not None:
             if attn_kernel not in ATTN_KERNEL_MODES:
                 raise ValueError(

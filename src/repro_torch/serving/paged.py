@@ -65,6 +65,7 @@ class OutOfBlocks(RuntimeError):
 
 
 CHAIN_ROOT = b"kv-chain-root"
+_CHAIN_ROOT = CHAIN_ROOT  # back-compat alias
 
 
 def chain_root_for(kv_dtype: str = "fp") -> bytes:
@@ -561,3 +562,8 @@ class BlockStore:
             row = self._table[slot]
             assert list(row[:len(blocks)]) == blocks
             assert (row[len(blocks):] == TRASH_BLOCK).all()
+
+
+#: Back-compat alias of ``BlockStore`` (its older name), as the reference
+#: keeps it.
+BlockAllocator = BlockStore

@@ -902,3 +902,116 @@ def test_new_entry_points_launch_their_kernels(gen, capsys):
     for y, ref in res["kernel"].values():
         torch.testing.assert_close(y, ref, atol=1e-4, rtol=2e-2)
     assert "max model scale at 60%: 1.64x" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# Training: no kernel on the grad path; the no-grad forward takes K5
+# ---------------------------------------------------------------------------
+
+def test_every_wrapper_refuses_inputs_that_require_grad(gen):
+    """With grad enabled, a CUDA input that requires grad reaches no
+    kernel: the kernels have no backward."""
+    dev = "cuda"
+
+    def rg(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev) \
+            .to(dtype).requires_grad_(True)
+
+    q = rg(2, 8, 64)
+    pool = torch.zeros(5, 4, 1, 64, dtype=torch.bfloat16, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    tbl = torch.ones(2, 2, dtype=torch.int32, device=dev)
+    qs, kn = rg(2, 4, 8, 64), rg(2, 4, 1, 64)
+    x, vals = rg(128, 128), torch.zeros(1, 1, 2, 8, 128, device=dev)
+    rows = torch.zeros(1, 1, 2, dtype=torch.int32, device=dev)
+    xs, a, bc = rg(2, 64, 16, dtype=torch.float32), \
+        rg(2, 64, dtype=torch.float32), rg(2, 64, 16, dtype=torch.float32)
+    fq = rg(1, 128, 8, 64)
+    calls = {
+        "paged_flash_decode": lambda: paged_flash_decode(q, pool, pool,
+                                                         lens, tbl),
+        "flash_decode": lambda: flash_decode(q, pool[:2], pool[:2], lens),
+        "paged_flash_prefill": lambda: paged_flash_prefill(
+            qs, kn, kn.detach(), pool, pool, lens, tbl),
+        "sclad_matmul": lambda: sclad_matmul(x, vals, rows),
+        "ssd_scan": lambda: ssd_scan(xs, a, bc, bc, chunk=32),
+        "flash_attention": lambda: flash_attention(fq, fq, fq),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+    with torch.no_grad():  # the same input launches under no_grad
+        assert flash_attention(fq, fq, fq).shape == fq.shape
+    torch.cuda.synchronize()
+
+
+def _train_cfg(attn_kernel="auto"):
+    return dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                               head_dim=64, num_heads=4, num_kv_heads=2,
+                               d_model=256, attn_kernel=attn_kernel)
+
+
+def test_forward_kernel_on_with_grad_raises(gen):
+    cfg = _train_cfg("on")
+    params = M.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+    batch = {"tokens": torch.zeros(1, 128, dtype=torch.long, device="cuda")}
+    with pytest.raises(ValueError, match="grad enabled"):
+        M.forward(cfg, params, batch)
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, batch)
+    assert torch.isfinite(logits).all()
+
+
+def test_train_step_gradients_on_the_card_equal_the_cpu(gen):
+    """One reduced fp32 train step's loss and every gradient on the card
+    equal the CPU port's on the same numpy-drawn parameters: within 1e-4
+    of each leaf's largest gradient (fp32 summed in another order, the
+    embedding's gradient by atomics)."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    cfg = _train_cfg()
+    rng = np.random.default_rng(0)
+    host = tree.map_leaves(
+        lambda p: torch.from_numpy(
+            0.05 * rng.standard_normal(p.shape).astype(np.float32)),
+        M.init_params(cfg, 0, device="cpu", dtype=torch.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree.map_leaves(lambda p: p.to(dev), host)
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree.leaves(params)]
+        loss = M.loss_fn(cfg, tree.unflatten(params, leaves), batch)
+        out[dev] = (loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)])
+        step = steps.make_train_step(cfg, opt.AdamWConfig())
+        _, _, metrics = step(params, opt.init(params), batch)
+        assert torch.isfinite(metrics["loss"]) and metrics["grad_norm"] > 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for path, a, b in zip(tree.flatten(host), out["cuda"][1], out["cpu"][1]):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale, path[0]
+
+
+def test_no_grad_forward_launches_flash_attention_per_layer(gen):
+    """Under torch.no_grad() the forward routes every layer's attention
+    through K5 (S a multiple of 128, D 64) and agrees with the plain
+    forward; with grad enabled it launches nothing."""
+    cfg = _train_cfg()
+    params = M.init_params(cfg, 0, device="cuda", dtype=torch.float32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=gen, device="cuda")}
+    flash_attention.launches = 0
+    with torch.no_grad():
+        got, _ = M.forward(cfg, params, batch)
+        want, _ = M.forward(dataclasses.replace(cfg, attn_kernel="off"),
+                            params, batch)
+    assert flash_attention.launches == cfg.num_layers
+    span = (want.max() - want.min()).item()
+    assert (got - want).abs().max().item() <= 1e-4 * span
+    flash_attention.launches = 0
+    M.forward(cfg, params, batch)
+    assert flash_attention.launches == 0

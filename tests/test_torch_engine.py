@@ -19,7 +19,14 @@ flip on near-ties between implementations, so fp8 is held to identical
 counters, bitwise run-to-run pool determinism and the within-port
 invariance matrix.  ``mode="wave"``: greedy outputs and counters equal
 the JAX wave engine's.
+
+The deprecated ``decode_kernel`` spellings (engine keyword, launcher
+flag, config property) map onto ``attn_kernel`` as in the reference
+(twins of ``tests/test_prefill_dispatch.py``'s shim tests; on the CPU
+the mapped mode is "off": "on" needs CUDA tensors).
 """
+import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -32,6 +39,8 @@ from repro.configs.base import get_config as jax_config  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.launch.serve import resolve_attn_kernel_arg  # noqa: E402
+from repro_torch.serving import paged  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.sampler import SamplerConfig  # noqa: E402
@@ -297,3 +306,46 @@ def test_wave_mode_surface(models):
     assert not wave.has_pending_work()
     cont = _run(_port(models, max_batch=4, block_size=4), reqs)
     assert [out[u] for u in sorted(out)] == cont
+
+
+# ---------------------------------------------------------------------------
+# deprecation shim: decode_kernel spellings map onto attn_kernel
+# ---------------------------------------------------------------------------
+
+def test_engine_decode_kernel_kwarg_deprecated(models):
+    _, _, tcfg, tparams = models
+    rng = np.random.default_rng(53)
+    reqs = [(rng.integers(1, tcfg.vocab_size, size=5), 4)]
+    with pytest.warns(DeprecationWarning, match="attn_kernel"):
+        eng = ServingEngine(tcfg, tparams, max_len=MAX_LEN, eos_id=-1,
+                            max_batch=1, block_size=4, decode_kernel="off",
+                            device="cpu")
+    assert eng.cfg.attn_kernel == "off"
+    out_dep = _run(eng, reqs)
+    out_new = _run(_port(models, max_batch=1, block_size=4,
+                         attn_kernel="off"), reqs)
+    assert out_dep == out_new  # the alias selects the same implementation
+    with pytest.raises(ValueError, match="conflicting"), \
+            pytest.warns(DeprecationWarning):
+        ServingEngine(tcfg, tparams, attn_kernel="on", decode_kernel="off",
+                      device="cpu")
+
+
+def test_serve_flag_decode_kernel_deprecated():
+    with pytest.warns(DeprecationWarning, match="attn-kernel"):
+        assert resolve_attn_kernel_arg(None, "off") == "off"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no warning on the new spelling
+        assert resolve_attn_kernel_arg("on", None) == "on"
+        assert resolve_attn_kernel_arg(None, None) == "auto"
+    with pytest.warns(DeprecationWarning):
+        with pytest.raises(SystemExit):
+            resolve_attn_kernel_arg("on", "off")
+
+
+def test_config_decode_kernel_property_alias():
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cfg = dataclasses.replace(cfg, attn_kernel="off")
+    assert cfg.decode_kernel == "off"  # read-only back-compat alias
+    assert paged.BlockAllocator is paged.BlockStore
+    assert paged._CHAIN_ROOT == paged.CHAIN_ROOT

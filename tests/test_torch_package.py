@@ -13,9 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import SSMConfig, get_config  # noqa: E402
+from repro_torch.examples import quickstart, train_lm  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as prefill_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         tensor_from_numpy)
@@ -41,6 +43,11 @@ def test_import_loads_neither_jax_nor_repro():
         "or m.startswith('jax.') or m == 'repro' "
         "or m.startswith('repro.'))\n"
         "assert len(names) >= 15, names\n"
+        "for n in ('repro_torch.training.train_loop', "
+        "'repro_torch.launch.train', 'repro_torch.launch.steps', "
+        "'repro_torch.training.checkpoint', "
+        "'repro_torch.examples.train_lm'):\n"
+        "    assert n in names and n in sys.modules, n\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -75,6 +82,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
                     "--requests", "1", "--max-new", "1"])
     eng = ServingEngine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "tinyllama-1.1b", "--reduced",
+                        "--steps", "1"])
+    for example in (quickstart, train_lm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])
+
+
+def test_examples_run_at_smoke_size_on_the_cpu(tmp_path, capsys):
+    """The quickstart (forward, then the serving engine) and the training
+    example's smoke preset, on the CPU."""
+    res = quickstart.main(["--device", "cpu"])
+    assert res["logits"].shape == (1, 32, 256)
+    assert torch.isfinite(res["logits"].float()).all()
+    assert sorted(len(t) for t in res["generated"].values()) == [5, 6, 8]
+    state = train_lm.main(["--preset", "smoke", "--device", "cpu",
+                           "--steps", "4", "--ckpt", str(tmp_path)])
+    assert state.step == 4
+    out = capsys.readouterr().out
+    assert "forward: logits (1, 32, 256), finite=True" in out
+    assert "done at step 4" in out
 
 
 def test_kernel_on_with_cpu_tensors_raises():

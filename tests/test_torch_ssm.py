@@ -167,20 +167,20 @@ def test_mamba_block_and_decode_match_jax(S):
         close(ty, jy, f"decode {step}")
 
 
-def test_kernel_route_in_the_block(monkeypatch):
-    """apply_mamba_block with the kernel route selected (forced here; on
-    the card CUDA tensors select it) equals the plain route, and refuses
-    an initial state rather than falling back."""
+def test_kernel_route_in_the_block():
+    """apply_mamba_block with the kernel route selected (``use_kernel``:
+    on the CPU ``ops.ssd`` runs its plain recurrence) equals the plain
+    route, and refuses an initial state rather than falling back."""
     _, _, tcfg, tp = _block("zamba2-7b")
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 2 * tcfg.ssm.chunk_size, tcfg.d_model)).astype(np.float32))
     want, wc = TS.apply_mamba_block(tcfg, tp, x)
-    monkeypatch.setattr(TS, "resolve_kernel", lambda mode, dev: True)
-    got, gc = TS.apply_mamba_block(tcfg, tp, x)
+    got, gc = TS.apply_mamba_block(tcfg, tp, x, use_kernel=True)
     assert _rel(got, want) <= 1e-5 and _rel(gc["state"], wc["state"]) <= 1e-5
     assert torch.equal(gc["conv"], wc["conv"])
     with pytest.raises(ValueError, match="initial_state"):
-        TS.apply_mamba_block(tcfg, tp, x, initial_state=wc["state"])
+        TS.apply_mamba_block(tcfg, tp, x, initial_state=wc["state"],
+                             use_kernel=True)
 
 
 def _model_run(jcfg, jparams, tcfg, tparams, S, steps=3):

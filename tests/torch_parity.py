@@ -160,3 +160,33 @@ def wave_trace(vocab=256):
     rng = np.random.default_rng(3)
     return [(rng.integers(1, vocab, size=n), m, None)
             for n, m in ((5, 4), (9, 6), (5, 2), (5, 5), (9, 3), (12, 4))]
+
+
+#: One config of each family, for the forward / loss / train-step parity
+#: tests (``test_torch_grads.py``, ``test_torch_train.py``).
+FAMILY_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "internvl2-26b",
+                "mamba2-1.3b", "zamba2-7b", "whisper-base")
+B, S = 2, 64  # two SSD chunks of the reduced configs' 32
+
+
+def models_of(arch):
+    """``pair(arch)``; zamba2-7b at 5 layers: two groups and a tail."""
+    return pair(arch, num_layers=5) if arch == "zamba2-7b" else pair(arch)
+
+
+def batches(cfg, seed=0, S=S, B=B):
+    """One numpy-seeded training batch for both packages: (jax batch,
+    torch batch) with ``tokens``, ``labels`` and fp32 ``patch_embeds``
+    (vlm) or ``frames`` (audio: the JAX whisper encoder does not trace
+    with fp32 params and bf16 frames)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    nb = {"tokens": toks[:, :S], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        nb["patch_embeds"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        nb["frames"] = rng.standard_normal(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in nb.items()},
+            {k: torch.from_numpy(v) for k, v in nb.items()})
