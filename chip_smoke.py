@@ -146,7 +146,33 @@ outside the repository.  Phases, each of which raises on failure:
      loss and every gradient on the card against the CPU port's; and
      ``repro_torch.launch.train`` in process (reduced): 3 steps and a
      restart to 6 against 6 uninterrupted steps;
- 12. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 12. tensor-parallel serving over a (data=1, model=m) mesh naming the
+     one card m times (each shard its own contiguous weights, pool slice
+     and kernel launches; no speedup is expected or claimed): full-width
+     tinyllama-1.1b at 2 and 4 shards, ``prefill_slots`` and
+     ``decode_step`` logits against the meshless run's within the model
+     checks' limit on bf16 and int8 pools, K2 launched m x 22 times a
+     chunk and K1 m x 22 a decode step, the decode step's collectives
+     moving exactly their psum / all_gather / broadcast bytes (no pool
+     byte), and a control that hands shard 1 shard 0's query heads, which
+     must fail the limit; K1 and K2 against their plain versions at the
+     per-shard heads (16 over 2, 8 over 1) on bf16 and int8 pools as in
+     phase 3, and the sharded dispatch (pools placed once) against one
+     launch on every head (outputs within the kernel tolerance, written
+     pools and scales bit for bit; whether the outputs are bit for bit
+     printed); the 12-request trace greedy meshless and on a 1-way mesh
+     (the same layer loop with and without shards; each twice), at 2 and
+     at 4 shards on bf16 and int8 pools (every request ends, no block
+     stays live, launches m x 22 a step or chunk; ms per decode step of
+     each, and the share of requests equal to the meshless run's,
+     printed: bf16 near-ties flip); then qwen2-moe-a2.7b and
+     internvl2-26b at 2 shards: K1 and K2 at their per-shard heads (8
+     over 8, 24 over 4; internvl2-26b's first chunk behind its 256 patch
+     rows too) checked as above, the meshless logits, that model freed,
+     the shards drawn leaf by leaf from the same seed (init peak memory),
+     the logits check on a bf16 pool (the MoE replaying the meshless
+     expert choices) and 4 greedy requests;
+ 13. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -983,13 +1009,16 @@ def first_chunk(torch, cfg, seed):
     return rng, N, tbl, lens, toks
 
 
-def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
+def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False,
+                 mesh=None):
     """Full-width logits of a first chunk, a continuation's last position
     and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``
     (a vlm first chunk behind random patch embeddings, and its
     continuation's start counting them); ``wrong`` points the table entry
     of lane 0's first prompt tokens at the trash block for the decode
-    step."""
+    step.  With a ``mesh`` (``params`` placed on it) the pool and every
+    step are sharded, and the mesh's byte counters are cleared just
+    before the decode step."""
     from dataclasses import replace
     from repro_torch.models import model as M
     dev = "cuda"
@@ -1009,13 +1038,16 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False):
     if wrong:
         dtbl[0, prefix // BS] = 0
     c = replace(cfg, attn_kernel=mode, kv_dtype=kv_dtype)
-    cache = M.init_paged_cache(c, N, BS, device=dev)
+    cache = M.init_paged_cache(c, N, BS, device=dev, mesh=mesh)
     a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl,
-                               patch_embeds=patches)
+                               patch_embeds=patches, mesh=mesh)
     b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl,
-                               start=prefix + lens, all_logits=True)
+                               start=prefix + lens, all_logits=True,
+                               mesh=mesh)
+    if mesh is not None:
+        mesh.moved_bytes.clear()
     d, cache = M.decode_step(c, params, cache, tok1, lens + l2,
-                             block_tables=dtbl)
+                             block_tables=dtbl, mesh=mesh)
     torch.cuda.synchronize()
     return a.float(), b[:, -1].float(), d[:, 0].float()
 
@@ -2291,6 +2323,340 @@ def run_training(torch, gen, card):
     return k5, k5_launches, k4_launches
 
 
+#: The tensor-parallel phase's meshes: m model shards on the one card.
+SHARD_WAYS = (2, 4)
+
+
+def card_mesh(m):
+    """A (data=1, model=m) mesh naming the card m times."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((1, m), ("data", "model"), "cuda")
+
+
+def decode_collective_bytes(cfg, m, nb=4):
+    """Bytes model_logits' sharded decode step (nb lanes, T-entry tables)
+    must move, pool-free: the embedding's psum and two psums a layer
+    (attention, FFN) of (nb, 1, d) bf16, each 2 (m - 1) times its bytes;
+    the logits' all_gather, (m - 1) x (nb, vocab) bf16; and the
+    broadcasts of the tokens (int64), positions and tables (int32)."""
+    act = nb * cfg.d_model * 2
+    return {"psum": 2 * (m - 1) * act * (1 + 2 * cfg.num_layers),
+            "all_gather": (m - 1) * nb * cfg.vocab_size * 2,
+            "broadcast": (m - 1) * (nb * 8 + nb * 4 + nb * T * 4)}
+
+
+def sharded_logits(torch, cfg, placed, kv_dtype, mesh, want, card,
+                   what=""):
+    """model_logits over ``mesh`` with the kernels on, held to ``want``
+    (the meshless run's) within check_model's limit: K2 launched once a
+    shard a layer a chunk, K1 once a shard a layer, the decode step's
+    collectives moving exactly ``decode_collective_bytes`` (no pool
+    byte).  Returns the logits."""
+    m, L = len(mesh.axis_devices()), cfg.num_layers
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    got = model_logits(torch, cfg, placed, kv_dtype, "on", mesh=mesh)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    moved = dict(mesh.moved_bytes)
+    name = f"{cfg.name} {kv_dtype} pool, {m} shards vs none{what}"
+    if launches != {"paged_flash_decode": m * L,
+                    "paged_flash_prefill": 2 * m * L,
+                    "flash_decode": 0, "ssd_scan": 0}:
+        raise AssertionError(f"{name}: launches {launches}")
+    print(f"sharded decode step {name} [{card}]: bytes between shards "
+          f"{moved}")
+    if cfg.name == ARCH and moved != decode_collective_bytes(cfg, m):
+        raise AssertionError(f"{name}: the decode step moved {moved}, want "
+                             f"{decode_collective_bytes(cfg, m)}")
+    compare_logits(torch, name, got, want, 0.05, card)
+    return got
+
+
+def wrong_head_slice(placed):
+    """``placed`` with shard 1 handed shard 0's query-head slice (its
+    ``wq`` part): its heads attend with another shard's queries."""
+    from repro_torch.parallel import sharding
+    wq = placed["blocks"]["attn"]["wq"]
+    bad = sharding.Sharded((wq.parts[0],) * len(wq.parts), wq.dim, wq.mesh)
+    return dict(placed, blocks=dict(
+        placed["blocks"], attn=dict(placed["blocks"]["attn"], wq=bad)))
+
+
+def shard_vs_solo(torch, cfg, mesh, gen, kv_dtype="bf16", prefix=0):
+    """K1 and K2 through the sharded dispatch (the pools placed once on
+    the mesh, one launch a shard on its head slice) against one launch on
+    every head, at ``cfg``'s decode and prefill shapes on a ``kv_dtype``
+    pool: a continuation chunk, and with ``prefix`` also a first chunk
+    behind that many patch rows.  Outputs must agree within TOL and the
+    written pools (and scales) bit for bit; whether the outputs agree bit
+    for bit is returned (decode, prefill) and printed."""
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_prefill import ops as prefill_ops
+    from repro_torch.parallel import sharding
+    dev, H, Hk, D = "cuda", cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sp = sharding.paged_attn_specs()
+    N = B * T + 1
+    kp, ks = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    vp, vs = make_pool(torch, gen, N, Hk, D, kv_dtype)
+    pool = [kp, vp] + ([] if ks is None else [ks, vs])
+    kvd = None if ks is None else kv_dtype
+
+    def placed(xs):
+        return [sharding.shard(x, sp["pool"] if i < 2 else sp["scale"], mesh)
+                for i, x in enumerate(xs)]
+
+    def scales(xs):
+        return tuple(xs[2:]) or None
+
+    tbl = (1 + torch.randperm(N - 1, generator=gen, device=dev)[:B * T]) \
+        .reshape(B, T).int()
+    lens = torch.tensor([1, 17, 600, 1024, 700, 333, 64, 5],
+                        dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    dec = [decode_ops.decode_attention(q, *p[:2], lens, tbl, kernel="on",
+                                       kv_scales=scales(p), mesh=mm)
+           for p, mm in ((pool, None), (placed(pool), mesh))]
+    what = f"sharded dispatch vs one launch, {cfg.name}, {kv_dtype} pool"
+    assert_close(torch, f"{what}, decode", dec[1], dec[0])
+    same = [same_bits(torch, *dec)]
+    cl = torch.full((B,), CHUNK, dtype=torch.int32, device=dev)
+    cases = [("continuation",
+              torch.full((B,), 300, dtype=torch.int32, device=dev), 0)]
+    if prefix:
+        cases.append((f"first, prefix {prefix}", None, prefix))
+    for name, st, pre in cases:
+        S = CHUNK + pre
+        qc = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        kn, vn = (torch.randn(B, S, Hk, D, generator=gen, device=dev)
+                  .bfloat16() for _ in range(2))
+        outs = []
+        for p, mm in (([x.clone() for x in pool], None),
+                      (placed(pool), mesh)):
+            out = prefill_ops.prefill_attention(
+                qc, kn, vn, p[0], p[1], cl, tbl, start=st, prefix=pre,
+                kernel="on", kv_scales=scales(p), kv_dtype=kvd, mesh=mm)
+            outs.append([sharding.gather(x) for x in out])
+        torch.cuda.synchronize()
+        assert_close(torch, f"{what}, prefill {name}", outs[1][0], outs[0][0])
+        for i, (a, b) in enumerate(zip(outs[0][1:], outs[1][1:])):
+            if not same_bits(torch, a, b):
+                raise AssertionError(f"{what}, prefill {name}: pool leaf {i} "
+                                     f"differs from one launch's write")
+        same.append(same_bits(torch, outs[0][0], outs[1][0]))
+    return same[0], all(same[1:])
+
+
+def run_mesh_trace(torch, cfg, params, card, mesh=None, reqs=None,
+                   images=None, max_new=32, kv_dtype="bf16", what=""):
+    """The requests (default: the 12-request trace) greedy on a
+    ``kv_dtype`` pool, meshless or over ``mesh`` (``params`` placed
+    there), launch counts set to 0 before and read after: every request
+    ends with ``max_new`` tokens, pool invariants hold, no block stays
+    live, K1 launches m x layers a decode step and K2 m x layers a chunk.
+    Returns (outputs, ms per decode step, launches)."""
+    from repro_torch.serving.engine import ServingEngine
+    m = 1 if mesh is None else len(mesh.axis_devices())
+    reqs = trace(cfg) if reqs is None else reqs
+    images = [None] * len(reqs) if images is None else images
+    eng = ServingEngine(cfg, params, max_batch=B, max_len=MAX_LEN, eos_id=-1,
+                        block_size=BS, prefill_chunk=CHUNK,
+                        attn_kernel="auto", seed=0, device="cuda",
+                        mesh=mesh, kv_dtype=kv_dtype)
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    uids = [eng.submit(p, max_new_tokens=max_new, patch_embeds=pe)
+            for p, pe in zip(reqs, images)]
+    out = eng.run()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    s, L = eng.stats, cfg.num_layers
+    what = (f"engine {cfg.name} ({'no mesh' if mesh is None else f'{m}-way mesh'}"
+            f", {kv_dtype}, greedy{what})")
+    for u in uids:
+        if len(out[u]) != max_new:
+            raise AssertionError(f"{what}: request {u} returned {out[u]}")
+    eng._alloc.check_invariants()
+    if eng.live_blocks:
+        raise AssertionError(f"{what}: {eng.live_blocks} blocks live")
+    want = {"paged_flash_decode": m * L * s.decode_steps,
+            "paged_flash_prefill": m * L * s.prefill_chunks,
+            "flash_decode": 0, "ssd_scan": 0}
+    if launches != want or s.decode_steps == 0:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    ms = s.decode_s / s.decode_steps * 1e3
+    print(f"{what} [{card}]: {len(uids)} requests, {ms:.2f} ms per decode "
+          f"step ({s.decode_steps} steps), prefill {s.prefill_chunks} "
+          f"chunks, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return [out[u] for u in uids], ms, launches
+
+
+def per_shard_kernels(torch, cfg, m, gen, card, kv_dtype="bf16",
+                      cases=("first", "continuation"), prefix=0):
+    """K1 and K2 against their plain versions at ``cfg``'s per-shard heads
+    on an m-shard mesh, as in phase 3 (bitwise launch to launch, pools bit
+    for bit), and the sharded dispatch against one launch on every head
+    (``shard_vs_solo``).  Returns (heads, K1 result, {case: K2 result})."""
+    from dataclasses import replace
+    from repro_torch.parallel import sharding
+    mesh = card_mesh(m)
+    a = sharding.attn_shard_size(mesh, cfg.num_kv_heads)
+    heads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
+    dec = check_decode(torch, replace(cfg, num_heads=heads[0],
+                                      num_kv_heads=heads[1]), gen, kv_dtype)
+    pre = check_prefill(torch, heads, gen, kv_dtype, cases=cases)
+    same = shard_vs_solo(torch, cfg, mesh, gen, kv_dtype, prefix)
+    print(f"kernels {cfg.name} at {m} shards, heads {heads}, {kv_dtype} pool "
+          f"[{card}]: sharded dispatch vs one launch on every head, bit for "
+          f"bit: decode {same[0]}, prefill {same[1]}")
+    for name, r in [(f"paged_flash_decode[{kv_dtype}, heads {heads}]", dec)] \
+            + [(f"paged_flash_prefill[{kv_dtype}, {k}, heads {heads}]", v)
+               for k, v in pre.items()]:
+        print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}){rates(r)}")
+    return heads, dec, pre
+
+
+def sharded_entries(cfg, m, heads, dec, pre, kv_dtype, row, launches):
+    """The kernels line's two entries of one sharded shape: (name, kernel,
+    SCLAD pool?, launches, result, worst error)."""
+    tag = f"{cfg.name}, {m} shards, heads {heads}" \
+        + ("" if kv_dtype == "bf16" else f", {kv_dtype} pool")
+    quant = kv_dtype != "bf16"
+    return [(f"paged_flash_decode[{tag}]", "decode", quant,
+             launches["paged_flash_decode"], dec, dec["err"]),
+            (f"paged_flash_prefill[{tag}]", "prefill", quant,
+             launches["paged_flash_prefill"], pre[row],
+             max(r["err"] for r in pre.values()))]
+
+
+def run_sharded(torch, gen, card):
+    """The tensor-parallel phase: full-width tinyllama-1.1b at 2 and 4
+    shards, then qwen2-moe-a2.7b and internvl2-26b at 2, each mesh naming
+    the one card.  Returns the kernels line's entries
+    (``sharded_entries``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    cfg = get_config(ARCH)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    want = {kd: model_logits(torch, cfg, params, kd, "on")
+            for kd in ("bf16", "int8")}
+    kernels = {}
+    for m in SHARD_WAYS:
+        mesh = card_mesh(m)
+        placed = sharding.place_serve(cfg, params, mesh)
+        for kd in ("bf16", "int8"):
+            sharded_logits(torch, cfg, placed, kd, mesh, want[kd], card)
+        if m == SHARD_WAYS[0]:
+            bad = model_logits(torch, cfg, wrong_head_slice(placed), "bf16",
+                               "on", mesh=mesh)
+            worst = max((x - y).abs().max().item()
+                        / (y.max() - y.min()).item()
+                        for x, y in zip(bad, want["bf16"]))
+            print(f"model check {ARCH} control (shard 1 handed shard 0's "
+                  f"query heads) [{card}]: worst max|diff| {worst:.4g} of "
+                  f"the range (must exceed 0.05)")
+            if worst <= 0.05:
+                raise AssertionError("the sharded logits check cannot see "
+                                     "a shard on the wrong head slice")
+        del placed
+        for kd in ("bf16", "int8"):
+            kernels[m, kd] = per_shard_kernels(torch, cfg, m, gen, card, kd)
+    # The greedy trace: meshless and on a 1-way mesh (the same layer loop
+    # with and without Sharded parts) before and after the 2- and 4-shard
+    # runs, then the 4-shard ones on int8 pools.
+    one = card_mesh(1)
+    runs = {"no mesh": run_mesh_trace(torch, cfg, params, card),
+            "1-way mesh": run_mesh_trace(
+                torch, cfg, sharding.place_serve(cfg, params, one), card,
+                one)}
+    entries = []
+    for m in SHARD_WAYS:
+        mesh = card_mesh(m)
+        placed = sharding.place_serve(cfg, params, mesh)
+        runs[f"{m} shards"] = run_mesh_trace(torch, cfg, placed, card, mesh)
+        same = sum(a == b for a, b in zip(runs["no mesh"][0],
+                                          runs[f"{m} shards"][0])) \
+            / len(runs["no mesh"][0])
+        print(f"engine {ARCH} {m} shards vs none, greedy [{card}]: {same:.2f}"
+              f" of requests token for token equal (printed: bf16 near-ties "
+              f"flip)")
+        q8 = run_mesh_trace(torch, cfg, placed, card, mesh, kv_dtype="int8")
+        for kd, run in (("bf16", runs[f"{m} shards"]), ("int8", q8)):
+            entries += sharded_entries(cfg, m, *kernels[m, kd], kd,
+                                       "continuation", run[2])
+        del placed
+    runs["1-way mesh, again"] = run_mesh_trace(
+        torch, cfg, sharding.place_serve(cfg, params, one), card, one,
+        what=", again")
+    runs["no mesh, again"] = run_mesh_trace(torch, cfg, params, card,
+                                            what=", again")
+    print(f"engine {ARCH} ms per decode step [{card}]: "
+          + ", ".join(f"{k} {r[1]:.2f}" for k, r in runs.items()))
+    del params
+    torch.cuda.empty_cache()
+    for arch in (MOE_ARCH, VLM_ARCH):
+        entries += run_sharded_family(torch, get_config(arch), gen, card)
+    return entries
+
+
+def run_sharded_family(torch, cfg, gen, card, m=2):
+    """A moe or vlm config at full width on an m-shard mesh: K1 and K2 at
+    its per-shard heads (``per_shard_kernels``; vlm: the first chunk
+    behind its 256-row patch prefix too), the meshless logits (bf16 pool,
+    kernels on) first, that model freed, then the shards drawn leaf by
+    leaf from the same seed (peak memory near one copy of the weights),
+    the sharded logits held to the meshless ones (an MoE replaying the
+    meshless run's expert choices, every shard routing alike; the
+    free-routing difference printed), and 4 requests of 16 greedy tokens
+    (vlm: two behind images).  Returns its kernels-line entries."""
+    from repro_torch.models import model as M
+    vlm = cfg.family == "vlm"
+    cases = ("first", f"first, prefix {VLM_PREFIX}", "continuation") if vlm \
+        else ("first", "continuation")
+    heads, dec, pre = per_shard_kernels(torch, cfg, m, gen, card, "bf16",
+                                        cases, VLM_PREFIX if vlm else 0)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    picks = []
+    with routing(torch, picks, replay=False):
+        want = model_logits(torch, cfg, params, "bf16", "on")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mesh = card_mesh(m)
+    t0 = time.perf_counter()
+    placed = M.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"params {cfg.name}, {m} shards [{card}]: {held / 2**30:.2f} GiB "
+          f"in {time.perf_counter() - t0:.1f} s; init peak "
+          f"{peak / 2**30:.2f} GiB ({peak / held:.3f}x)")
+    with routing(torch, [e for e in picks for _ in range(m)], replay=True):
+        sharded_logits(torch, cfg, placed, "bf16", mesh, want, card)
+    if picks:
+        free = model_logits(torch, cfg, placed, "bf16", "on", mesh=mesh)
+        compare_logits(torch, f"{cfg.name} bf16 pool, {m} shards vs none, "
+                       f"free routing", free, want, 0.05, card,
+                       enforce=False)
+    reqs = trace(cfg, 4)
+    imgs = images(cfg, 4) if vlm else None
+    run = run_mesh_trace(torch, cfg, placed, card, mesh, reqs=reqs,
+                         images=imgs, max_new=16)
+    del placed
+    torch.cuda.empty_cache()
+    return sharded_entries(cfg, m, heads, dec, pre, "bf16",
+                           cases[1] if vlm else "continuation", run[2])
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -2443,7 +2809,11 @@ def main() -> int:
     # 11. Training on one card.
     k5_fwd, k5_fwd_launches, _ = run_training(torch, gen, card)
 
-    # 12. Result lines.  The quantized bodies report their int8 times (fp8
+    # 12. Tensor-parallel serving over a model axis of 2 and 4 shards on
+    # the one card.
+    sharded = run_sharded(torch, gen, card)
+
+    # 13. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -2536,6 +2906,12 @@ def main() -> int:
         kernels.append(kernel_entry(
             f"ssd_scan[{arch} prefill]", ssd_src, ssd_tpu, run["ssd_scan"],
             res[512], err=max(r["err"] for r in res.values())))
+    lines = {("decode", False): (dec_src, f"{dec_tpu}:183"),
+             ("decode", True): (dec_src, f"{dec_tpu}:151"),
+             ("prefill", False): (pre_src, f"{pre_tpu}:231"),
+             ("prefill", True): (pre_src, f"{pre_tpu}:202")}
+    for name, kernel, quant, n, r, err in sharded:
+        kernels.append(kernel_entry(name, *lines[kernel, quant], n, r, err))
     kernels.append(kernel_entry(
         f"flash_attention[forward, B={TRAIN_B}]",
         "src/repro_torch/csrc/flash_attention.cu",

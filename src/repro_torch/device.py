@@ -15,7 +15,8 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None``/``"cuda"`` -> the current CUDA device (raises without
-    one); ``"cpu"`` -> the CPU; ``"cuda:N"`` -> that card."""
+    one); ``"cpu"`` -> the CPU; ``"cuda:N"`` -> that card; ``"meta"`` ->
+    shapes without storage (the spec functions')."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -24,7 +25,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "the plain PyTorch path on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

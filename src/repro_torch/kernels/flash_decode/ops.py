@@ -15,6 +15,13 @@ cache layout is chosen by ``block_tables``: the paged (N, bs, Hk, D) pool
 
 The same knob selects the prefill-side kernel (``kernels.flash_prefill``)
 and, as ``kernel=``, the SCLD matmul of ``SCLDLinear``.
+
+A paged pool placed over a mesh (a ``parallel.sharding.Sharded``:
+``model.init_paged_cache(mesh=)`` or ``sharding.shard``) is read once per
+shard (``_sharded_paged_decode``): each shard calls this same
+single-device entry on its contiguous Hk/m pool slice and H/m query
+heads, so on the card each shard launches the kernel at its own head
+counts.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from repro_torch.kernels.flash_decode.flash_decode import (flash_decode,
                                                            paged_flash_decode)
 from repro_torch.kernels.flash_decode.ref import decode_ref, paged_decode_ref
+from repro_torch.parallel import sharding
 
 ATTN_KERNEL_MODES = ("auto", "on", "off")
 
@@ -41,7 +49,7 @@ def resolve_kernel(kernel: str, device: torch.device) -> bool:
 
 
 def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
-                     kernel: str = "auto", kv_scales=None):
+                     kernel: str = "auto", kv_scales=None, mesh=None):
     """One decode-attention step.
 
     q: (B, H, D) the new token's rotated queries; k_cache/v_cache: the
@@ -51,7 +59,18 @@ def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
     (k_scale, v_scale) (N, bs, Hk) fp32 of a SCLAD pool (paged layout
     only).  Returns (B, H, D).  The caller owns the cache write of the new
     K/V; this is the read side only.
+
+    A paged pool that is a ``sharding.Sharded`` (placed once, cut on its
+    KV heads where the ``model`` axis divides Hk, else whole on every
+    shard) is read per shard (``_sharded_paged_decode``).  mesh: the
+    gate for plain pools — one whose KV heads the mesh's ``model`` axis
+    divides (``sharding.attn_shard_size``) must be placed first, and
+    raises ``TypeError``; otherwise the single-device call.
     """
+    if isinstance(k_cache, sharding.Sharded):
+        return _sharded_paged_decode(q, k_cache, v_cache, lengths,
+                                     block_tables, kernel, kv_scales)
+    check_placed(mesh, k_cache, block_tables)
     use_kernel = resolve_kernel(kernel, q.device)
     if block_tables is not None:
         if use_kernel:
@@ -66,3 +85,43 @@ def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device) \
         .reshape(-1).expand(q.shape[0]).contiguous()
     return flash_decode(q, k_cache, v_cache, lens)
+
+
+def check_placed(mesh, pool, block_tables) -> None:
+    """A plain paged pool under a mesh that would cut its KV heads: place
+    it once (``sharding.shard``, ``model.init_paged_cache(mesh=)``)
+    rather than copy it to the shards and back on every call."""
+    if block_tables is not None and \
+            sharding.attn_shard_size(mesh, pool.shape[2]) > 1:
+        raise TypeError(
+            "a paged pool read over a mesh that cuts its KV heads must be "
+            "placed first (sharding.shard or init_paged_cache(mesh=))")
+
+
+def _sharded_paged_decode(q, k_cache, v_cache, lengths, block_tables, kernel,
+                          kv_scales):
+    """The paged decode read once per model shard.
+
+    Attention is independent per KV head, so cutting the pool's Hk axis
+    changes no arithmetic: shard i reads its contiguous Hk/m pool slice
+    with the matching contiguous H/m query heads (head h attends kv head
+    h // rep, and contiguous cuts keep rep per shard).  Tables and
+    lengths are broadcast, so every shard walks the same table; no pool
+    byte moves.  A pool whole on every shard gives each shard every
+    head.  A plain q is placed by ``paged_attn_specs`` and the output
+    gathered back on the head axis; a ``Sharded`` q (the model's path)
+    gets the per-shard outputs.
+    """
+    mesh, cut = k_cache.mesh, k_cache.dim is not None
+    qs = sharding.shard(q, sharding.paged_attn_specs()["q_decode"] if cut
+                        else sharding.P(), mesh)
+    lens = lengths if isinstance(lengths, sharding.Sharded) \
+        else sharding.broadcast(torch.as_tensor(
+            lengths, dtype=torch.int32, device=qs.device).reshape(-1)
+            .expand(qs.shape[0]).contiguous(), mesh)
+    out = sharding.smap(
+        lambda q_, k_, v_, l_, t_, s_: decode_attention(
+            q_, k_, v_, l_, t_, kernel=kernel, kv_scales=s_),
+        qs, k_cache, v_cache, lens, sharding.broadcast(block_tables, mesh),
+        kv_scales, mesh=mesh, dim=1 if cut else None)
+    return out if isinstance(q, sharding.Sharded) else sharding.gather(out)

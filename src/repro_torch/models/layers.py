@@ -4,7 +4,7 @@ attention (``_sdpa``, ``chunked_attention``, ``self_attend``,
 ``attention``), cross
 attention over precomputed K/V, SwiGLU/GeGLU/GELU MLP, and single-token
 decode attention over a paged pool (bf16 or SCLAD int8/fp8) or dense
-stripes.
+stripes, on one device or per shard of a ``model`` mesh axis.
 
 Port of the serving-path functions of ``repro.models.layers``, as plain
 functions on tensors over explicit parameter dictionaries.  The
@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.models import kv_quant
+from repro_torch.parallel import sharding
 
 Params = Dict[str, torch.Tensor]
 
@@ -279,7 +280,7 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      position: torch.Tensor, block_tables=None,
-                     kv_scales=None, use_rope: bool = True):
+                     kv_scales=None, use_rope: bool = True, mesh=None):
     """Single-token decode attention, with the cache written in place.
 
     x: (B, 1, d); position: (B,) int32 per-row index of the new token.
@@ -302,7 +303,43 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     caches.  The read goes through ``decode_ops.decode_attention`` with
     lengths = pos + 1.  Returns (out (B, 1, d), k_cache, v_cache), plus
     (k_scale, v_scale) when ``kv_scales`` is given.
+
+    With a ``mesh`` (paged layout) every argument but ``cfg`` is a
+    ``sharding.Sharded`` (x and the positions and tables equal on every
+    shard) and so is the output: each shard projects its own heads
+    (column-parallel q/k/v, ``sharding.shard_cfg``), stores its K/V into
+    its pool slice, reads through the sharded dispatch and multiplies by
+    its rows of ``wo``; a ``psum`` sums the partials.  Where the heads do
+    not divide the axis the attention leaves and the pool are whole on
+    every shard, each shard computes every head, and nothing is summed.
     """
+    cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
+    lcfg = sharding.shard_cfg(cfg, mesh)
+    q, pos = sharding.smap(
+        lambda p_, x_, k_, v_, pos_, t_, s_: _decode_store(
+            lcfg, p_, x_, k_, v_, pos_, t_, s_, use_rope),
+        p, x, k_cache, v_cache, position, block_tables, kv_scales,
+        mesh=mesh, dim=(1 if cut else None, None))
+    lens = sharding.smap(lambda x_: x_ + 1, pos, mesh=mesh)
+    out = decode_ops.decode_attention(
+        q, k_cache, v_cache, lens, block_tables, kernel=cfg.attn_kernel,
+        kv_scales=kv_scales, mesh=mesh)
+    out = sharding.smap(
+        lambda o, x_, wo: o.reshape(x_.shape[0], 1, -1).to(x_.dtype) @ wo,
+        out, x, p["wo"], mesh=mesh)
+    if cut:
+        out = sharding.psum(out)
+    if kv_scales is not None:
+        return (out, k_cache, v_cache) + tuple(kv_scales)
+    return out, k_cache, v_cache
+
+
+def _decode_store(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  position: torch.Tensor, block_tables, kv_scales,
+                  use_rope: bool):
+    """``attention_decode``'s projection, rotation and cache store: the
+    new token's (B, H, D) queries (contiguous) and the int32 positions."""
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, x)
     pos = position.to(torch.int32)
@@ -331,13 +368,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
         else:
             k_cache[blk, off] = k[:, 0].to(k_cache.dtype)
             v_cache[blk, off] = v[:, 0].to(v_cache.dtype)
-    out = decode_ops.decode_attention(
-        q[:, 0].contiguous(), k_cache, v_cache, pos + 1, block_tables,
-        kernel=cfg.attn_kernel, kv_scales=kv_scales)
-    out = out.reshape(B, 1, -1).to(x.dtype) @ p["wo"]
-    if kv_scales is not None:
-        return (out, k_cache, v_cache) + tuple(kv_scales)
-    return out, k_cache, v_cache
+    return q[:, 0].contiguous(), pos
 
 
 def mlp_shapes(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, Tuple[int, ...]]:

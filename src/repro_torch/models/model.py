@@ -2,8 +2,9 @@
 training loss, paged prefill chunks and decode (the attention families),
 and the wave path's dense-cache prefill and decode (all six).
 
-Port of ``repro.models.model`` (its sharding specs wait for the
-tensor-parallel slice):
+Port of ``repro.models.model``, tensor-parallel paged serving over a
+``model`` mesh axis included (``prefill_slots`` / ``decode_step`` with
+``mesh=``):
 
   * dense — GQA decoder blocks (tinyllama, stablelm, phi3, granite);
   * moe — the same attention with an MoE FFN (``models.moe``; qwen2-moe,
@@ -52,6 +53,7 @@ through the SSD kernel (``kernel_route``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -65,6 +67,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import resolve_kernel
 from repro_torch.kernels.flash_prefill import ops as prefill_ops
 from repro_torch.models import kv_quant, layers, moe as moe_lib, ssm as ssm_lib
+from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -194,7 +197,7 @@ def param_count_active(cfg: ModelConfig) -> int:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
-                dtype: torch.dtype = torch.bfloat16) -> Params:
+                dtype: torch.dtype = torch.bfloat16, mesh=None) -> Params:
     """Seeded random parameters with the reference's distributions (not
     its bits): N(0, 1/fan_in) weights, N(0, 0.02^2) embeddings, unit norm
     scales, zero biases; the MoE router in fp32 whatever ``dtype`` is, as
@@ -202,10 +205,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     values (``ssm.fixed_leaf``: ``A_log``, ``D`` and ``dt_bias`` in
     fp32).  Drawn on ``device`` from one explicit
     ``torch.Generator``, in fp32 pieces of at most 256 MiB
-    (``layers.INIT_CHUNK``), so init peaks that much above the weights."""
+    (``layers.INIT_CHUNK``), so init peaks that much above the weights.
+
+    With a ``mesh`` each leaf is cut for serving
+    (``sharding.serve_specs``) as soon as it is drawn, so the whole tree
+    is never held twice: the same values as without a mesh, placed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shapes = param_shapes(cfg)
+    specs = None if mesh is None \
+        else sharding.serve_specs(cfg, param_specs(cfg), mesh)
 
     def make(path, shape):
         name = path[-1]
@@ -222,12 +230,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
         return layers.dense_init(
             gen, shape, dtype=torch.float32 if name == "router" else dtype)
 
+    def walk(tree, path, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,), None if spec is None else spec[k])
+                    for k, v in tree.items()}
+        x = make(path, tree)
+        return x if spec is None else sharding.shard(x, spec, mesh)
+
+    return walk(param_shapes(cfg), (), specs)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors — shapes and dtypes, no
+    storage: the twin of the reference's ``param_specs`` (its
+    ``eval_shape`` of ``init_params``: bf16, the router and the fixed
+    Mamba-2 leaves fp32)."""
+    def make(path, shape):
+        name = path[-1]
+        fixed = ssm_lib.fixed_leaf(name, shape, torch.bfloat16, "meta") \
+            if "mamba" in path else None
+        if fixed is not None:
+            return fixed
+        return torch.empty(shape, device="meta", dtype=torch.float32
+                           if name == "router" else torch.bfloat16)
+
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         return make(path, tree)
 
-    return walk(shapes, ())
+    return walk(param_shapes(cfg), ())
 
 
 def layer_params(params: Params, layer: int, key: str = "blocks",
@@ -311,8 +343,31 @@ def _hybrid_stripes(cfg: ModelConfig, batch: int, max_len: int, dev):
             "attn_v": _stripes(cfg, lead, dev)}
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    """The wave path's dense caches (``init_cache``) as ``meta`` tensors:
+    the twin of the reference's ``cache_specs``."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def _pool_leaves(cfg: ModelConfig, num_blocks: int, block_size: int):
+    """{leaf: (shape, dtype, fill)} of the paged pool."""
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    if not kv_quant.is_quantized(cfg.kv_dtype):
+        return {"k": (shape, torch.bfloat16, 0), "v": (shape, torch.bfloat16, 0)}
+    kvd = kv_quant.payload_dtype(cfg.kv_dtype)
+    return {"k": (shape, kvd, 0), "v": (shape, kvd, 0),
+            "k_scale": (shape[:-1], torch.float32, 1),
+            "v_scale": (shape[:-1], torch.float32, 1)}
+
+
+def _filled(shape, dtype, fill, device) -> torch.Tensor:
+    make = torch.ones if fill else torch.zeros
+    return make(shape, dtype=dtype, device=device)
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     device: DeviceLike = None) -> Params:
+                     device: DeviceLike = None, mesh=None) -> Params:
     """KV cache as a pool of fixed-size token blocks, (L, num_blocks,
     block_size, Hk, hd) for K and for V.  Block 0 is the trash block
     dead lanes write into; the host-side ``serving.paged.BlockStore``
@@ -322,22 +377,31 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     ``v_scale`` (L, num_blocks, block_size, Hk) hold the per-position,
     per-head scales, initialised to ones (an all-zero payload row's scale
     by the quantizer's convention).  Block identity (sharing,
-    copy-on-write, LRU) covers payload and scales as one unit."""
+    copy-on-write, LRU) covers payload and scales as one unit.
+
+    With a ``mesh`` (``device`` is then ignored) every leaf is a
+    ``sharding.Sharded`` placed per ``sharding.cache_specs(paged=True)``,
+    sanitized: payload and scale leaves cut together on the KV-head axis
+    over ``model`` (each shard dequantizes its own heads), or whole on
+    every shard where Hk does not divide the axis — the same gate as
+    ``sharding.attn_shard_size``, so placement and dispatch agree.  Each
+    shard's part is made on its device; no whole pool is built."""
     check_paged(cfg, "init_paged_cache")
     check_kv_dtype(cfg)
-    dev = resolve_device(device)
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    if not kv_quant.is_quantized(cfg.kv_dtype):
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
-    kvd = kv_quant.payload_dtype(cfg.kv_dtype)
-    return {"k": torch.zeros(shape, dtype=kvd, device=dev),
-            "v": torch.zeros(shape, dtype=kvd, device=dev),
-            "k_scale": torch.ones(shape[:-1], dtype=torch.float32,
-                                  device=dev),
-            "v_scale": torch.ones(shape[:-1], dtype=torch.float32,
-                                  device=dev)}
+    leaves = _pool_leaves(cfg, num_blocks, block_size)
+    if mesh is None:
+        dev = resolve_device(device)
+        return {k: _filled(shape, dt, fill, dev)
+                for k, (shape, dt, fill) in leaves.items()}
+    meta = {k: torch.empty(shape, device="meta")
+            for k, (shape, _, _) in leaves.items()}
+    with sharding.use_axes(mesh):
+        specs = sharding.sanitize_specs(
+            sharding.cache_specs(cfg, meta, None, 1, paged=True), meta)
+    return {k: sharding.place_new(
+        shape, specs[k], mesh,
+        lambda sh, d, dt=dt, fill=fill: _filled(sh, dt, fill, d))
+        for k, (shape, dt, fill) in leaves.items()}
 
 
 def _layer_scales(cache: Params, layer: int):
@@ -351,9 +415,13 @@ def copy_cache_block(cache: Params, src: int, dst: int) -> Params:
     """Copy one block across all layers and every leaf — payload and, for
     a SCLAD pool, scales — (``src -> dst``), in place: the copy-on-write
     half of block sharing.  The reference gets
-    the same O(block) cost from a jitted scatter with the pool donated."""
+    the same O(block) cost from a jitted scatter with the pool donated.
+    A sharded pool copies within each shard's part: every part keeps its
+    device, shape and cut."""
     for x in cache.values():
-        x[:, dst] = x[:, src]
+        for part in (x.distinct_parts() if isinstance(x, sharding.Sharded)
+                     else (x,)):
+            part[:, dst] = part[:, src]
     return cache
 
 
@@ -378,28 +446,45 @@ def _attn_block_body(cfg: ModelConfig, blk: Params, x: torch.Tensor,
 
 def _attn_post(cfg: ModelConfig, blk: Params, x: torch.Tensor,
                a: torch.Tensor,
-               moe_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Residual + output projection, then the FFN half."""
-    return _ffn(cfg, blk, x + a @ blk["attn"]["wo"], moe_valid)
+               moe_valid: Optional[torch.Tensor] = None,
+               mesh=None) -> torch.Tensor:
+    """Residual + output projection, then the FFN half.  Over a ``mesh``
+    ``wo`` is row-parallel where the heads are cut: a ``psum`` of the
+    shards' partials."""
+    y = sharding.smap(lambda a_, wo: a_ @ wo, a, blk["attn"]["wo"],
+                      mesh=mesh)
+    if sharding.cut_dim(blk["attn"]["wo"]) is not None:
+        y = sharding.psum(y)
+    return _ffn(cfg, blk, sharding.smap(torch.add, x, y, mesh=mesh),
+                moe_valid, mesh)
 
 
 def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-         moe_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+         moe_valid: Optional[torch.Tensor] = None,
+         mesh=None) -> torch.Tensor:
     """x plus the MLP — or, in a moe block, the MoE FFN, with
     ``moe_valid`` (x's leading dims, bool) keeping pads and dead lanes
     out of the expert capacity — of the normed x."""
-    return _ffn_aux(cfg, blk, x, moe_valid)[0]
+    return _ffn_aux(cfg, blk, x, moe_valid, mesh)[0]
 
 
 def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-             moe_valid: Optional[torch.Tensor] = None):
+             moe_valid: Optional[torch.Tensor] = None, mesh=None):
     """``_ffn`` and the MoE load-balancing loss: (x_out, aux), aux None
-    for an MLP block."""
-    xn = layers.apply_norm(cfg, blk["ln_mlp"], x)
+    for an MLP block.  Over a ``mesh`` the MLP is column- then
+    row-parallel (a ``psum`` of the down projection's partials) and the
+    MoE as ``moe.apply_moe(mesh=)``."""
+    xn = sharding.smap(lambda n, x_: layers.apply_norm(cfg, n, x_),
+                       blk["ln_mlp"], x, mesh=mesh)
     if "moe" in blk:
-        y, aux = moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid)
-        return x + y, aux
-    return x + layers.apply_mlp(cfg, blk["mlp"], xn), None
+        y, aux = moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid,
+                                   mesh=mesh)
+    else:
+        y, aux = sharding.smap(lambda p_, x_: layers.apply_mlp(cfg, p_, x_),
+                               blk["mlp"], xn, mesh=mesh), None
+        if sharding.cut_dim(blk["mlp"]["w_down"]) is not None:
+            y = sharding.psum(y)
+    return sharding.smap(torch.add, x, y, mesh=mesh), aux
 
 
 def _project_patches(params: Params, patch_embeds: torch.Tensor,
@@ -412,11 +497,48 @@ def _project_patches(params: Params, patch_embeds: torch.Tensor,
     return (patch_embeds.to(ct) @ w.to(ct)).to(dtype)
 
 
-def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor):
-    h = layers.apply_norm(cfg, params["final_norm"], h)
-    if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+def _embed(embed, tokens: torch.Tensor, mesh=None):
+    """Token embeddings of ``tokens``.  Over a ``mesh`` (the tokens on
+    every shard) a table cut on the vocab is a masked lookup per shard,
+    then a ``psum``; one cut on d_model (a vocab that does not divide the
+    axis) is an ``all_gather`` of the shards' columns."""
+    if sharding.cut_dim(embed) == 0:
+        V = embed.parts[0].shape[0]
+        parts = []
+        for i, (e, t) in enumerate(zip(embed.parts, tokens.parts)):
+            t = t.long() - i * V
+            ok = (t >= 0) & (t < V)
+            parts.append(e[t.clamp(0, V - 1)].masked_fill(~ok[..., None], 0))
+        return sharding.psum(sharding.Sharded(tuple(parts), None, mesh))
+    return sharding.all_gather(sharding.smap(
+        lambda e, t: e[t.long()], embed, tokens, mesh=mesh,
+        dim=None if sharding.cut_dim(embed) is None else len(tokens.shape)))
+
+
+def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None):
+    """Final norm and the vocab projection.  Over a ``mesh`` (h equal on
+    every shard) a column-parallel ``lm_head`` (or tied table cut on the
+    vocab) gathers the logits; one cut on d_model sums the shards'
+    partial products (``psum``).  The logits come back on shard 0's
+    device."""
+    hn = sharding.smap(lambda n, x: layers.apply_norm(cfg, n, x),
+                       params["final_norm"], h, mesh=mesh)
+    tied = cfg.tie_embeddings
+    w = params["embed"] if tied else params["lm_head"]
+    cut = sharding.cut_dim(w)
+
+    def product(x, w_):
+        return x @ w_.T if tied else x @ w_
+
+    if cut is not None and cut == (1 if tied else 0):
+        n = w.parts[0].shape[1 if tied else 0]
+        return sharding.psum(sharding.Sharded(tuple(
+            product(x[..., i * n:(i + 1) * n], w_)
+            for i, (x, w_) in enumerate(zip(hn.parts, w.parts))),
+            None, mesh)).parts[0]
+    return sharding.gather(sharding.smap(
+        product, hn, w, mesh=mesh,
+        dim=None if cut is None else len(h.shape) - 1))
 
 
 def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
@@ -424,7 +546,8 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
                   block_tables: torch.Tensor,
                   start: Optional[torch.Tensor] = None,
                   patch_embeds: Optional[torch.Tensor] = None,
-                  all_logits: bool = False) -> Tuple[torch.Tensor, Params]:
+                  all_logits: bool = False,
+                  mesh=None) -> Tuple[torch.Tensor, Params]:
     """Prefill one left-padded prompt CHUNK per row into the paged pool.
 
     tokens: (Bn, P) int, each row's chunk LEFT-padded to P; lengths:
@@ -449,26 +572,36 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
     Returns (last-real-token logits (Bn, vocab), cache) — or, with
     ``all_logits``, per-position logits (Bn, P, vocab) over the chunk's
     token columns (rows < pad junk; the patch prefix excluded).
+
+    With a ``mesh`` the parameters and the pool are ``sharding.Sharded``
+    (``sharding.place_serve``, ``init_paged_cache(mesh=)``) and the same
+    layer loop runs tensor-parallel: one controller drives every shard,
+    each shard runs the single-device arithmetic on its own parts, and
+    the shards meet only in ``sharding.psum`` / ``all_gather``.  The
+    layout is ``sharding.serve_specs``': the embedding cut on the vocab
+    (``_embed``) or, where the vocab does not divide the axis
+    (granite-3-8b's 49155, internvl2-26b's 92553 at 2 ways), on d_model;
+    q/k/v and their biases column-parallel, each shard attending with
+    its own heads; ``wo`` row-parallel, then psum; the MLP column- then
+    row-parallel, then psum (the MoE as ``moe.apply_moe(mesh=)``);
+    ``lm_head`` as ``unembed`` says.  Where Hk does not divide the axis
+    (phi3-medium-14b's 10 kv heads at 4 ways, the reduced tinyllama's 2)
+    attention and the pool stay whole on every shard and only the FFN is
+    cut: explicit per-shard heads cannot split mid-head as GSPMD may.
+    Every other argument and the logits live on shard 0's device.
     """
     check_paged(cfg, "prefill_slots")
-    quantized = kv_quant.is_quantized(cfg.kv_dtype)
     Bn, P = tokens.shape
     dev = tokens.device
     first = start is None
     lengths = lengths.to(torch.int32)
-    pad = P - lengths  # (Bn,)
-    h = params["embed"][tokens.long()]
-    prefix = 0
-    if cfg.family == "vlm" and first:
-        if patch_embeds is None:
-            patch_embeds = torch.zeros((Bn, cfg.num_patches, cfg.d_model),
-                                       dtype=torch.bfloat16, device=dev)
-        h = torch.cat([_project_patches(params, patch_embeds, h.dtype), h],
-                      dim=1)
-        prefix = cfg.num_patches
-    S = prefix + P
+    prefix = cfg.num_patches if cfg.family == "vlm" and first else 0
+    if prefix and patch_embeds is None:
+        patch_embeds = torch.zeros((Bn, cfg.num_patches, cfg.d_model),
+                                   dtype=torch.bfloat16, device=dev)
     start_v = torch.zeros(Bn, dtype=torch.int32, device=dev) if first \
         else start.to(torch.int32)
+    pad = P - lengths  # (Bn,)
     positions = start_v[:, None] + prefix + torch.clamp(
         torch.arange(P, device=dev)[None] - pad[:, None], min=0)
     if prefix:
@@ -476,29 +609,50 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
                                .expand(Bn, prefix), positions], dim=1)
     # Real keys (the patch prefix and the chunk's tokens): the MoE
     # routing's validity mask.
-    sidx = torch.arange(S, device=dev)[None]
+    sidx = torch.arange(prefix + P, device=dev)[None]
     real_key = (sidx < prefix) | (sidx >= prefix + pad[:, None])
+    attn = dict(start=None if first else start_v, prefix=prefix,
+                kernel=cfg.attn_kernel,
+                kv_dtype=cfg.kv_dtype
+                if kv_quant.is_quantized(cfg.kv_dtype) else None)
+    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    h = _embed(params["embed"], bc(tokens), mesh)
+    if prefix:
+        w = params["patch_proj"]
+        patches = sharding.all_gather(sharding.smap(
+            lambda pe, w_, x: _project_patches({"patch_proj": w_}, pe,
+                                               x.dtype),
+            bc(patch_embeds), w, h, mesh=mesh,
+            dim=None if sharding.cut_dim(w) is None else 2))
+        h = sharding.smap(lambda a_, b_: torch.cat([a_, b_], dim=1),
+                          patches, h, mesh=mesh)
+    positions, real_key = bc(positions), bc(real_key)
+    lengths, tables = bc(lengths), bc(block_tables)
+    attn["start"] = bc(attn["start"])
+    lcfg = sharding.shard_cfg(cfg, mesh)
+    heads = 2 if sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1 \
+        else None
     for layer in range(cfg.num_layers):
         blk = layer_params(params, layer)
-        q, k, v = _attn_qkv(cfg, blk, h, positions)
+        q, k, v = sharding.smap(
+            lambda b_, x, pos: tuple(t.contiguous()
+                                     for t in _attn_qkv(lcfg, b_, x, pos)),
+            blk, h, positions, mesh=mesh, dim=heads)
         a = prefill_ops.prefill_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            cache["k"][layer], cache["v"][layer], lengths, block_tables,
-            start=None if first else start_v, prefix=prefix,
-            kernel=cfg.attn_kernel, kv_scales=_layer_scales(cache, layer),
-            kv_dtype=cfg.kv_dtype if quantized else None)[0]
-        h = _attn_post(cfg, blk, h, a, moe_valid=real_key)
+            q, k, v, cache["k"][layer], cache["v"][layer], lengths, tables,
+            kv_scales=_layer_scales(cache, layer), mesh=mesh, **attn)[0]
+        h = _attn_post(cfg, blk, h, a, moe_valid=real_key, mesh=mesh)
     # Left padding aligns every row's last REAL token at index S - 1.
-    if all_logits:
-        return unembed(cfg, params, h[:, prefix:]), cache
-    return unembed(cfg, params, h[:, -1]), cache
+    h = sharding.smap(lambda x: x[:, prefix:] if all_logits else x[:, -1],
+                      h, mesh=mesh)
+    return unembed(cfg, params, h, mesh), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: torch.Tensor, position: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Params]:
+                block_tables: Optional[torch.Tensor] = None,
+                mesh=None) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step.
 
     tokens: (B, 1); position: a scalar or (B,) int32 index of each row's
@@ -513,26 +667,38 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     ignores it (dead lanes are masked by their trash tables).
 
     Returns (logits (B, 1, vocab), cache) with the cache written in place.
+
+    With a ``mesh`` (paged pool only) the attention families' layer loop
+    runs tensor-parallel, as ``prefill_slots`` says.
     """
     fam = cfg.family
     if block_tables is not None:
         check_paged(cfg, "decode_step")
-    h = params["embed"][tokens.long()]
+    elif mesh is not None:
+        raise NotImplementedError(
+            "decode_step over a mesh covers the paged pool only")
     prefix = cfg.num_patches if fam == "vlm" else 0
-    pos = (torch.as_tensor(position, dtype=torch.int32, device=h.device)
+    pos = (torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
            + prefix).expand(tokens.shape[0])
     if fam in ATTENTION_FAMILIES:
-        valid = None if active is None else active[:, None]
+        bc = functools.partial(sharding.broadcast, mesh=mesh)
+        h = _embed(params["embed"], bc(tokens), mesh)
+        pos, tables = bc(pos.contiguous()), bc(block_tables)
+        valid = bc(None if active is None else active[:, None])
         for layer in range(cfg.num_layers):
             blk = layer_params(params, layer)
             scales = None if block_tables is None \
                 else _layer_scales(cache, layer)
+            xn = sharding.smap(lambda n, x: layers.apply_norm(cfg, n, x),
+                               blk["ln_attn"], h, mesh=mesh)
             a = layers.attention_decode(
-                cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], h),
-                cache["k"][layer], cache["v"][layer], pos, block_tables,
-                kv_scales=scales)[0]
-            h = _ffn(cfg, blk, h + a, valid)
-    elif fam == "ssm":
+                cfg, blk["attn"], xn, cache["k"][layer], cache["v"][layer],
+                pos, tables, kv_scales=scales, mesh=mesh)[0]
+            h = _ffn(cfg, blk, sharding.smap(torch.add, h, a, mesh=mesh),
+                     valid, mesh)
+        return unembed(cfg, params, h, mesh), cache
+    h = params["embed"][tokens.long()]
+    if fam == "ssm":
         for layer in range(cfg.num_layers):
             h = _mamba_decode(cfg, layer_params(params, layer), cache,
                               (layer,), h)

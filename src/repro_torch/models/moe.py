@@ -1,7 +1,9 @@
 """Mixture-of-Experts FFN with token-choice top-k routing.
 
-Port of ``repro.models.moe`` (the auto-partitioned path; the reference's
-shard_map path needs a mesh, which the port does not serve yet).  Tokens
+Port of ``repro.models.moe``: the auto-partitioned path, and over a
+``model`` mesh axis the serve layout's (``apply_moe(mesh=)``; the
+reference's expert-parallel shard_map path over ``data`` is not
+ported).  Tokens
 are dispatched by gather into per-expert capacity buffers: each (token,
 k) assignment gets a FIFO slot in its expert's buffer (token-major,
 k-minor), assignments past the capacity ``C`` and tokens marked invalid
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -100,14 +103,41 @@ def _dispatch_indices(cfg: ModelConfig, experts: torch.Tensor, C: int,
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              valid: Optional[torch.Tensor] = None
+              valid: Optional[torch.Tensor] = None, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss).
 
     valid: optional (B, S) bool — False tokens consume no expert capacity
     and get no expert output (the shared expert still runs on them).
     The capacity counts every row and column of ``x``, pads and dead
-    lanes included, as the reference's does."""
+    lanes included, as the reference's does.
+
+    mesh: a ``model`` mesh axis, the experts placed as the serve rule
+    places them at data = 1 (``p``, ``x`` and ``valid`` then
+    ``sharding.Sharded`` trees): each expert's hidden dim is cut over the
+    shards, the router is whole on every shard (so every shard routes
+    and dispatches alike), and a ``psum`` follows the down projection's
+    partial outputs, combined per token; the shared expert is cut as a
+    dense MLP, with its own ``psum``.  The output is then equal on every
+    shard, and so is aux."""
+    routed = {k: v for k, v in p.items() if k != "shared"}
+    out, aux = sharding.smap(lambda p_, x_, v_: _routed(cfg, p_, x_, v_),
+                             routed, x, valid, mesh=mesh)
+    if sharding.cut_dim(p["w_down"]) is not None:
+        out = sharding.psum(out)
+    if "shared" in p:
+        sh = sharding.smap(lambda p_, x_: _shared(cfg, p_, x_),
+                           p["shared"], x, mesh=mesh)
+        if sharding.cut_dim(p["shared"]["w_down"]) is not None:
+            sh = sharding.psum(sh)
+        out = sharding.smap(torch.add, out, sh, mesh=mesh)
+    return out, aux
+
+
+def _routed(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            valid: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' half of ``apply_moe``: (out (B, S, d), aux)."""
     B, S, d = x.shape
     G = 1  # dispatch groups: one per data shard, one without a mesh
     T = B * S // G
@@ -121,10 +151,12 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
         cfg, experts, C, None if valid is None else valid.reshape(G, T))
     expert_out = _expert_ffn(p, _gather(xt, buf_tok))
     out = _combine(expert_out, experts, slot, weights, C)
-    if "shared" in p:
-        out = out + apply_shared(cfg, p["shared"], xt.reshape(G * T, d)
-                                 ).reshape(G, T, d)
     return out.reshape(B, S, d), aux
+
+
+def _shared(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert on every token of x (B, S, d)."""
+    return apply_shared(cfg, p, x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 def _gather(xt: torch.Tensor, buf_tok: torch.Tensor) -> torch.Tensor:

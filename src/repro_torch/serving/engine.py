@@ -56,8 +56,20 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 ``serving.sampler``): a request's token at position p depends on (seed,
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
-Outside the port so far the engine raises ``NotImplementedError``:
-meshes and ``kv_dtype="f8"``.
+``mesh=`` (a (data=1, model=m) ``launch.mesh.Mesh``) serves the
+continuous path tensor-parallel, as the reference's single controller
+per replica: the host-side scheduler (queue, BlockStore, tables,
+admission and preemption) runs once on this process; the weights are
+cut by ``sharding.place_serve`` (``param_specs(mode="serve")``), the pool
+on its KV heads (payload and scales together), and both paged attention
+paths run once per shard at the shard's head counts.  Logits, sampled
+tokens and every scheduler input live on shard 0's device.  Each engine
+places and runs under its own ``sharding.use_axes``: nothing leaks into
+the ambient axis state.
+
+The engine raises ``NotImplementedError`` for what the port does not
+serve: ``kv_dtype="f8"``, and under a mesh ``mode="wave"``, the
+recurrent families and data axes above 1.
 """
 from __future__ import annotations
 
@@ -75,6 +87,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.flash_decode.ops import ATTN_KERNEL_MODES
 from repro_torch.models import model as M
+from repro_torch.parallel import sharding
 from repro_torch.serving.paged import (BlockStore, OutOfBlocks, TRASH_BLOCK,
                                        chain_hashes, chain_root_for)
 from repro_torch.serving.sampler import (SamplerConfig, positional_keys,
@@ -256,8 +269,15 @@ class ServingEngine:
                  decode_kernel: Optional[str] = None):
         """The reference engine's knobs (see its docstrings), plus
         ``device``: the card by default, ``"cpu"`` on request; ``params``
-        must already live there.  Raises ``NotImplementedError`` for what
-        the port does not serve yet (meshes, ``kv_dtype="f8"``).
+        must already live there (with a ``mesh``: on its shard 0 device,
+        whole or already placed, e.g. ``model.init_params(mesh=)``).
+        Raises ``NotImplementedError`` for what the port does not serve
+        yet (``kv_dtype="f8"``; under a mesh: waves, the recurrent
+        families, data axes above 1).
+
+        ``mesh``: a ``launch.mesh.Mesh`` with a ``model`` axis (see the
+        module docstring); its shard 0 device is the engine's, and
+        ``device`` must name it or be None.
 
         ``spec_decode="ngram"`` / ``spec_k`` (continuous mode only):
         speculative decoding.  Emitted tokens equal ``spec_decode="off"``
@@ -282,8 +302,6 @@ class ServingEngine:
             raise ValueError(
                 f"preempt_policy {preempt_policy!r} not in "
                 f"{PREEMPT_POLICIES}")
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel meshes are not ported")
         if mode == "auto":
             mode = "continuous" if cfg.family in CONTINUOUS_FAMILIES \
                 else "wave"
@@ -317,8 +335,13 @@ class ServingEngine:
         if kv_dtype is not None:
             cfg = dc_replace(cfg, kv_dtype=kv_dtype)
         M.check_kv_dtype(cfg)
+        if mesh is not None:
+            self._check_mesh(cfg, mesh, mode, device)
+            device = sharding.model_devices(mesh)[0]
         self.mode = mode
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._axes = sharding.AxisState.from_mesh(mesh)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on "
@@ -358,8 +381,40 @@ class ServingEngine:
         self.spec_k = spec_k
         self._proposer = make_proposer(spec_decode)
         self.params = params
+        if mesh is not None:
+            with sharding.use_axes(self._axes):
+                self.params = sharding.place_serve(cfg, params, mesh)
         if mode == "continuous":
             self._init_continuous()
+
+    @staticmethod
+    def _check_mesh(cfg: ModelConfig, mesh, mode: str,
+                    device: DeviceLike) -> None:
+        """What the port serves over a mesh: continuous batching of the
+        attention families, one data shard."""
+        if cfg.family not in CONTINUOUS_FAMILIES:
+            raise NotImplementedError(
+                f"family {cfg.family!r} over a mesh is not ported (the "
+                f"paged pool covers {CONTINUOUS_FAMILIES})")
+        if mode != "continuous":
+            raise NotImplementedError(
+                "mode='wave' over a mesh is not ported (the wave path's "
+                "dense stripes are not sharded)")
+        if any(n > 1 for a, n in mesh.shape.items() if a != "model"):
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: data axes above 1 are not ported")
+        dev0 = sharding.model_devices(mesh)[0]
+        if device is not None and resolve_device(device) != dev0:
+            raise ValueError(f"device {device} is not the mesh's shard 0 "
+                             f"device {dev0}")
+
+    def _model(self, fn, *args, **kwargs):
+        """A model call under this engine's axis state, over its mesh
+        when it has one."""
+        if self._mesh is not None:
+            kwargs["mesh"] = self._mesh
+        with sharding.use_axes(self._axes):
+            return fn(self.cfg, self.params, self._cache, *args, **kwargs)
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -556,9 +611,9 @@ class ServingEngine:
                          pad_id=self.pad_id)
             self._budget -= active.to(torch.int32)
             retire = active & ((tok == self.eos_id) | (self._budget <= 0))
-            logits, self._cache = M.decode_step(
-                cfg, self.params, self._cache, tok[:, None], self._pos,
-                active=active, block_tables=tbl)
+            logits, self._cache = self._model(
+                M.decode_step, tok[:, None], self._pos, active=active,
+                block_tables=tbl)
             self._logits = logits[:, 0]
             self._pos += active.to(torch.int32)
             self._active = active & ~retire
@@ -711,9 +766,9 @@ class ServingEngine:
         len_d = torch.from_numpy(lengths).to(dev)
         start_d = torch.from_numpy(starts).to(dev)
         tables = torch.from_numpy(self._alloc.block_table()[lanes]).to(dev)
-        logits_all, self._cache = M.prefill_slots(
-            self.cfg, self.params, self._cache, tok_d, len_d, tables,
-            start=start_d, all_logits=True)
+        logits_all, self._cache = self._model(
+            M.prefill_slots, tok_d, len_d, tables, start=start_d,
+            all_logits=True)
         pad = P - len_d
         # Column c holds the token at position (start - pfx) + (c - pad);
         # what decode emits after it samples column c's logits with the
@@ -838,13 +893,18 @@ class ServingEngine:
                                  kv_dtype=cfg.kv_dtype)
         # +1 device block: id 0 is the dead-lane trash sink.  Raises for
         # the families and pool encodings the port does not serve yet.
-        self._cache = M.init_paged_cache(cfg, self.num_blocks + 1, bs,
-                                         device=dev)
+        with sharding.use_axes(self._axes):
+            self._cache = M.init_paged_cache(cfg, self.num_blocks + 1, bs,
+                                             device=dev, mesh=self._mesh)
         # Device bytes per pool block, all layers, K+V, over every leaf
-        # (axis 1 is blocks for payload and scale leaves alike): a SCLAD
-        # pool's figure is its payload plus its fp32 scales.
+        # (axis 1 is blocks for payload and scale leaves alike) and every
+        # shard's part: a SCLAD pool's figure is its payload plus its fp32
+        # scales; a pool whole on every shard counts once a device.
         self.kv_block_bytes = sum(
-            x[:, 0].numel() * x.element_size() for x in self._cache.values())
+            x[:, 0].numel() * x.element_size()
+            for leaf in self._cache.values()
+            for x in (leaf.distinct_parts()
+                      if isinstance(leaf, sharding.Sharded) else (leaf,)))
         ldtype = self.params["embed"].dtype
         self._logits = torch.zeros((B, cfg.vocab_size), dtype=ldtype,
                                    device=dev)
@@ -1073,9 +1133,8 @@ class ServingEngine:
         patches = None
         if first and self.cfg.family == "vlm":
             patches = self._patch_batch([s.req for s in cohort])
-        logits_new, self._cache = M.prefill_slots(
-            self.cfg, self.params, self._cache,
-            torch.from_numpy(tokens).to(dev),
+        logits_new, self._cache = self._model(
+            M.prefill_slots, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(lengths).to(dev), tables,
             start=None if first else torch.from_numpy(starts).to(dev),
             patch_embeds=patches)

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_prefill import ops as prefill_ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         tensor_from_numpy)
@@ -46,7 +47,8 @@ def test_import_loads_neither_jax_nor_repro():
         "for n in ('repro_torch.training.train_loop', "
         "'repro_torch.launch.train', 'repro_torch.launch.steps', "
         "'repro_torch.training.checkpoint', "
-        "'repro_torch.examples.train_lm'):\n"
+        "'repro_torch.examples.train_lm', "
+        "'repro_torch.parallel.sharding', 'repro_torch.launch.mesh'):\n"
         "    assert n in names and n in sys.modules, n\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
@@ -131,13 +133,21 @@ def test_kernel_on_with_cpu_tensors_raises():
 def test_unported_options_raise():
     cfg = get_config("tinyllama-1.1b").reduced()
     params = M.init_params(cfg, 0, device="cpu")
-    for kw in (dict(mesh=object()), dict(kv_dtype="f8"),
-               dict(kv_dtype="f8", mode="wave"),
-               dict(spec_decode="ngram", mesh=object())):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, params, device="cpu", **kw)
-    # Every family is served; the recurrent ones only in wave mode.
+    two = make_mesh((1, 2), ("data", "model"), "cpu")
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
+    for c, kw in ((cfg, dict(kv_dtype="f8")),
+                  (cfg, dict(kv_dtype="f8", mode="wave")),
+                  (cfg, dict(mesh=two, mode="wave")),
+                  (ssm, dict(mesh=two)),
+                  (cfg, dict(mesh=make_mesh((2, 2), ("data", "model"),
+                                            "cpu")))):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(c, params, device="cpu", **kw)
+    # A (data=1, model=m) mesh serves the attention families, with
+    # speculation too.
+    assert ServingEngine(cfg, params, device="cpu", mesh=two,
+                         spec_decode="ngram").mode == "continuous"
+    # Every family is served; the recurrent ones only in wave mode.
     assert ServingEngine(ssm, params, device="cpu").mode == "wave"
     with pytest.raises(ValueError, match="block-addressable"):
         ServingEngine(ssm, params, device="cpu", mode="continuous")

@@ -25,6 +25,7 @@ jax = pytest.importorskip("jax")
 import torch_parity as tp  # noqa: E402
 from repro.serving.spec import NgramProposer as JaxNgram  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.paged import BlockStore  # noqa: E402
@@ -84,8 +85,11 @@ def test_make_proposer_and_constructor_checks():
         ServingEngine(cfg, params, mode="wave", spec_decode="ngram",
                       device="cpu")
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, spec_decode="ngram", mesh=object(),
-                      device="cpu")
+        ServingEngine(cfg, params, spec_decode="ngram", device="cpu",
+                      mesh=make_mesh((2, 2), ("data", "model"), "cpu"))
+    assert ServingEngine(cfg, params, spec_decode="ngram", device="cpu",
+                         mesh=make_mesh((1, 2), ("data", "model"), "cpu")
+                         ).mode == "continuous"
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, params, spec_decode="ngram", kv_dtype="f8",
                       device="cpu")
