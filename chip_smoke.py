@@ -172,7 +172,26 @@ outside the repository.  Phases, each of which raises on failure:
      the shards drawn leaf by leaf from the same seed (init peak memory),
      the logits check on a bf16 pool (the MoE replaying the meshless
      expert choices) and 4 greedy requests;
- 13. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 13. training over a (data, model) mesh naming the card d x m times
+     (``make_train_step(mesh=)``: FSDP over data x TP over model, one
+     controller): full-width tinyllama-1.1b, one AdamW step of phase
+     11's 4 x 2048 batch meshless and at (2, 1), (1, 2) and (2, 2) —
+     loss, grad norm, every leaf's first moment and update against the
+     meshless step with the same batch split (``split_step``; the
+     meshless step itself read twice; ``MESH_*`` limits, the worst and
+     the median leaf named), no kernel launch, the bytes each step
+     counts by kind equal to ``dryrun.train_collectives`` exactly, ms a
+     step and peak memory printed; the data-parallel meshes' larger
+     distance from the unsplit step reproduced at the embedding outside
+     the mesh (``embedding_check``); a control that leaves the gradients
+     unsummed over the data axis, which must fail the limits;
+     the 22 blocks as 2 pipeline stages (``pipeline_apply``, 4
+     microbatches of 2 x 512, no grad) against the sequential stack,
+     ppermute bytes = ticks x stages x a microbatch; qwen2-moe-a2.7b's
+     MoE layer at full width through ``apply_moe_manual`` at (2, 2)
+     against the auto path in 2 dispatch groups (99% of tokens within 2%
+     of scale, aux within 0.05) with its bytes equal to the count;
+ 14. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1258,29 +1277,30 @@ def run_launcher(torch, card):
 
 @contextlib.contextmanager
 def routing(torch, log, replay):
-    """Record each ``models.moe.route`` call's expert choice into ``log``,
-    or (``replay``) route every call to ``log``'s choices in order, with
-    weights renormalised from this run's router probabilities at those
-    experts; a replay must use the whole log."""
+    """Record each ``models.moe._route_stats`` call's expert choice (the
+    routing of every MoE layer) into ``log``, or (``replay``) route every
+    call to ``log``'s choices in order, with weights renormalised from
+    this run's router probabilities at those experts; a replay must use
+    the whole log."""
     from repro_torch.models import moe
-    route, it = moe.route, iter(log)
+    route, it = moe._route_stats, iter(log)
 
     def recorded(cfg, router_w, x):
-        weights, experts, aux = route(cfg, router_w, x)
+        weights, experts, me, ce = route(cfg, router_w, x)
         if not replay:
             log.append(experts)
-            return weights, experts, aux
+            return weights, experts, me, ce
         experts = next(it)
         probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
         weights = probs.gather(1, experts)
         return weights / weights.sum(-1, keepdim=True).clamp(min=1e-9), \
-            experts, aux
+            experts, me, ce
 
-    moe.route = recorded
+    moe._route_stats = recorded
     try:
         yield
     finally:
-        moe.route = route
+        moe._route_stats = route
     if replay and next(it, None) is not None:
         raise AssertionError("routing replay: calls differ from the log")
 
@@ -1594,8 +1614,8 @@ def spans(torch, module, names):
 #: The MoE FFN's stages (``models.moe``), each a span of the MoE decode
 #: profile: routing, slot assignment, the gather into expert buffers, the
 #: expert products, the weighted combine and the shared expert.
-MOE_SPANS = ("route", "_dispatch_indices", "_gather", "_expert_ffn",
-             "_combine", "apply_shared")
+MOE_SPANS = ("_route_stats", "_dispatch_indices", "_gather",
+             "_expert_ffn", "_combine", "apply_shared")
 
 
 def profile_decode(torch, eng, cfg, card, moe_spans=False):
@@ -2327,10 +2347,10 @@ def run_training(torch, gen, card):
 SHARD_WAYS = (2, 4)
 
 
-def card_mesh(m):
-    """A (data=1, model=m) mesh naming the card m times."""
+def card_mesh(m, d=1):
+    """A (data=d, model=m) mesh naming the card d x m times."""
     from repro_torch.launch.mesh import make_mesh
-    return make_mesh((1, m), ("data", "model"), "cuda")
+    return make_mesh((d, m), ("data", "model"), "cuda")
 
 
 def decode_collective_bytes(cfg, m, nb=4):
@@ -2657,6 +2677,451 @@ def run_sharded_family(torch, cfg, gen, card, m=2):
                            cases[1] if vlm else "continuation", run[2])
 
 
+#: The mesh training phase: (data, model) meshes naming the card d x m
+#: times, one AdamW step of full-width tinyllama-1.1b on phase 11's
+#: batch (bf16 weights, fp32 moments) at each, against the meshless
+#: step from the same start.
+TRAIN_MESHES = ((2, 1), (1, 2), (2, 2))
+#: Limits of a sharded step against the meshless step run with the
+#: same batch split (``split_step``: a (d, m) mesh's d row blocks each
+#: back-propagated alone, their bf16 gradients added in block order, as
+#: the reduce-scatter and ``sum_replicas`` add them): the loss within
+#: MESH_LOSS_REL relative, the grad norm within MESH_NORM_REL; each
+#: leaf's first moment (the clipped gradient, fp32) within
+#: MESH_MOMENT_REL of its norm; each leaf's update (new minus old
+#: weights) within MESH_UPDATE_REL of the reference update's norm —
+#: AdamW's first step moves an element by about lr * sign(g), so
+#: elements whose gradient is at bf16 noise level may move 2 lr apart.
+#: Against the unsplit meshless step a data-parallel mesh reads more at
+#: the embedding, which ``embedding_check`` reproduces outside the mesh
+#: within EMBED_FACTOR.  The control (gradients not summed over the data
+#: axis) must exceed the limits.
+MESH_LOSS_REL, MESH_NORM_REL = 5e-3, 1e-2
+MESH_MOMENT_REL, MESH_UPDATE_REL = 5e-2, 0.3
+EMBED_FACTOR = 2.0
+#: qwen2-moe-a2.7b's one MoE layer: B x S tokens, the manual path at
+#: (2, 2) against the auto path in 2 dispatch groups.
+MOE_B, MOE_S = 4, 512
+#: The pipeline check: tinyllama-1.1b's 22 blocks as 2 stages of 11, 4
+#: microbatches of 2 x 512, against the sequential stack within the
+#: model checks' share of the output's range.
+PIPE_STAGES, PIPE_MB, PIPE_ROWS, PIPE_S = 2, 4, 2, 512
+PIPE_SHARE = 0.05
+
+
+def rel_norm(torch, a, b):
+    """||a - b|| / ||b|| in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def unsummed_over_data():
+    """The control: each data shard keeps its own gradient — the
+    all_gather's transpose takes the place's own cotangent instead of
+    the group's sum, and the replicated leaves' sums are skipped (on a
+    (data, 1) mesh every gather and every replica is over data)."""
+    from repro_torch.parallel import sharding
+    bwd, sums = sharding._Gather.bwd, sharding.sum_replicas
+
+    def own(self, gs):
+        out = [None] * len(gs)
+        for g in self.grps:
+            for i, k in enumerate(g):
+                out[k] = gs[k].chunk(len(g), self.dim)[i]
+        return out
+    sharding._Gather.bwd, sharding.sum_replicas = own, lambda s: s
+    try:
+        yield
+    finally:
+        sharding._Gather.bwd, sharding.sum_replicas = bwd, sums
+
+
+def train_opt():
+    from repro_torch.training import optimizer as opt
+    return opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                           total_steps=TRAIN_STEPS)
+
+
+def mesh_step(torch, cfg, params, batch, mesh):
+    """One AdamW step of ``make_train_step(mesh=)`` (meshless with None)
+    from ``params``: (metrics, whole new weights and first moments by
+    path, ms of a second step from the same start (CUDA events), peak
+    memory of the first, bytes by kind of the first)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding
+    from repro_torch.training import optimizer as opt
+    step = steps.make_train_step(cfg, train_opt(), mesh=mesh)
+    p, b = params, batch
+    if mesh is not None:
+        p = sharding.place_train(cfg, params, mesh)
+        b = sharding.place_batch(cfg, batch, mesh)
+        mesh.moved_bytes.clear()
+    o = opt.init(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new, o1, m = step(p, o, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    moved = dict(mesh.moved_bytes) if mesh is not None else {}
+    whole = {k: sharding.to_whole(v) for k, v in tree_lib.flatten(new)}
+    moments = {k: sharding.to_whole(v) for k, v in tree_lib.flatten(o1.m)}
+    metrics = {k: float(v) for k, v in m.items()}
+    del new, o1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(p, o, b)
+    end.record()
+    torch.cuda.synchronize()
+    return metrics, whole, moments, start.elapsed_time(end), peak, moved
+
+
+def split_step(torch, cfg, params, batch, d, keep=()):
+    """The meshless step with the batch split as a (d, m) mesh splits
+    it: each of the d row blocks' mean loss over d back-propagated alone
+    (``loss_fn``, bf16 gradients as the parameters), the blocks'
+    gradients added in block order in bf16, then AdamW (``update``).
+    With d = 1 it is the meshless step's arithmetic.  -> (metrics, whole
+    new weights and first moments by path, the gradient of each leaf in
+    ``keep`` a block)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt
+    paths = [k for k, _ in tree_lib.flatten(params)]
+    leaves = [v.detach().requires_grad_(True)
+              for v in tree_lib.leaves(params)]
+    tree = tree_lib.unflatten(params, leaves)
+    grads, loss, kept = None, 0.0, {k: [] for k in keep}
+    for i in range(d):
+        block = {n: v.chunk(d)[i] for n, v in batch.items()}
+        with torch.enable_grad():
+            part = M.loss_fn(cfg, tree, block) / d
+            g = torch.autograd.grad(part, leaves)
+        for k in keep:
+            kept[k].append(g[paths.index(k)])
+        grads = list(g) if grads is None else [a + b for a, b in
+                                               zip(grads, g)]
+        loss += float(part.detach())
+    new, o1, m = opt.update(train_opt(), tree_lib.unflatten(params, grads),
+                            opt.init(params), params)
+    metrics = dict({k: float(v) for k, v in m.items()}, loss=loss)
+    return (metrics, dict(tree_lib.flatten(new)),
+            dict(tree_lib.flatten(o1.m)), kept)
+
+
+def leaf_readings(torch, got, want, old):
+    """Per leaf: the first moment's and the update's distance from the
+    reference's, relative to the reference's norm."""
+    (_, gw, gmo), (_, ww, wmo) = got, want
+    moment = {k: rel_norm(torch, gmo[k], wmo[k]) for k in wmo}
+    update = {k: rel_norm(torch, gw[k].float() - old[k].float(),
+                          ww[k].float() - old[k].float()) for k in ww}
+    return moment, update
+
+
+def worst(readings):
+    """(path, value) of the largest reading, and the median value."""
+    k = max(readings, key=readings.get)
+    vals = sorted(readings.values())
+    return k, readings[k], vals[len(vals) // 2]
+
+
+def compare_step(torch, what, got, want, old, card, enforce=True):
+    """A step against a reference by the MESH_* limits; prints the
+    worst leaf of each reading by path, and the median leaf; returns
+    (the limits failed, the per-leaf moment readings).  With
+    ``enforce`` False (the control) only reports."""
+    (gm, _, _), (wm, _, _) = got, want
+    loss = abs(gm["loss"] - wm["loss"]) / abs(wm["loss"])
+    norm = abs(gm["grad_norm"] - wm["grad_norm"]) / wm["grad_norm"]
+    moments, updates = leaf_readings(torch, got, want, old)
+    mk, moment, m_med = worst(moments)
+    uk, update, u_med = worst(updates)
+    fails = [name for name, v, lim in (
+        ("loss", loss, MESH_LOSS_REL), ("grad norm", norm, MESH_NORM_REL),
+        ("moments", moment, MESH_MOMENT_REL),
+        ("updates", update, MESH_UPDATE_REL)) if not v <= lim]
+    print(f"train step {what} [{card}]: loss {gm['loss']:.6f} vs "
+          f"{wm['loss']:.6f} (rel {loss:.2e} <= {MESH_LOSS_REL}), grad "
+          f"norm {gm['grad_norm']:.5f} vs {wm['grad_norm']:.5f} (rel "
+          f"{norm:.2e} <= {MESH_NORM_REL}), worst leaf moment {moment:.2e} "
+          f"at {mk} (<= {MESH_MOMENT_REL}; median leaf {m_med:.2e}), worst "
+          f"leaf update {update:.3f} at {uk} (<= {MESH_UPDATE_REL}; median "
+          f"leaf {u_med:.3f})"
+          f"{'; fails ' + ', '.join(fails) if fails else ''}")
+    if enforce and fails:
+        raise AssertionError(f"train step {what}: {fails}")
+    return fails, moments
+
+
+def embed_cotangent(torch, loss, embed):
+    """The cotangent of the rows ``embed`` looked up (B, S, d), caught by
+    a pre-hook on the backward node that scatters them into ``embed``'s
+    gradient, and that gradient."""
+    seen, todo, node = set(), [loss.grad_fn], None
+    while todo and node is None:
+        n = todo.pop()
+        if n is None or n in seen:
+            continue
+        seen.add(n)
+        for f, _ in n.next_functions:
+            if getattr(f, "variable", None) is embed:
+                node = n
+            todo.append(f)
+    got = {}
+    handle = node.register_prehook(lambda go: got.update(dh=go[0]))
+    (grad,) = torch.autograd.grad(loss, [embed])
+    handle.remove()
+    return got["dh"], grad
+
+
+def embedding_check(torch, cfg, params, batch, d, reading, norms, card):
+    """Why a data-parallel step reads more than a model-parallel one
+    against the unsplit meshless step, at the leaf where it reads most:
+    the embedding's gradient is a scatter-add of the looked-up rows'
+    cotangents over the batch's Zipf-distributed tokens, and PyTorch's
+    ``index_put_`` backward rounds a row to bf16 after each addition, so
+    a frequent token's row is a long chain of bf16 additions; split d
+    ways, each block's chain is 1/d as long.  On the meshless step's own
+    cotangents: the whole batch's bf16 scatter (autograd's gradient,
+    bit for bit) against the d blocks' bf16 scatters added in bf16, each
+    against an fp32 scatter.  The whole-vs-split distance must reproduce
+    ``reading`` (the step's embed moment, (d, 1) vs unsplit) within
+    EMBED_FACTOR; ``norms`` (the unsplit and split steps' grad norms)
+    against the embedding's share of their difference."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model as M
+    paths = [k for k, _ in tree_lib.flatten(params)]
+    leaves = [v.detach().requires_grad_(True)
+              for v in tree_lib.leaves(params)]
+    embed = leaves[paths.index("embed")]
+    with torch.enable_grad():
+        loss = M.loss_fn(cfg, tree_lib.unflatten(params, leaves), batch)
+        dh, grad = embed_cotangent(torch, loss, embed)
+    tok = batch["tokens"].long()
+
+    def scatter(rows, dtype):
+        out = torch.zeros(embed.shape, dtype=dtype, device=embed.device)
+        return out.index_put_((tok[rows].reshape(-1),), dh[rows].reshape(
+            -1, dh.shape[-1]).to(dtype), accumulate=True)
+
+    whole = scatter(slice(None), torch.bfloat16)
+    split = None
+    for rows in torch.arange(tok.shape[0]).chunk(d):
+        block = scatter(rows, torch.bfloat16)
+        split = block if split is None else split + block
+    exact = scatter(slice(None), torch.float32)
+    same = bool(torch.equal(whole, grad))
+    r_ws = rel_norm(torch, split, whole)
+    r_w, r_s = rel_norm(torch, whole, exact), rel_norm(torch, split, exact)
+    d_embed = float(split.float().norm() ** 2 - whole.float().norm() ** 2)
+    d_total = norms[1] ** 2 - norms[0] ** 2
+    print(f"embedding check {cfg.name} d={d} [{card}]: autograd's embed "
+          f"gradient is the bf16 scatter bit for bit: {same}; most frequent "
+          f"token {int(torch.bincount(tok.reshape(-1)).max())} of "
+          f"{tok.numel()} positions; split vs whole scatter {r_ws:.2e} "
+          f"(step reading {reading:.2e}, within {EMBED_FACTOR}x); vs an fp32 "
+          f"scatter: whole {r_w:.2e}, split {r_s:.2e}; the embedding's "
+          f"|g|^2 moves {d_embed:+.2f} of the grad norm^2's {d_total:+.2f}")
+    if not (same and reading / EMBED_FACTOR <= r_ws
+            <= reading * EMBED_FACTOR):
+        raise AssertionError(f"embedding check: {same}, {r_ws} vs "
+                             f"{reading}")
+
+
+def check_bytes(what, moved, want, card):
+    """The bytes a step counted, by kind, against the dry run's count."""
+    want = {k: int(round(v)) for k, v in want.items() if v}
+    print(f"{what} bytes between places [{card}]: {moved}; dry-run count "
+          f"{'equal' if moved == want else want}")
+    if moved != want:
+        raise AssertionError(f"{what}: counted {moved}, dry run {want}")
+
+
+def moe_layer(torch, cfg, gen):
+    """One MoE layer's random leaves (``moe.param_shapes``): the router
+    fp32, the rest bf16, N(0, 1/fan_in)."""
+    from repro_torch.models import layers, moe
+    return {k: ({n: layers.dense_init(gen, s) for n, s in v.items()}
+                if isinstance(v, dict) else layers.dense_init(
+                    gen, v, dtype=torch.float32 if k == "router"
+                    else torch.bfloat16))
+            for k, v in moe.param_shapes(cfg).items()}
+
+
+def check_moe_manual(torch, gen, card):
+    """qwen2-moe-a2.7b's MoE layer at full width (60 experts top-4 plus
+    the shared expert, d 2048): ``apply_moe_manual`` on a (2, 2) mesh
+    against the auto path in 2 dispatch groups by the reference's
+    criterion (99% of tokens within 2% of the output's scale, aux within
+    0.05), and its bytes against the dry run's count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M, moe
+    from repro_torch.parallel import sharding
+    cfg = get_config(MOE_ARCH)
+    p = moe_layer(torch, cfg, gen)
+    x = (torch.randn(MOE_B, MOE_S, cfg.d_model, device="cuda",
+                     generator=gen) * 0.5).bfloat16()
+    mesh = card_mesh(2, d=2)
+    with torch.no_grad():
+        with sharding.use_axes(sharding.AxisState(
+                (("data", 2), ("model", 1)))):
+            ref, aux_ref = moe.apply_moe(cfg, p, x)
+        experts = ("w_gate", "w_up", "w_down")
+        placed = M._tree_map(lambda v: v[0], sharding.place_train(
+            cfg, {"blocks": {"moe": M._tree_map(lambda v: v[None], p)}},
+            mesh)["blocks"]["moe"])
+        placed = M.gather_data(placed, keep=lambda path: path[-1] in experts
+                               and "shared" not in path)
+        xs = sharding.place_batch(cfg, {"x": x}, mesh)["x"]
+        if not moe.expert_parallel(cfg, mesh, xs):
+            raise AssertionError("the manual MoE path does not apply")
+        mesh.moved_bytes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = moe.apply_moe(cfg, placed, xs, mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    got = torch.cat([out.parts[g[0]] for g in sharding.groups(mesh, "model")])
+    tok = ((got.float() - ref.float()).abs().amax(-1)
+           / (ref.float().abs().max() + 1e-9))
+    frac = float((tok < 0.02).float().mean())
+    aux_err = max(abs(float(a) - float(aux_ref)) for a in aux.parts)
+    print(f"moe manual {cfg.name} (2, 2) vs auto G=2 [{card}]: "
+          f"{frac:.4%} of tokens within 2% of scale (>= 99%), aux "
+          f"{float(aux.parts[0]):.5f} vs {float(aux_ref):.5f} (|d| "
+          f"{aux_err:.2e} < 0.05), {ms:.1f} ms host wall")
+    if frac < 0.99 or not aux_err < 0.05:
+        raise AssertionError(f"moe manual: {frac}, aux {aux_err}")
+    check_bytes(f"moe manual {cfg.name} (2, 2)", dict(mesh.moved_bytes),
+                dryrun.moe_layer_collectives(cfg, MOE_B // 2, MOE_S, mesh),
+                card)
+
+
+def check_pipeline(torch, cfg, params, card):
+    """tinyllama-1.1b's blocks as PIPE_STAGES stages through
+    ``pipeline_apply`` against the sequential stack, no grad; the
+    activations' ppermute bytes against ticks x stages x one
+    microbatch."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel.pipeline import (pipeline_apply,
+                                               split_microbatches)
+    L = cfg.num_layers // PIPE_STAGES
+    staged = M._tree_map(lambda v: v.reshape((PIPE_STAGES, L)
+                                             + tuple(v.shape[1:])),
+                         params["blocks"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_MB * PIPE_ROWS, PIPE_S),
+                         device="cuda", generator=g)
+    pos = torch.arange(PIPE_S, device="cuda")
+
+    def run(blocks, x):
+        return M.backbone(cfg, {"blocks": blocks}, x, pos)[0]
+
+    mesh = make_mesh((PIPE_STAGES,), ("stage",), "cuda")
+    with torch.no_grad():
+        h = params["embed"][toks]
+        ref = run(params["blocks"], h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_apply(run, staged, split_microbatches(h, PIPE_MB),
+                             mesh).reshape(h.shape)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    share = float((out.float() - ref.float()).abs().max()
+                  / (ref.float().max() - ref.float().min()))
+    ticks = PIPE_MB + PIPE_STAGES - 1
+    act = PIPE_ROWS * PIPE_S * cfg.d_model * 2
+    want = ticks * PIPE_STAGES * act
+    print(f"pipeline {cfg.name} {PIPE_STAGES} stages x {L} blocks, "
+          f"{PIPE_MB} microbatches of {PIPE_ROWS} x {PIPE_S} [{card}]: "
+          f"max|out - seq| {share:.3%} of the range (<= {PIPE_SHARE:.0%}); "
+          f"ppermute {mesh.moved_bytes.get('ppermute')} bytes = {ticks} "
+          f"ticks x {PIPE_STAGES} stages x {act} ({ticks * act} a stage); "
+          f"{ms:.1f} ms host wall")
+    if not share <= PIPE_SHARE:
+        raise AssertionError(f"pipeline: {share}")
+    if mesh.moved_bytes.get("ppermute") != want:
+        raise AssertionError(f"pipeline bytes {mesh.moved_bytes}")
+
+
+def run_mesh_training(torch, gen, card):
+    """The mesh training phase: full-width tinyllama-1.1b, one AdamW step
+    meshless and at each TRAIN_MESHES mesh on the one card (loss, grad
+    norm, every leaf's moment and update against the meshless step with
+    the same batch split; bytes by kind equal to the dry run's count; ms
+    a step and peak memory), the embedding check, the unsummed-gradients
+    control at (2, 1); qwen2-moe-a2.7b's manual MoE layer; the pipeline
+    schedule."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    batch = train_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    old = dict(tree_lib.flatten(params))
+    zero_launches()
+    base = mesh_step(torch, cfg, params, batch, None)
+    again = split_step(torch, cfg, params, batch, 1)
+    compare_step(torch, f"{cfg.name} meshless, read twice (split_step d=1 "
+                 f"vs make_train_step)", again[:3], base[:3], old, card)
+    del again
+    rows = [("meshless", base[3], base[4])]
+    split, unsplit = {1: base[:3]}, {}
+    for shape in TRAIN_MESHES:
+        d = shape[0]
+        if d not in split:
+            split[d] = split_step(torch, cfg, params, batch, d)[:3]
+        mesh = card_mesh(shape[1], d=d)
+        got = mesh_step(torch, cfg, params, batch, mesh)
+        compare_step(torch, f"{cfg.name} {shape} vs meshless"
+                     + (f" split {d} ways" if d > 1 else ""), got[:3],
+                     split[d], old, card)
+        if d > 1:
+            _, moments = compare_step(
+                torch, f"{cfg.name} {shape} vs meshless unsplit (not "
+                f"gated: see the embedding check)", got[:3], base[:3], old,
+                card, enforce=False)
+            unsplit.setdefault(d, moments["embed"])
+        check_bytes(f"train step {cfg.name} {shape}", got[5],
+                    dryrun.train_collectives(cfg, TRAIN_B, TRAIN_S, mesh,
+                                             params), card)
+        rows.append((str(shape), got[3], got[4]))
+        del got
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the grad path: "
+                             f"{launches}")
+    embedding_check(torch, cfg, params, batch, 2, unsplit[2],
+                    (base[0]["grad_norm"], split[2][0]["grad_norm"]), card)
+    with unsummed_over_data():
+        ctrl = mesh_step(torch, cfg, params, batch, card_mesh(1, d=2))
+    if not compare_step(torch, f"{cfg.name} (2, 1) control (gradients not "
+                        f"summed over data) vs meshless split 2 ways",
+                        ctrl[:3], split[2], old, card, enforce=False)[0]:
+        raise AssertionError("the unsummed-gradients control passed")
+    del ctrl, split
+    print(f"train step {cfg.name} B={TRAIN_B} S={TRAIN_S} by mesh [{card}]: "
+          + "; ".join(f"{n} {ms:.1f} ms/step, peak {pk / 2**30:.2f} GiB"
+                      for n, ms, pk in rows)
+          + " (one card holds every place: no speedup is expected)")
+    del base
+    torch.cuda.empty_cache()
+    check_pipeline(torch, cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
+    check_moe_manual(torch, gen, card)
+    print(f"mesh training phase [{card}]: {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -2813,7 +3278,10 @@ def main() -> int:
     # the one card.
     sharded = run_sharded(torch, gen, card)
 
-    # 13. Result lines.  The quantized bodies report their int8 times (fp8
+    # 13. Training over a (data, model) mesh on the one card.
+    run_mesh_training(torch, gen, card)
+
+    # 14. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)

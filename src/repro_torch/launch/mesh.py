@@ -110,8 +110,9 @@ def make_host_mesh(model_parallel: Optional[int] = None,
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The production mesh's axes, 16 x 16 a pod (x 2 pods multi-pod), on
-    ``meta`` devices: for the sharding rules, which read only axis names
-    and sizes.  Nothing can be placed on it."""
+    ``meta`` devices: for the sharding rules and the dry run
+    (``launch.dryrun``), which read axis names and sizes and place
+    ``meta`` tensors — shapes without storage — on it."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, torch.device("meta"))

@@ -4,7 +4,9 @@ and the wave path's dense-cache prefill and decode (all six).
 
 Port of ``repro.models.model``, tensor-parallel paged serving over a
 ``model`` mesh axis included (``prefill_slots`` / ``decode_step`` with
-``mesh=``):
+``mesh=``), and the training loss over a placed (data, model) mesh
+(``loss_fn(mesh=)``: FSDP gathers a layer inside its rematerialized body,
+TP over ``model`` for the attention families):
 
   * dense — GQA decoder blocks (tinyllama, stablelm, phi3, granite);
   * moe — the same attention with an MoE FFN (``models.moe``; qwen2-moe,
@@ -55,7 +57,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -451,12 +453,18 @@ def _attn_post(cfg: ModelConfig, blk: Params, x: torch.Tensor,
     """Residual + output projection, then the FFN half.  Over a ``mesh``
     ``wo`` is row-parallel where the heads are cut: a ``psum`` of the
     shards' partials."""
+    return _attn_post_aux(cfg, blk, x, a, moe_valid, mesh)[0]
+
+
+def _attn_post_aux(cfg: ModelConfig, blk: Params, x, a, moe_valid=None,
+                   mesh=None):
+    """``_attn_post`` and the MoE load-balancing loss (``_ffn_aux``)."""
     y = sharding.smap(lambda a_, wo: a_ @ wo, a, blk["attn"]["wo"],
                       mesh=mesh)
     if sharding.cut_dim(blk["attn"]["wo"]) is not None:
         y = sharding.psum(y)
-    return _ffn(cfg, blk, sharding.smap(torch.add, x, y, mesh=mesh),
-                moe_valid, mesh)
+    return _ffn_aux(cfg, blk, sharding.smap(torch.add, x, y, mesh=mesh),
+                    moe_valid, mesh)
 
 
 def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor,
@@ -504,8 +512,9 @@ def _embed(embed, tokens: torch.Tensor, mesh=None):
     axis) is an ``all_gather`` of the shards' columns."""
     if sharding.cut_dim(embed) == 0:
         V = embed.parts[0].shape[0]
+        mi = sharding.axis_index(mesh, sharding.TP_AXIS)
         parts = []
-        for i, (e, t) in enumerate(zip(embed.parts, tokens.parts)):
+        for i, e, t in zip(mi, embed.parts, tokens.parts):
             t = t.long() - i * V
             ok = (t >= 0) & (t < V)
             parts.append(e[t.clamp(0, V - 1)].masked_fill(~ok[..., None], 0))
@@ -521,6 +530,13 @@ def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None):
     vocab) gathers the logits; one cut on d_model sums the shards'
     partial products (``psum``).  The logits come back on shard 0's
     device."""
+    out = _unembed_placed(cfg, params, h, mesh)
+    return out if mesh is None else out.parts[0]
+
+
+def _unembed_placed(cfg: ModelConfig, params: Params, h, mesh=None):
+    """``unembed`` over a ``mesh`` as a ``Sharded``: every place's logits
+    (its data shard's rows), whole over ``model``."""
     hn = sharding.smap(lambda n, x: layers.apply_norm(cfg, n, x),
                        params["final_norm"], h, mesh=mesh)
     tied = cfg.tie_embeddings
@@ -532,11 +548,11 @@ def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None):
 
     if cut is not None and cut == (1 if tied else 0):
         n = w.parts[0].shape[1 if tied else 0]
+        mi = sharding.axis_index(mesh, sharding.TP_AXIS)
         return sharding.psum(sharding.Sharded(tuple(
             product(x[..., i * n:(i + 1) * n], w_)
-            for i, (x, w_) in enumerate(zip(hn.parts, w.parts))),
-            None, mesh)).parts[0]
-    return sharding.gather(sharding.smap(
+            for i, x, w_ in zip(mi, hn.parts, w.parts)), None, mesh))
+    return sharding.all_gather(sharding.smap(
         product, hn, w, mesh=mesh,
         dim=None if cut is None else len(h.shape) - 1))
 
@@ -819,17 +835,22 @@ def _unstack(tree) -> List[Params]:
         parts = {k: _unstack(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    if isinstance(tree, sharding.Sharded):
+        return tree.unbind()
     return list(torch.unbind(tree, 0))
 
 
-def _maybe_remat(fn, remat: bool):
+def _maybe_remat(fn, remat: bool, early_stop: bool = True):
     """``fn`` under activation checkpointing when ``remat`` and grad is
     enabled: its activations are recomputed in the backward pass (the
-    reference's ``jax.checkpoint``)."""
+    reference's ``jax.checkpoint``).  ``early_stop=False`` recomputes
+    the whole of ``fn``, not only up to its last saved activation (the
+    sharded step: its collectives then run twice, countably)."""
     if not (remat and torch.is_grad_enabled()):
         return fn
     return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                 preserve_rng_state=False)
+                                 preserve_rng_state=False,
+                                 early_stop=early_stop)
 
 
 def _run_blocks(body, h: torch.Tensor, stacked: Params,
@@ -852,15 +873,47 @@ def _pad_to_multiple(h: torch.Tensor, mult: int):
 def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
              positions: torch.Tensor, remat: bool = False,
              encoder_out: Optional[torch.Tensor] = None,
-             use_kernel: bool = False):
+             use_kernel: bool = False, mesh=None):
     """The layer stack on embedded input h (B, S, d), causal over all S
     positions.  ``remat``: each block (and each hybrid group) under
     activation checkpointing.  ``use_kernel`` (``kernel_route``): self-
     attention through the flash-attention kernel where its shape rules
     hold (``layers.fits_flash_attention``), the Mamba-2 scans through the
     SSD kernel.  Returns (h, aux), aux the MoE load-balancing loss summed
-    over layers (0 for the other families), a 0-d fp32 tensor."""
+    over layers (0 for the other families), a 0-d fp32 tensor.
+
+    mesh: the attention families over a placed mesh, one loop with the
+    meshless stack (h, positions and the result ``Sharded``): each
+    layer's leaves gathered as ``_gather_layer`` says inside its body,
+    attention with each shard's own heads, ``wo`` and the FFN as
+    ``_attn_post_aux(mesh=)``; a rematerialized layer is recomputed
+    whole (``early_stop=False``), its collectives with it."""
     fam = cfg.family
+    if fam in ATTENTION_FAMILIES:
+        heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
+        lcfg = sharding.shard_cfg(cfg, mesh)
+        experts_kept = moe_lib.expert_parallel(cfg, mesh, h)
+
+        def body(x, blk):
+            blk = _gather_layer(cfg, blk, mesh, heads_cut, experts_kept)
+            q, k, v = sharding.smap(
+                lambda b_, x_, pos: _attn_qkv(lcfg, b_, x_, pos),
+                blk, x, positions, mesh=mesh)
+            a = sharding.smap(lambda q_, k_, v_: layers.self_attend(
+                lcfg, q_, k_, v_, use_kernel=use_kernel), q, k, v, mesh=mesh)
+            return _attn_post_aux(cfg, blk, x, a, mesh=mesh)
+
+        step = _maybe_remat(body, remat, early_stop=mesh is None)
+        aux = sharding.smap(lambda x: torch.zeros(
+            (), dtype=torch.float32, device=x.device), h, mesh=mesh)
+        for blk in _unstack(params["blocks"]):
+            h, a = step(h, blk)
+            if a is not None:
+                aux = sharding.smap(torch.add, aux, a, mesh=mesh)
+        return h, aux
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the placed backbone covers {ATTENTION_FAMILIES}")
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def mamba(x, blk):
@@ -868,17 +921,7 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
             cfg, blk["mamba"], layers.apply_norm(cfg, blk["ln"], x),
             use_kernel=use_kernel)[0]
 
-    if fam in ATTENTION_FAMILIES:
-        def body(x, blk):
-            q, k, v = _attn_qkv(cfg, blk, x, positions)
-            a = layers.self_attend(cfg, q, k, v, use_kernel=use_kernel)
-            return _ffn_aux(cfg, blk, x + a @ blk["attn"]["wo"])
-        step = _maybe_remat(body, remat)
-        for blk in _unstack(params["blocks"]):
-            h, a = step(h, blk)
-            if a is not None:
-                aux = aux + a
-    elif fam == "ssm":
+    if fam == "ssm":
         h = _run_blocks(mamba, h, params["blocks"], remat)
     elif fam == "hybrid":
         shared = params["shared_attn"]
@@ -920,48 +963,141 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, mesh=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  batch: ``tokens`` (B, S) int, plus
     ``patch_embeds`` (B, num_patches, d) for vlm (a prefix whose
     positions are cut from the logits) or ``frames`` (B, F, d) for audio.
     At S >= ``CHUNKED_ATTN_THRESHOLD`` the sequence is zero-padded to a
     multiple of ``Q_CHUNK`` (causal: the pads change no real position).
     Kernels as ``kernel_route`` decides, once.  Returns (logits (B, S,
-    vocab) in the parameters' dtype, aux loss)."""
+    vocab) in the parameters' dtype, aux loss).
+
+    mesh: ``params`` and ``batch`` placed on it (the dense, moe and vlm
+    families), tensor-parallel over ``model`` as the paged layer loop
+    is: the embedding cut on the vocab (a masked lookup a shard, then
+    ``psum``), q/k/v column-parallel with each shard's own heads where
+    ``attn_shard_size`` allows, ``wo`` and ``w_down`` row-parallel, each
+    followed by a ``psum``; ``lm_head`` column-parallel, its logits
+    all-gathered.  Leaves cut over the data axes are all-gathered before
+    use, a layer's inside its rematerialized body, so the gathers run
+    again in the backward and their transposes are the gradients'
+    reduce-scatters; the attention is the plain one (no kernel).  Logits
+    and aux are then ``Sharded``, each data shard's rows."""
+    if mesh is not None and cfg.family not in ATTENTION_FAMILIES:
+        raise NotImplementedError(
+            f"the placed forward covers {ATTENTION_FAMILIES}")
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    use_kernel = kernel_route(cfg, tokens.device)
-    h = params["embed"][tokens.long()]
+    S = tokens.shape[1]
+    use_kernel = mesh is None and kernel_route(cfg, tokens.device)
+    embed = gather_data(params["embed"])
+    h = _embed(embed, tokens, mesh)
     encoder_out = None
     prefix = 0
     if cfg.family == "vlm":
-        patches = _project_patches(params, batch["patch_embeds"], h.dtype)
-        h = torch.cat([patches, h], dim=1)
+        w = gather_data(params["patch_proj"])
+        patches = sharding.all_gather(sharding.smap(
+            lambda pe, w_, x: _project_patches({"patch_proj": w_}, pe,
+                                               x.dtype),
+            batch["patch_embeds"], w, h, mesh=mesh,
+            dim=None if sharding.cut_dim(w) is None else 2))
+        h = sharding.smap(lambda a_, b_: torch.cat([a_, b_], dim=1),
+                          patches, h, mesh=mesh)
         prefix = patches.shape[1]
     elif cfg.family == "audio":
         encoder_out = encode_audio(cfg, params, batch["frames"], remat,
                                    use_kernel)
         h = h + layers.sinusoidal_positions(S, cfg.d_model,
                                             tokens.device)[None]
-    h, _ = _pad_to_multiple(h, layers.Q_CHUNK
-                            if h.shape[1] >= layers.CHUNKED_ATTN_THRESHOLD
-                            else 1)
-    positions = torch.arange(h.shape[1], device=h.device)
+    mult = layers.Q_CHUNK if prefix + S >= layers.CHUNKED_ATTN_THRESHOLD \
+        else 1
+    h = sharding.smap(lambda x: _pad_to_multiple(x, mult)[0], h, mesh=mesh)
+    positions = sharding.smap(
+        lambda x: torch.arange(x.shape[1], device=x.device), h, mesh=mesh)
     h, aux = backbone(cfg, params, h, positions, remat, encoder_out,
-                      use_kernel)
-    return unembed(cfg, params, h[:, prefix:prefix + S]), aux
+                      use_kernel, mesh)
+    h = sharding.smap(lambda x: x[:, prefix:prefix + S], h, mesh=mesh)
+    head = {"final_norm": params["final_norm"],
+            "embed" if cfg.tie_embeddings else "lm_head":
+            embed if cfg.tie_embeddings else params["lm_head"]}
+    return _unembed_placed(cfg, gather_data(head), h, mesh), aux
 
 
 def loss_fn(cfg: ModelConfig, params: Params,
-            batch: Dict[str, Any]) -> torch.Tensor:
+            batch: Dict[str, Any], mesh=None) -> torch.Tensor:
     """Next-token cross-entropy against ``batch["labels"]`` (B, S), fp32
     logits, averaged over B * S, plus ``MOE_AUX_COEF`` times the MoE aux
-    loss; the forward runs with ``remat``."""
-    logits, aux = forward(cfg, params, batch, remat=True)
+    loss; the forward runs with ``remat``.
+
+    mesh: ``params`` and ``batch`` placed on it (``steps.shardings_for``:
+    FSDP over the data axes x TP over ``model``; the batch cut over the
+    data axes) — each data shard computes its rows' mean loss (on its
+    model shard 0) and the loss is the mean of those means, a 0-d tensor
+    on place 0's device.  The attention families run
+    ``forward(mesh=)``; the others (``model`` = 1 only) gather every
+    leaf over the data axes once and run the meshless loss a data
+    shard."""
+    if mesh is None:
+        logits, aux = forward(cfg, params, batch, remat=True)
+        return _xent(logits, batch["labels"]) + MOE_AUX_COEF * aux
+    tp_n = sharding.axes_size(mesh, sharding.TP_AXIS)
+    firsts = [g[0] for g in sharding.groups(mesh, sharding.TP_AXIS)]
+    if cfg.family in ATTENTION_FAMILIES:
+        logits, aux = forward(cfg, params, batch, remat=True, mesh=mesh)
+        per = [_xent(logits.parts[k], batch["labels"].parts[k])
+               + MOE_AUX_COEF * aux.parts[k] for k in firsts]
+    elif tp_n > 1:
+        raise NotImplementedError(
+            f"training {cfg.family!r} over a model axis: only the "
+            f"attention families {ATTENTION_FAMILIES} run tensor-parallel")
+    else:
+        whole = gather_data(params)
+        per = [loss_fn(cfg, sharding.local(whole, k),
+                       sharding.local(batch, k)) for k in firsts]
+    dev0 = per[0].device
+    return sum(x.to(dev0) for x in per) / len(per)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    return (logz - gold).mean() + MOE_AUX_COEF * aux
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+# ---------------------------------------------------------------------------
+# FSDP gathers of the full-sequence forward over a placed mesh
+# ---------------------------------------------------------------------------
+
+def gather_data(tree, keep: Callable[[Tuple[str, ...]], bool] = None):
+    """Every ``Sharded`` leaf cut over data axes all-gathered over them
+    (the FSDP gather), except leaves whose key path ``keep`` accepts."""
+    def walk(x, path):
+        if isinstance(x, dict):
+            return {k: walk(v, path + (k,)) for k, v in x.items()}
+        if isinstance(x, sharding.Sharded) and x.rows is not None \
+                and not (keep and keep(path)):
+            return sharding.all_gather(x, axis=x.rows[0])
+        return x
+    return walk(tree, ())
+
+
+def _gather_layer(cfg: ModelConfig, blk: Params, mesh, heads_cut: bool,
+                  experts_kept: bool) -> Params:
+    """One layer's leaves ready for use: all-gathered over the data axes
+    (FSDP; not the experts on the manual MoE path), and the attention
+    leaves all-gathered over ``model`` where the heads are not cut (the
+    rule may cut their columns mid-head; every shard then computes every
+    head)."""
+    def keep(path):
+        return experts_kept and "moe" in path and "shared" not in path \
+            and path[-1] in ("w_gate", "w_up", "w_down")
+    blk = gather_data(blk, keep)
+    if heads_cut or sharding.axes_size(mesh, sharding.TP_AXIS) == 1:
+        return blk
+    return dict(blk, attn={k: sharding.all_gather(v)
+                           for k, v in blk["attn"].items()})
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],

@@ -1,20 +1,24 @@
 """Mixture-of-Experts FFN with token-choice top-k routing.
 
-Port of ``repro.models.moe``: the auto-partitioned path, and over a
-``model`` mesh axis the serve layout's (``apply_moe(mesh=)``; the
-reference's expert-parallel shard_map path over ``data`` is not
-ported).  Tokens
-are dispatched by gather into per-expert capacity buffers: each (token,
-k) assignment gets a FIFO slot in its expert's buffer (token-major,
-k-minor), assignments past the capacity ``C`` and tokens marked invalid
-(pads, dead serving lanes) go to the drop bin and consume no capacity.
+Port of ``repro.models.moe``: the auto-partitioned path (over a mesh:
+``apply_moe(mesh=)``) and the manual-collective path
+(``apply_moe_manual``: experts over the data axes, all-to-alls, the
+expert FFN sliced on d_model over ``model``).  Tokens are dispatched by
+gather into per-expert capacity buffers: each (token, k) assignment gets
+a FIFO slot in its expert's buffer (token-major, k-minor), assignments
+past the capacity ``C`` and tokens marked invalid (pads, dead serving
+lanes) go to the drop bin and consume no capacity.
 The expert SwiGLU FFN runs batched over (group, expert) — plain batched
 products, which the reference leaves to XLA — and each token sums its
 kept slots' outputs weighted by its renormalised router probabilities.
 
-Groups: the reference dispatches one group per data shard; without a
-mesh there is one group, and the group dimension G is kept so that a
-sharded slice can set it.
+Groups: one dispatch group per data shard (``_num_groups``: the data
+axes' size under ``sharding.use_axes`` when it divides B, as in the
+reference), so that slot assignment stays local; over a placed mesh each
+data shard holds its own group, and the load-balancing loss is formed
+from the mean router probabilities and top-1 fractions averaged over the
+data shards — the statistics the reference takes over all groups at
+once.
 """
 from __future__ import annotations
 
@@ -60,15 +64,39 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     fp32 router logits and softmax, top-k, weights renormalised over the
     k picks, and the Switch load-balancing loss E * sum(mean prob *
     top-1 fraction)."""
+    weights, experts, me, ce = _route_stats(cfg, router_w, x)
+    return weights, experts, _aux(cfg, me, ce)
+
+
+def _route_stats(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
+    """``route`` with the load-balancing statistics in place of the loss:
+    (weights, experts, mean router probability per expert, top-1
+    fraction per expert)."""
+    return _route_logits(cfg, x.float() @ router_w.float())
+
+
+def _route_logits(cfg: ModelConfig, logits: torch.Tensor):
+    """``route`` from fp32 logits (T, E): (weights, experts, mean router
+    probability per expert, top-1 fraction per expert)."""
     m = cfg.moe
-    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
     weights, experts = torch.topk(probs, m.num_experts_per_tok, dim=-1)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
                                     min=1e-9)
-    me = probs.mean(0)
     ce = F.one_hot(experts[:, 0], m.num_experts).float().mean(0)
-    aux = m.num_experts * (me * ce).sum()
-    return weights, experts, aux
+    return weights, experts, probs.mean(0), ce
+
+
+def _aux(cfg: ModelConfig, me: torch.Tensor, ce: torch.Tensor):
+    """The Switch load-balancing loss E * sum(me * ce)."""
+    return cfg.moe.num_experts * (me * ce).sum()
+
+
+def _num_groups(B: int, S: int) -> int:
+    """Dispatch groups: one per data shard of the active axis state, so
+    that slot assignment stays local (1 when they do not divide B)."""
+    dp = sharding._axes_size_hint(sharding.data_axes()) or 1
+    return dp if B % dp == 0 else 1
 
 
 def _dispatch_indices(cfg: ModelConfig, experts: torch.Tensor, C: int,
@@ -110,48 +138,88 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     valid: optional (B, S) bool — False tokens consume no expert capacity
     and get no expert output (the shared expert still runs on them).
     The capacity counts every row and column of ``x``, pads and dead
-    lanes included, as the reference's does.
+    lanes included, as the reference's does.  Without a mesh the tokens
+    are dispatched in ``_num_groups`` groups.
 
-    mesh: a ``model`` mesh axis, the experts placed as the serve rule
-    places them at data = 1 (``p``, ``x`` and ``valid`` then
-    ``sharding.Sharded`` trees): each expert's hidden dim is cut over the
-    shards, the router is whole on every shard (so every shard routes
-    and dispatches alike), and a ``psum`` follows the down projection's
-    partial outputs, combined per token; the shared expert is cut as a
-    dense MLP, with its own ``psum``.  The output is then equal on every
-    shard, and so is aux."""
+    mesh: ``p``, ``x`` and ``valid`` are ``sharding.Sharded`` trees, each
+    data shard's x its rows of the batch, whole over ``model`` (its own
+    dispatch group).  Where the manual-collective path applies
+    (``expert_parallel``, no mask) it runs (``apply_moe_manual``).  Otherwise the experts are whole over the
+    data axes (gathered by the caller, or never cut) and either whole
+    over ``model`` or cut on their hidden dim, the router whole: every
+    model shard routes and dispatches alike, a ``psum`` follows the down
+    projection's partial outputs, combined per token; the shared expert
+    is cut as a dense MLP, with its own ``psum``.  The output is equal on
+    every model shard, and so is aux; over several data shards aux is
+    formed from the router statistics averaged over them (a ``psum``
+    over the data axes)."""
+    if mesh is None:
+        G = _num_groups(x.shape[0], x.shape[1])
+        out, me, ce = _routed(cfg, p, x, valid, G)
+        out = out if "shared" not in p else out + _shared(cfg, p["shared"],
+                                                          x)
+        return out, _aux(cfg, me, ce)
+    if valid is None and expert_parallel(cfg, mesh, x):
+        return apply_moe_manual(cfg, p, x, mesh)
+    if any(isinstance(w, sharding.Sharded) and w.rows is not None
+           for w in (p["w_gate"], p["w_up"], p["w_down"])):
+        raise ValueError("apply_moe over a mesh takes experts whole over "
+                         "the data axes (all-gather them first)")
+    if sharding.cut_dim(p["w_gate"]) == 1:
+        raise NotImplementedError(
+            "experts cut on d_model over the model axis run only on the "
+            "manual-collective path (manual_path_available)")
     routed = {k: v for k, v in p.items() if k != "shared"}
-    out, aux = sharding.smap(lambda p_, x_, v_: _routed(cfg, p_, x_, v_),
-                             routed, x, valid, mesh=mesh)
+    out, me, ce = sharding.smap(lambda p_, x_, v_: _routed(cfg, p_, x_, v_),
+                                routed, x, valid, mesh=mesh)
+    dp = data_shard_axes(mesh)
+    if dp:
+        n = sharding.axes_size(mesh, dp)
+        me, ce = (sharding.smap(lambda a: a / n, sharding.psum(t, dp),
+                                mesh=mesh) for t in (me, ce))
+    aux = sharding.smap(lambda a, b: _aux(cfg, a, b), me, ce, mesh=mesh)
     if sharding.cut_dim(p["w_down"]) is not None:
         out = sharding.psum(out)
-    if "shared" in p:
-        sh = sharding.smap(lambda p_, x_: _shared(cfg, p_, x_),
-                           p["shared"], x, mesh=mesh)
-        if sharding.cut_dim(p["shared"]["w_down"]) is not None:
-            sh = sharding.psum(sh)
-        out = sharding.smap(torch.add, out, sh, mesh=mesh)
-    return out, aux
+    return _plus_shared(cfg, p, x, out, mesh), aux
+
+
+def _plus_shared(cfg: ModelConfig, p: Params, x, out, mesh):
+    """``out`` plus the shared expert on x over ``mesh``, cut as a dense
+    MLP (a ``psum`` after its down projection where that is cut)."""
+    if "shared" not in p:
+        return out
+    sh = sharding.smap(lambda p_, x_: _shared(cfg, p_, x_), p["shared"], x,
+                       mesh=mesh)
+    if sharding.cut_dim(p["shared"]["w_down"]) is not None:
+        sh = sharding.psum(sh)
+    return sharding.smap(torch.add, out, sh, mesh=mesh)
+
+
+def data_shard_axes(mesh) -> Tuple[str, ...]:
+    """The data axes of ``mesh`` above size 1: its data shards."""
+    st = sharding.AxisState.from_mesh(mesh)
+    return tuple(a for a in st.dp if st.size(a) > 1)
 
 
 def _routed(cfg: ModelConfig, p: Params, x: torch.Tensor,
-            valid: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts' half of ``apply_moe``: (out (B, S, d), aux)."""
+            valid: Optional[torch.Tensor] = None, G: int = 1):
+    """The routed experts' half of ``apply_moe`` in G dispatch groups:
+    (out (B, S, d), mean router probability per expert, top-1 fraction
+    per expert), the statistics over all B * S tokens."""
     B, S, d = x.shape
-    G = 1  # dispatch groups: one per data shard, one without a mesh
     T = B * S // G
     xt = x.reshape(G, T, d)
     C = capacity(cfg, T)
 
-    weights, experts, aux = route(cfg, p["router"], xt.reshape(G * T, d))
+    weights, experts, me, ce = _route_stats(cfg, p["router"],
+                                            xt.reshape(G * T, d))
     weights = weights.reshape(G, T, -1)
     experts = experts.reshape(G, T, -1)
     slot, buf_tok = _dispatch_indices(
         cfg, experts, C, None if valid is None else valid.reshape(G, T))
     expert_out = _expert_ffn(p, _gather(xt, buf_tok))
     out = _combine(expert_out, experts, slot, weights, C)
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d), me, ce
 
 
 def _shared(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -208,3 +276,117 @@ def apply_shared(cfg: ModelConfig, p: Params, xt: torch.Tensor
 
 def E_total(cfg: ModelConfig) -> int:
     return cfg.moe.num_experts
+
+
+# ---------------------------------------------------------------------------
+# Manual-collective MoE: experts over the data axes, all-to-alls, the expert
+# FFN sliced on d_model over ``model``
+#
+# The auto path over a mesh needs every expert on every data shard; this
+# path keeps each expert on one data shard (expert parallelism) and moves
+# tokens instead: local top-k -> all_to_all over the expert-parallel axes
+# -> the d-sliced expert FFN with ONE psum at hidden volume -> reverse
+# all_to_all -> a local combine.  The dispatch payloads are d/tp-sliced,
+# so the all-to-alls are not repeated across model shards.
+# ---------------------------------------------------------------------------
+
+def _manual_axes():
+    st = sharding.axis_state()
+    ep = tuple(a for a in ("pod", "data") if st.size(a) > 1)
+    tp = st.tp if st.size(st.tp) > 1 else None
+    ep_n = 1
+    for a in ep:
+        ep_n *= st.size(a)
+    tp_n = st.size(tp) if tp else 1
+    return ep, ep_n, tp, tp_n
+
+
+def manual_path_available(cfg: ModelConfig, T: int) -> bool:
+    """Whether the manual path applies to T tokens under the active axis
+    state: data and model axes both above 1, and the experts, T, d_ff
+    and d_model dividing them."""
+    ep, ep_n, tp, tp_n = _manual_axes()
+    m = cfg.moe
+    return (ep_n > 1 and tp is not None
+            and m.num_experts % ep_n == 0
+            and T % ep_n == 0
+            and cfg.d_ff % tp_n == 0
+            and cfg.d_model % tp_n == 0)
+
+
+def expert_parallel(cfg: ModelConfig, mesh, x) -> bool:
+    """Whether the manual path runs on ``mesh`` for the placed x (each
+    data shard's rows of the batch; or its local (B, S)):
+    ``manual_path_available`` over the ``data`` and ``model`` axes, the
+    axes the train rule cuts the experts over (a ``pod`` axis holds
+    replicas of them).  The experts then stay cut (never gathered)."""
+    if cfg.moe is None or mesh is None:
+        return False
+    local = x.parts[0].shape if isinstance(x, sharding.Sharded) else x
+    T = local[0] * local[1] * sharding.axes_size(mesh, data_shard_axes(mesh))
+    st = sharding.AxisState.from_mesh(mesh)
+    with sharding.use_axes(sharding.AxisState(tuple(
+            (a, st.size(a)) for a in ("data", sharding.TP_AXIS)))):
+        return manual_path_available(cfg, T)
+
+
+def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
+    """x: a ``sharding.Sharded`` (B, S, d) a place — each data shard's
+    rows of the batch, whole over ``model`` — -> (out, aux), both equal
+    on every model shard.  Requires ``expert_parallel``.
+
+    ``p`` is placed by the train rule's expert-parallel layout: the
+    router whole; ``w_gate`` / ``w_up`` (E, d, f) cut on E over the data
+    axes and on d over ``model``, ``w_down`` (E, f, d) on E and d.  A
+    place (data i, model j) takes its tokens' d-slice j, forms partial
+    router logits from the router's rows j and ``psum``s them over
+    ``model`` (every model shard then routes alike), dispatches into (E,
+    C, d/tp) buffers at capacity C of its own tokens, ``all_to_all``s
+    them over the data axes to the experts' owners, runs the partial
+    up-projections, ``psum``s them over ``model`` (hidden volume), the
+    exact d-sliced down projection, ``all_to_all``s back and combines
+    locally; an ``all_gather`` over ``model`` rebuilds d (the reference
+    leaves its output d-sharded).  The all-to-alls run over ``data``, the
+    axis the experts are cut over: where a ``pod`` axis holds replicas of
+    them, each pod exchanges among its own data shards (the reference's
+    shard_map reshards them over pod x data).  aux is each data shard's
+    loss, its mean over every place (``psum`` / n).  The shared expert runs as in
+    ``apply_moe``."""
+    m = cfg.moe
+    tp, ep = sharding.TP_AXIS, ("data",)
+    ep_n, tp_n = sharding.axes_size(mesh, ep), sharding.axes_size(mesh, tp)
+    E, d, n = m.num_experts, cfg.d_model, mesh.devices.size
+    d_loc = d // tp_n
+    B, S = x.parts[0].shape[:2]
+    T_loc = B * S
+    C = capacity(cfg, T_loc)
+    mi = sharding.axis_index(mesh, tp)
+    cols = [slice(j * d_loc, (j + 1) * d_loc) for j in mi]
+    xt = [x.parts[k].reshape(T_loc, d)[:, cols[k]] for k in range(n)]
+    logits = sharding.psum(x.with_parts(
+        [xt[k].float() @ p["router"].parts[k][cols[k]].float()
+         for k in range(n)]), tp)
+    routed = [_route_logits(cfg, lg) for lg in logits.parts]
+    disp = [_dispatch_indices(cfg, r[1][None], C) for r in routed]
+    expert_in = x.with_parts([_gather(xt[k][None], disp[k][1])[0]
+                              for k in range(n)])
+    expert_in = sharding.all_to_all(expert_in, ep, 0, 1)  # (E/ep, C ep, d/tp)
+    g_part, u_part = (x.with_parts([torch.einsum(
+        "ecd,edf->ecf", e, w) for e, w in zip(expert_in.parts,
+                                              p[name].parts)])
+        for name in ("w_gate", "w_up"))
+    h = [F.silu(g) * u for g, u in zip(sharding.psum(g_part, tp).parts,
+                                       sharding.psum(u_part, tp).parts)]
+    y = sharding.all_to_all(x.with_parts([torch.einsum(
+        "ecf,efd->ecd", h_, w) for h_, w in zip(h, p["w_down"].parts)]),
+        ep, 1, 0)  # (E, C, d/tp)
+    out = sharding.Sharded(tuple(
+        _combine(y.parts[k][None], routed[k][1][None], disp[k][0],
+                 routed[k][0][None], C)[0].reshape(B, S, d_loc)
+        for k in range(n)), 2, mesh)
+    out = sharding.all_gather(out)
+    aux = sharding.psum(x.with_parts([_aux(cfg, r[2], r[3])
+                                      for r in routed]),
+                        data_shard_axes(mesh) + (tp,))
+    aux = sharding.smap(lambda a: a / n, aux, mesh=mesh)
+    return _plus_shared(cfg, p, x, out, mesh), aux

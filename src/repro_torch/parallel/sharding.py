@@ -1,5 +1,6 @@
-"""Sharding rules, and the placement and collectives of tensor-parallel
-serving over a ``model`` mesh axis.
+"""Sharding rules, and the placement and collectives of one controller
+driving every place of a mesh: tensor-parallel serving over ``model``,
+training over (``pod``, ``data``, ``model``).
 
 Port of ``repro.parallel.sharding``.  The rules part is a copy: the
 parameter, cache and batch specs in both modes, ``sanitize_specs``, the
@@ -25,39 +26,54 @@ change a value (the reference calls them in its model, layers and MoE);
 the port places tensors explicitly and has no ambient mesh context, so
 with nothing set in the context the axis state is empty.
 
-The placement part is the port's own: one controller drives m shards.
+The placement part is the port's own: one controller drives every place
+of the mesh grid (its devices in row-major order; a mesh may name one
+device several times).
 
-  * ``Sharded`` holds one contiguous tensor per model shard, each on its
-    shard's device, cut along one dim (or whole on every shard), with
-    the mesh;
-  * ``shard`` / ``gather`` cut a tensor by its spec and put it back;
-    ``place_serve`` cuts a parameter tree by ``param_specs(mode="serve")``
-    (sanitized), keeping attention whole where the KV heads do not divide
-    the axis (``attn_shard_size``);
-  * ``smap`` runs a function on each shard's parts;
-  * tensors move between shards only through ``psum`` (partials summed in
-    shard order) and ``all_gather`` (concatenation); ``broadcast`` hands
-    shard 0's scheduler inputs (tokens, positions, tables, lengths) to
-    the others.  Each adds the bytes it moves between shards to its
-    mesh's ``moved_bytes`` — counted whether or not two shards share a
-    device, so the count is an m-device mesh's.
+  * ``Sharded`` holds one contiguous tensor per place: the whole tensor
+    cut along at most one dim over ``model`` and one dim over other axes
+    (the data axes: FSDP storage, expert parallelism, the batch; or a
+    pipeline's ``stage``), whole over the rest;
+  * ``shard`` / ``place_like`` / ``gather`` / ``to_whole`` cut a tensor
+    by its spec and put it back; ``place_serve`` cuts a parameter tree by
+    ``param_specs(mode="serve")`` (sanitized, attention whole where the
+    KV heads do not divide the axis), ``place_train`` by
+    ``param_specs(mode="train")`` (sanitized), ``place_batch`` a batch
+    over the data axes;
+  * ``smap`` runs a function on each place's parts;
+  * tensors move between places only through the collectives, each over
+    an axis (a name or a tuple of names): ``psum`` (partials summed in
+    member order), ``all_gather`` (concatenation), ``all_to_all``,
+    ``ppermute``, and ``broadcast`` (place 0's scheduler inputs to every
+    place).  Each adds the bytes it moves to its mesh's ``moved_bytes``
+    under its kind — counted whether or not two places share a device,
+    so the count is a mesh of distinct devices'.  Under autograd each is
+    a ``torch.autograd.Function`` whose backward is its transpose,
+    counted under ``kind + "/bwd"``: psum's is the members' cotangents
+    summed and handed to every member (a broadcast of the sum),
+    all_gather's the reduce-scatter (FSDP's gradient reduction),
+    all_to_all's and ppermute's the reverse move;
+  * a piece several places hold is one autograd leaf a place in the
+    train step (``member_leaves``), its gradients summed explicitly
+    (``sum_replicas``, "grad_sum"), never silently by a shared object.
 
 Without a mesh the same calls pass plain tensors through (``smap`` calls
-its function once, ``psum`` / ``all_gather`` / ``broadcast`` / ``gather``
-return their argument, ``cut_dim`` is None), so the model's paged layer
-loops are one code path with and without a mesh.
-
-Only ``data`` = 1 is placed: a spec that cuts a ``pod``/``data`` axis of
-size above 1 raises ``NotImplementedError``.
+its function once, the collectives and ``gather`` return their argument,
+``cut_dim`` is None), so the model's layer loops — the paged serving
+loop and the full-sequence forward of the attention families — are one
+code path with and without a mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -366,25 +382,91 @@ def paged_attn_specs(axis: str = TP_AXIS) -> Dict[str, P]:
 
 
 # ---------------------------------------------------------------------------
-# Placement: one tensor per model shard
+# Placement: one tensor per place of the mesh grid
 # ---------------------------------------------------------------------------
+
+
+def _axes_tuple(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return tuple(axes) if isinstance(axes, tuple) else (axes,)
+
+
+def grid_devices(mesh) -> List[torch.device]:
+    """Every place's device, in the mesh's row-major order (the last
+    axis, ``model``, varies fastest)."""
+    return list(mesh.devices.flat)
+
+
+def axes_size(mesh, axes) -> int:
+    """The product of ``axes``' sizes on ``mesh`` (1 for an axis it
+    lacks)."""
+    st = AxisState.from_mesh(mesh)
+    return math.prod(st.size(a) for a in _axes_tuple(axes))
+
+
+def axis_index(mesh, axes) -> Tuple[int, ...]:
+    """Each place's index along ``axes`` (a name or a tuple of names,
+    major first): the twin of ``lax.axis_index``."""
+    return _axis_index(mesh.devices.shape, tuple(mesh.axis_names),
+                       _axes_tuple(axes))
+
+
+def groups(mesh, axes) -> Tuple[Tuple[int, ...], ...]:
+    """The places that differ only along ``axes``: one tuple a group, in
+    index order along ``axes``; the groups in order of their first
+    place."""
+    return _groups(mesh.devices.shape, tuple(mesh.axis_names),
+                   _axes_tuple(axes))
+
+
+# Pure functions of a mesh's shape and axis names, cached: every
+# collective asks for its groups.
+@functools.lru_cache(maxsize=256)
+def _axis_index(shape, names, axes) -> Tuple[int, ...]:
+    coords = np.unravel_index(np.arange(math.prod(shape)), shape)
+    idx = np.zeros(math.prod(shape), dtype=np.int64)
+    for a in axes:
+        if a in names:
+            i = names.index(a)
+            idx = idx * shape[i] + coords[i]
+    return tuple(idx.tolist())
+
+
+@functools.lru_cache(maxsize=256)
+def _groups(shape, names, axes) -> Tuple[Tuple[int, ...], ...]:
+    n = math.prod(shape)
+    coords = np.unravel_index(np.arange(n), shape)
+    other = [i for i, a in enumerate(names) if a not in axes]
+    along = _axis_index(shape, names, axes)
+    out: Dict[tuple, List[int]] = {}
+    for k in range(n):
+        out.setdefault(tuple(int(coords[i][k]) for i in other), []).append(k)
+    return tuple(sorted((tuple(sorted(g, key=along.__getitem__))
+                         for g in out.values()), key=lambda g: g[0]))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharded:
-    """One contiguous tensor per model shard of ``mesh``, shard i's on
-    the mesh's i-th model device: the whole tensor cut into equal
-    contiguous pieces along ``dim``, or, with ``dim`` None, the whole
-    tensor on every shard (one object where shards share a device)."""
+    """One contiguous tensor per place of ``mesh``'s grid (its devices in
+    row-major order): the whole tensor cut into equal contiguous pieces
+    along ``dim`` over the ``model`` axis and along ``rows[1]`` over the
+    axes ``rows[0]`` (the data axes — FSDP storage, expert parallelism,
+    the batch — or a pipeline's stage axis), whole over every other
+    axis.  Places holding the same piece on one device share one object.
+    On a (data=1, model=m) mesh it is one part per model shard."""
     parts: Tuple[torch.Tensor, ...]
     dim: Optional[int]
     mesh: Any
+    rows: Optional[Tuple[Tuple[str, ...], int]] = None
 
     @property
     def shape(self) -> Tuple[int, ...]:
         s = list(self.parts[0].shape)
         if self.dim is not None:
-            s[self.dim] *= len(self.parts)
+            s[self.dim] *= axes_size(self.mesh, TP_AXIS)
+        if self.rows is not None:
+            s[self.rows[1]] *= axes_size(self.mesh, self.rows[0])
         return tuple(s)
 
     @property
@@ -393,20 +475,39 @@ class Sharded:
 
     @property
     def device(self) -> torch.device:
-        """Shard 0's device."""
+        """Place 0's device."""
         return self.parts[0].device
+
+    def with_parts(self, parts) -> "Sharded":
+        """The same placement holding ``parts``."""
+        return Sharded(tuple(parts), self.dim, self.mesh, self.rows)
+
+    def _shifted(self, parts, dims: int) -> "Sharded":
+        shift = (lambda d: None if d is None else d - dims)
+        return Sharded(tuple(parts), shift(self.dim), self.mesh,
+                       None if self.rows is None
+                       else (self.rows[0], shift(self.rows[1])))
 
     def __getitem__(self, i: int) -> "Sharded":
         """Index the leading dim (a layer of stacked leaves) of every
-        part; it must not be the cut dim."""
-        if not isinstance(i, int) or self.dim == 0:
+        part; it must not be a cut dim."""
+        if not isinstance(i, int) or 0 in (self.dim, self.rows
+                                           and self.rows[1]):
             raise IndexError("a Sharded takes one int index on an uncut "
                              "leading dim")
-        return Sharded(tuple(p[i] for p in self.parts),
-                       None if self.dim is None else self.dim - 1, self.mesh)
+        return self._shifted([p[i] for p in self.parts], 1)
+
+    def unbind(self) -> List["Sharded"]:
+        """``__getitem__`` of every index of the leading dim, one
+        ``unbind`` a part (autograd stacks their gradients in one pass)."""
+        if 0 in (self.dim, self.rows and self.rows[1]):
+            raise IndexError("unbind of a cut leading dim")
+        per = [torch.unbind(p, 0) for p in self.parts]
+        return [self._shifted([u[i] for u in per], 1)
+                for i in range(len(per[0]))]
 
     def distinct_parts(self) -> List[torch.Tensor]:
-        """The parts, each object once (shards on one device share a
+        """The parts, each object once (places on one device share a
         replicated part)."""
         seen, out = set(), []
         for p in self.parts:
@@ -415,52 +516,98 @@ class Sharded:
                 out.append(p)
         return out
 
+    def replicated_axes(self) -> Tuple[str, ...]:
+        """The mesh axes of size above 1 along which every place holds
+        the same piece."""
+        cut = set(self.rows[0] if self.rows else ())
+        if self.dim is not None:
+            cut.add(TP_AXIS)
+        st = AxisState.from_mesh(self.mesh)
+        return tuple(a for a in self.mesh.axis_names
+                     if a not in cut and st.size(a) > 1)
+
+    def replica_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """The places holding each distinct piece, one list a piece."""
+        return groups(self.mesh, self.replicated_axes())
+
 
 def model_devices(mesh) -> List[torch.device]:
-    """The model shards' devices, shard 0 first (``data`` index 0)."""
+    """The model shards' devices, shard 0 first (index 0 of every other
+    axis)."""
     return mesh.axis_devices(TP_AXIS)
 
 
-def _cut_dim(spec: Sequence, mesh) -> Optional[int]:
-    """The dim ``spec`` cuts over the model axis (None: no cut).  Axes of
-    size 1 cut nothing; any other axis raises: only (data=1, model=m)
-    meshes are placed."""
+def _cuts(spec: Sequence, mesh):
+    """(dim cut over ``model``, (axes, dim) cut over other axes) of
+    ``spec`` on ``mesh``; axes of size 1 cut nothing.  One dim a role:
+    a spec naming ``model`` with another axis in one entry, or two
+    non-model entries, raises."""
     st = AxisState.from_mesh(mesh)
-    cut = None
+    dim, rows = None, None
     for i, axes in enumerate(spec):
-        for a in (axes if isinstance(axes, tuple) else (axes,)):
-            if a is None or st.size(a) == 1:
-                continue
-            if a != TP_AXIS or cut is not None:
+        names = tuple(a for a in _axes_tuple(axes) if st.size(a) > 1)
+        if not names:
+            continue
+        if TP_AXIS in names:
+            if len(names) > 1 or dim is not None:
                 raise NotImplementedError(
-                    f"spec {spec} cuts axis {a!r} of size {st.size(a)}: "
-                    f"only the model axis is placed")
-            cut = i
-    return cut
+                    f"spec {spec}: the model axis cuts one dim alone")
+            dim = i
+        elif rows is not None:
+            raise NotImplementedError(
+                f"spec {spec} cuts two dims over non-model axes")
+        else:
+            rows = (names, i)
+    return dim, rows
 
 
-def _per_device(x: torch.Tensor, devices) -> Tuple[torch.Tensor, ...]:
-    """x on each device, one object a device."""
-    on: Dict[torch.device, torch.Tensor] = {}
-    return tuple(on.setdefault(d, x.to(d)) for d in devices)
+def _pieces(mesh, dim, rows, shape) -> Tuple[List[Tuple[int, int]],
+                                             Tuple[int, ...]]:
+    """Each place's (model piece, row piece) and the local shape."""
+    n = mesh.devices.size
+    local = list(shape)
+    for d, axes in ((dim, TP_AXIS), (rows and rows[1], rows and rows[0])):
+        if d is None:
+            continue
+        k = axes_size(mesh, axes)
+        if local[d] % k:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"into {k} pieces")
+        local[d] //= k
+    mi = axis_index(mesh, TP_AXIS) if dim is not None else [0] * n
+    ri = axis_index(mesh, rows[0]) if rows else [0] * n
+    return list(zip(mi, ri)), tuple(local)
+
+
+def _place(x: torch.Tensor, dim, rows, mesh) -> Sharded:
+    pieces, local = _pieces(mesh, dim, rows, x.shape)
+    made: Dict[tuple, torch.Tensor] = {}
+    parts = []
+    for (j, r), dev in zip(pieces, grid_devices(mesh)):
+        key = (j, r, dev)
+        if key not in made:
+            p = x
+            if dim is not None:
+                p = p.narrow(dim, j * local[dim], local[dim])
+            if rows is not None:
+                p = p.narrow(rows[1], r * local[rows[1]], local[rows[1]])
+            made[key] = p.to(dev).contiguous() if p is not x else p.to(dev)
+        parts.append(made[key])
+    return Sharded(tuple(parts), dim, mesh, rows)
 
 
 def shard(x: torch.Tensor, spec: Sequence, mesh) -> Sharded:
-    """Place ``x`` by ``spec``: cut into contiguous equal parts along the
-    model-axis dim, or whole on every shard.  Placement, not a
-    collective: nothing is counted."""
+    """Place ``x`` by ``spec``: cut into contiguous equal pieces along the
+    dim ``spec`` cuts over ``model`` and the dim it cuts over other axes,
+    whole elsewhere.  Placement, not a collective: nothing is counted."""
     if isinstance(x, Sharded):
         return x
-    devs = model_devices(mesh)
-    dim = _cut_dim(spec, mesh)
-    if dim is None or len(devs) == 1:
-        return Sharded(_per_device(x, devs), None, mesh)
-    if x.shape[dim] % len(devs):
-        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
-                         f"into {len(devs)} shards")
-    parts = x.chunk(len(devs), dim)
-    return Sharded(tuple(p.to(d).contiguous() for p, d in zip(parts, devs)),
-                   dim, mesh)
+    return _place(x, *_cuts(spec, mesh), mesh)
+
+
+def place_like(x: torch.Tensor, like: Sharded) -> Sharded:
+    """``x`` placed as ``like`` is (its mesh and cuts)."""
+    return _place(x, like.dim, like.rows, like.mesh)
 
 
 def place_new(shape: Sequence[int], spec: Sequence, mesh,
@@ -469,38 +616,54 @@ def place_new(shape: Sequence[int], spec: Sequence, mesh,
     """A new sharded tensor of global ``shape`` laid out by ``spec``, each
     part made by ``make(local_shape, device)`` (no global tensor is
     built)."""
-    devs = model_devices(mesh)
-    dim = _cut_dim(spec, mesh)
-    if dim is None or len(devs) == 1:
-        on: Dict[torch.device, torch.Tensor] = {}
-        return Sharded(tuple(on.setdefault(d, make(tuple(shape), d))
-                             for d in devs), None, mesh)
-    local = list(shape)
-    if local[dim] % len(devs):
-        raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
-                         f"into {len(devs)} shards")
-    local[dim] //= len(devs)
-    return Sharded(tuple(make(tuple(local), d) for d in devs), dim, mesh)
+    dim, rows = _cuts(spec, mesh)
+    pieces, local = _pieces(mesh, dim, rows, shape)
+    made: Dict[tuple, torch.Tensor] = {}
+    parts = []
+    for (j, r), dev in zip(pieces, grid_devices(mesh)):
+        if (j, r, dev) not in made:
+            made[j, r, dev] = make(local, dev)
+        parts.append(made[j, r, dev])
+    return Sharded(tuple(parts), dim, mesh, rows)
 
 
 def cut_dim(x) -> Optional[int]:
-    """The dim a ``Sharded`` is cut along; None when it is whole on every
-    shard or a plain tensor."""
+    """The dim a ``Sharded`` is cut along over ``model``; None when it is
+    whole over it or a plain tensor."""
     return x.dim if isinstance(x, Sharded) else None
 
 
 def gather(s: Sharded) -> torch.Tensor:
-    """The whole tensor on shard 0's device (an ``all_gather`` when it is
-    cut)."""
+    """The whole tensor on place 0's device (``all_gather``s over the
+    axes it is cut along)."""
     if not isinstance(s, Sharded):
         return s
-    if s.dim is None:
-        return s.parts[0]
-    return all_gather(s).parts[0]
+    if s.rows is not None:
+        s = all_gather(s, axis=s.rows[0])
+    if s.dim is not None:
+        s = all_gather(s)
+    return s.parts[0]
+
+
+def to_whole(s) -> torch.Tensor:
+    """The whole tensor on place 0's device, assembled from the pieces
+    without a collective (nothing counted, no autograd): a host fetch,
+    as a checkpoint takes it."""
+    if not isinstance(s, Sharded):
+        return s
+    pieces, _ = _pieces(s.mesh, s.dim, s.rows, s.shape)
+    dev0 = s.parts[0].device
+    held = {pc: s.parts[k].detach() for k, pc in reversed(
+        list(enumerate(pieces)))}
+    m = axes_size(s.mesh, TP_AXIS) if s.dim is not None else 1
+    r = axes_size(s.mesh, s.rows[0]) if s.rows else 1
+    by_row = [torch.cat([held[j, i].to(dev0) for j in range(m)], s.dim)
+              if m > 1 else held[0, i].to(dev0) for i in range(r)]
+    return torch.cat(by_row, s.rows[1]) if r > 1 else by_row[0]
 
 
 def _count(mesh, kind: str, nbytes: int) -> None:
-    """Add ``nbytes`` moved between shards to ``mesh.moved_bytes[kind]``."""
+    """Add ``nbytes`` moved between places to ``mesh.moved_bytes[kind]``."""
     mesh.moved_bytes[kind] = mesh.moved_bytes.get(kind, 0) + nbytes
 
 
@@ -508,52 +671,306 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def psum(s: Sharded) -> Sharded:
-    """The sum of the shards' partials, on every shard: shards 1.. send
-    theirs to shard 0, which adds them in shard order, 0 first, and
-    sends the sum back — 2 (m - 1) partials' bytes.  A plain tensor
+# ---------------------------------------------------------------------------
+# Collectives: autograd-aware, counted per kind, "/bwd" for the transpose
+# ---------------------------------------------------------------------------
+
+
+class _Collective(torch.autograd.Function):
+    """A collective over a grid's parts: ``op.fwd`` on the parts, its
+    transpose ``op.bwd`` on their cotangents.  Every output is its own
+    tensor (a shared one is cloned), so each place's consumers give it
+    their own cotangent and the transpose sums them explicitly."""
+
+    @staticmethod
+    def forward(ctx, op, *parts):
+        ctx.op = op
+        seen = {id(p) for p in parts}
+        outs = []
+        for o in op.fwd(list(parts)):
+            if id(o) in seen:
+                o = o.clone()
+            seen.add(id(o))
+            outs.append(o)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(ctx.op.bwd(list(grads)))
+
+
+def _run(op, parts) -> Tuple[torch.Tensor, ...]:
+    """``op`` through autograd where a part needs a gradient, else
+    directly (the serving path: outputs then shared per device)."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+        return _Collective.apply(op, *parts)
+    return tuple(op.fwd(list(parts)))
+
+
+class _Op:
+    def __init__(self, mesh, grps, kind):
+        self.mesh, self.grps, self.kind = mesh, grps, kind
+        self.devs = grid_devices(mesh)
+
+    def _spread(self, out, g, value):
+        on: Dict[torch.device, torch.Tensor] = {}
+        for k in g:
+            out[k] = on.setdefault(self.devs[k], value.to(self.devs[k]))
+
+
+class _Sum(_Op):
+    """psum: each group's parts summed on its first place in group order,
+    the sum on every member (2 (g - 1) parts' bytes: in to one place and
+    back out).  The transpose is the same sum of the members' cotangents
+    (the output is one value every member holds), handed to every
+    member's part: a broadcast of the summed cotangent."""
+
+    def _sum(self, xs, kind):
+        out = [None] * len(xs)
+        for g in self.grps:
+            dev0 = xs[g[0]].device
+            acc = xs[g[0]]
+            for k in g[1:]:
+                acc = acc + xs[k].to(dev0)
+            _count(self.mesh, kind, 2 * (len(g) - 1) * _nbytes(acc))
+            self._spread(out, g, acc)
+        return out
+
+    def fwd(self, xs):
+        return self._sum(xs, self.kind)
+
+    def bwd(self, gs):
+        return self._sum(gs, self.kind + "/bwd")
+
+
+class _Gather(_Op):
+    """all_gather along ``dim``: each member receives the g - 1 parts it
+    lacks ((g - 1) x the gathered bytes a group).  The transpose is a
+    reduce-scatter: the members' cotangents summed and cut back."""
+
+    def __init__(self, mesh, grps, kind, dim):
+        super().__init__(mesh, grps, kind)
+        self.dim = dim
+
+    def fwd(self, xs):
+        out = [None] * len(xs)
+        for g in self.grps:
+            dev0 = xs[g[0]].device
+            full = torch.cat([xs[k].to(dev0) for k in g], self.dim)
+            _count(self.mesh, self.kind, (len(g) - 1) * _nbytes(full))
+            self._spread(out, g, full)
+        return out
+
+    def bwd(self, gs):
+        out = [None] * len(gs)
+        for g in self.grps:
+            dev0 = gs[g[0]].device
+            acc = gs[g[0]]
+            for k in g[1:]:
+                acc = acc + gs[k].to(dev0)
+            _count(self.mesh, self.kind + "/bwd",
+                   (len(g) - 1) * _nbytes(acc))
+            for k, piece in zip(g, acc.chunk(len(g), self.dim)):
+                out[k] = piece.to(self.devs[k])
+        return out
+
+
+class _AllToAll(_Op):
+    """all_to_all: member r cuts its part into g pieces along
+    ``split_dim`` and sends piece s to member s, which concatenates what
+    it receives in member order along ``concat_dim``; the pieces that
+    change place are counted.  The transpose is the all_to_all the
+    other way."""
+
+    def __init__(self, mesh, grps, kind, split_dim, concat_dim):
+        super().__init__(mesh, grps, kind)
+        self.split, self.concat = split_dim, concat_dim
+
+    def _a2a(self, xs, split, concat, kind):
+        out = [None] * len(xs)
+        for g in self.grps:
+            n = len(g)
+            pieces = [xs[k].chunk(n, split) for k in g]
+            moved = 0
+            for s, ks in enumerate(g):
+                dev = self.devs[ks]
+                out[ks] = torch.cat([pieces[r][s].to(dev) for r in range(n)],
+                                    concat)
+                moved += sum(_nbytes(pieces[r][s]) for r in range(n)
+                             if r != s)
+            _count(self.mesh, kind, moved)
+        return out
+
+    def fwd(self, xs):
+        return self._a2a(xs, self.split, self.concat, self.kind)
+
+    def bwd(self, gs):
+        return self._a2a(gs, self.concat, self.split, self.kind + "/bwd")
+
+
+class _Permute(_Op):
+    """ppermute: member ``dst`` receives member ``src``'s part for each
+    (src, dst) pair of ``perm`` (indices along the axis); a member no
+    pair names receives zeros.  Parts that change member are counted.
+    The transpose sends each cotangent back along its pair."""
+
+    def __init__(self, mesh, grps, kind, perm):
+        super().__init__(mesh, grps, kind)
+        self.perm = tuple(perm)
+
+    def _move(self, xs, pairs, kind):
+        out = [None] * len(xs)
+        moved = 0
+        for g in self.grps:
+            for src, dst in pairs:
+                out[g[dst]] = xs[g[src]].to(self.devs[g[dst]])
+                moved += _nbytes(xs[g[src]]) if src != dst else 0
+        _count(self.mesh, kind, moved)
+        return [torch.zeros_like(x) if o is None else o
+                for o, x in zip(out, xs)]
+
+    def fwd(self, xs):
+        return self._move(xs, self.perm, self.kind)
+
+    def bwd(self, gs):
+        return self._move(gs, [(d, s) for s, d in self.perm],
+                          self.kind + "/bwd")
+
+
+def _groups_of(s: Sharded, axis):
+    """The groups of ``s``'s mesh over ``axis``, or None when every group
+    has one member (the collective is the identity)."""
+    grps = groups(s.mesh, axis)
+    return None if len(grps[0]) == 1 else grps
+
+
+def _drop(s: Sharded, axis, parts) -> Sharded:
+    """``parts`` with ``s``'s cut over ``axis`` removed."""
+    axes = set(_axes_tuple(axis))
+    dim = None if TP_AXIS in axes else s.dim
+    rows = s.rows if s.rows is None or not axes & set(s.rows[0]) else None
+    return Sharded(tuple(parts), dim, s.mesh, rows)
+
+
+def psum(s: Sharded, axis=TP_AXIS) -> Sharded:
+    """The sum of the members' partials over ``axis`` (a name or a tuple
+    of names), on every member: shards 1.. of each group send theirs to
+    the group's first, which adds them in member order, 0 first, and
+    sends the sum back — 2 (g - 1) partials' bytes a group ("psum"; the
+    backward "psum/bwd").  A plain tensor passes through."""
+    if not isinstance(s, Sharded):
+        return s
+    grps = _groups_of(s, axis)
+    if grps is None:
+        return _drop(s, axis, s.parts)
+    return _drop(s, axis, _run(_Sum(s.mesh, grps, "psum"), s.parts))
+
+
+def all_gather(s: Sharded, dim: Optional[int] = None,
+               axis=TP_AXIS) -> Sharded:
+    """The members' parts over ``axis`` concatenated along ``dim``
+    (default: the dim ``s`` is cut along over ``axis``), on every member:
+    each receives the g - 1 parts it lacks.  The backward is the
+    reduce-scatter of the cotangents ("all_gather/bwd").  A plain tensor
     passes through."""
     if not isinstance(s, Sharded):
         return s
-    m = len(s.parts)
-    if m == 1:
-        return Sharded(s.parts, None, s.mesh)
-    dev0 = s.parts[0].device
-    acc = s.parts[0]
-    for p in s.parts[1:]:
-        acc = acc + p.to(dev0)
-    _count(s.mesh, "psum", 2 * (m - 1) * _nbytes(acc))
-    return Sharded(_per_device(acc, model_devices(s.mesh)), None, s.mesh)
+    axes = _axes_tuple(axis)
+    if dim is None:
+        dim = s.dim if axes == (TP_AXIS,) else (
+            s.rows[1] if s.rows and set(s.rows[0]) <= set(axes) else None)
+    grps = _groups_of(s, axis)
+    if grps is None or dim is None:
+        return _drop(s, axis, s.parts)
+    return _drop(s, axis, _run(_Gather(s.mesh, grps, "all_gather", dim),
+                               s.parts))
 
 
-def all_gather(s: Sharded, dim: Optional[int] = None) -> Sharded:
-    """The parts concatenated along ``dim`` (default: the cut dim), on
-    every shard: each shard receives the m - 1 parts it lacks.  A plain
-    tensor passes through."""
-    if not isinstance(s, Sharded):
+def all_to_all(s: Sharded, axis, split_dim: int, concat_dim: int
+               ) -> Sharded:
+    """``lax.all_to_all(tiled=True)`` over ``axis``: each member's part
+    cut into g pieces along ``split_dim``, piece s to member s,
+    concatenated in member order along ``concat_dim``.  The result keeps
+    ``s``'s placement record (the caller knows what it holds)."""
+    grps = _groups_of(s, axis)
+    if grps is None:
         return s
-    dim = s.dim if dim is None else dim
-    m = len(s.parts)
-    if m == 1 or dim is None:
-        return Sharded(s.parts, None, s.mesh)
-    dev0 = s.parts[0].device
-    full = torch.cat([p.to(dev0) for p in s.parts], dim)
-    _count(s.mesh, "all_gather", (m - 1) * _nbytes(full))
-    return Sharded(_per_device(full, model_devices(s.mesh)), None, s.mesh)
+    return s.with_parts(_run(_AllToAll(s.mesh, grps, "all_to_all",
+                                       split_dim, concat_dim), s.parts))
+
+
+def ppermute(s: Sharded, axis: str, perm) -> Sharded:
+    """``lax.ppermute`` over ``axis``: for each (src, dst) of ``perm``
+    member dst receives member src's part; members no pair names get
+    zeros."""
+    grps = _groups_of(s, axis)
+    if grps is None:
+        return s
+    return s.with_parts(_run(_Permute(s.mesh, grps, "ppermute", perm),
+                             s.parts))
 
 
 def broadcast(x, mesh) -> Sharded:
-    """Shard 0's tensor on every shard: (m - 1) copies of its bytes.  A
+    """Place 0's tensor on every place: (n - 1) copies of its bytes.  A
     ``Sharded``, None, or any tensor without a mesh passes through."""
     if mesh is None or x is None or isinstance(x, Sharded):
         return x
-    devs = model_devices(mesh)
+    devs = grid_devices(mesh)
     _count(mesh, "broadcast", (len(devs) - 1) * _nbytes(x))
-    return Sharded(_per_device(x, devs), None, mesh)
+    on: Dict[torch.device, torch.Tensor] = {}
+    return Sharded(tuple(on.setdefault(d, x.to(d)) for d in devs), None,
+                   mesh)
+
+
+def sum_replicas(s: Sharded) -> Sharded:
+    """Each piece's per-place gradients summed over the places that hold
+    that piece (``Sharded.replica_groups``), the sum on every one of them
+    ("grad_sum": an all-reduce, 2 (g - 1) pieces' bytes a group).  The
+    train step's explicit sum for replicated leaves: each place's leaf
+    is its own autograd leaf, so none is summed silently."""
+    if not isinstance(s, Sharded):
+        return s
+    axes = s.replicated_axes()
+    if not axes:
+        return s
+    op = _Sum(s.mesh, groups(s.mesh, axes), "grad_sum")
+    return s.with_parts(op.fwd(list(s.parts)))
+
+
+def map_pieces(fn: Callable, *xs):
+    """``fn`` once for each distinct piece of the like-placed ``xs`` (the
+    parts of each replica group's first place), its result placed on
+    every place of the group, one object a device: a ``Sharded`` — a
+    tuple of them when ``fn`` returns a tuple.  Plain tensors:
+    ``fn(*xs)``."""
+    s = xs[0]
+    if not isinstance(s, Sharded):
+        return fn(*xs)
+    devs = grid_devices(s.mesh)
+    outs: Optional[List[list]] = None
+    for g in s.replica_groups():
+        res = fn(*(x.parts[g[0]] for x in xs))
+        tup = res if isinstance(res, tuple) else (res,)
+        if outs is None:
+            outs = [[None] * len(devs) for _ in tup]
+        for o, r in zip(outs, tup):
+            on: Dict[torch.device, torch.Tensor] = {}
+            for k in g:
+                o[k] = on.setdefault(devs[k], r.to(devs[k]))
+    placed = tuple(s.with_parts(o) for o in outs)
+    return placed if isinstance(res, tuple) else placed[0]
+
+
+def pieces(x) -> List[torch.Tensor]:
+    """Each distinct piece of ``x`` once (one part a replica group); a
+    plain tensor is its one piece."""
+    if not isinstance(x, Sharded):
+        return [x]
+    return [x.parts[g[0]] for g in x.replica_groups()]
 
 
 def local(tree, i: int):
-    """Shard i's view of ``tree``: its part of each ``Sharded``, dicts,
+    """Place i's view of ``tree``: its part of each ``Sharded``, dicts,
     tuples and lists walked, anything else as it is."""
     if isinstance(tree, Sharded):
         return tree.parts[i]
@@ -565,20 +982,30 @@ def local(tree, i: int):
 
 
 def smap(fn: Callable, *args, mesh, dim=None):
-    """``fn`` on each shard's view of ``args`` (``local``), in shard
-    order: a ``Sharded`` of the results cut along ``dim`` (None: equal on
-    every shard), or a tuple of them when ``fn`` returns a tuple (``dim``
-    then one for all, or a tuple of one each).  Without a mesh:
+    """``fn`` on each place's view of ``args`` (``local``), in place
+    order: a ``Sharded`` of the results cut along ``dim`` over ``model``
+    (None: whole), or a tuple of them when ``fn`` returns a tuple
+    (``dim`` then one for all, or a tuple of one each).  Without a mesh:
     ``fn(*args)``."""
     if mesh is None:
         return fn(*args)
-    outs = [fn(*local(list(args), i)) for i in range(len(model_devices(mesh)))]
+    outs = [fn(*local(list(args), i)) for i in range(mesh.devices.size)]
     if isinstance(outs[0], tuple):
         n = len(outs[0])
         dims = dim if isinstance(dim, tuple) else (dim,) * n
         return tuple(Sharded(tuple(o[j] for o in outs), dims[j], mesh)
                      for j in range(n))
     return Sharded(tuple(outs), dim, mesh)
+
+
+def member_leaves(tree):
+    """A tree of ``Sharded`` leaves with every part turned into an
+    autograd leaf, one a place (``detach`` views: no copy), so that a
+    piece several places hold gets one gradient per place."""
+    if isinstance(tree, dict):
+        return {k: member_leaves(v) for k, v in tree.items()}
+    return tree.with_parts([p.detach().requires_grad_(True)
+                            for p in tree.parts])
 
 
 #: The attention leaves kept whole on every shard when the KV heads do
@@ -604,16 +1031,49 @@ def serve_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
 def place_serve(cfg: ModelConfig, params, mesh) -> Any:
     """The parameter tree cut by ``serve_specs``, leaf by leaf.  Leaves
     that are already ``Sharded`` on ``mesh`` are kept."""
-    specs = serve_specs(cfg, params, mesh)
+    return place(params, serve_specs(cfg, params, mesh), mesh)
 
-    def place(path, x, spec):
+
+def train_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
+    """``param_specs(mode="train")`` under ``mesh``'s axes, sanitized:
+    FSDP over ``data`` x TP over ``model`` (``steps.shardings_for``'s
+    parameter specs)."""
+    with use_axes(mesh):
+        return sanitize_specs(param_specs(cfg, params_shape, mode="train"),
+                              params_shape)
+
+
+def place(tree, specs, mesh) -> Any:
+    """``tree`` cut leaf by leaf by the same-shaped ``specs``; leaves
+    already ``Sharded`` on ``mesh`` are kept."""
+    def one(path, x, spec):
         if isinstance(x, Sharded):
             if x.mesh is not mesh:
                 raise ValueError(f"{path}: placed on another mesh")
             return x
         return shard(x, spec, mesh)
 
-    return _map_with_path(place, params, specs)
+    return _map_with_path(one, tree, specs)
+
+
+def place_train(cfg: ModelConfig, params, mesh) -> Any:
+    """The parameter tree cut by ``train_specs``, leaf by leaf (the twin
+    of ``place_serve`` for the sharded train step)."""
+    return place(params, train_specs(cfg, params, mesh), mesh)
+
+
+def place_batch(cfg: ModelConfig, batch, mesh) -> Any:
+    """A training batch cut on its leading (batch) dim over the data
+    axes (``batch_specs``), whole over ``model``; the batch must divide
+    the data axes (each data shard computes its own rows' loss)."""
+    with use_axes(mesh):
+        dp = data_axes()
+        B = next(iter(batch.values())).shape[0]
+        if B % _axes_size_hint(dp):
+            raise NotImplementedError(
+                f"batch {B} does not divide the data axes {dp}")
+        specs = sanitize_specs(batch_specs(cfg, batch, dp, B), batch)
+    return place(batch, specs, mesh)
 
 
 def shard_cfg(cfg: ModelConfig, mesh) -> ModelConfig:

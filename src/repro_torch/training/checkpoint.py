@@ -13,6 +13,12 @@ checkpoints beyond ``keep`` are removed.  Because keys and layout are the
 reference's, a ``{"params": ...}`` tree saved by either package restores
 in the other.  ``AsyncCheckpointer`` copies device tensors to host
 before its thread starts, so training may go on updating them.
+
+Placed trees (``parallel.sharding.Sharded`` leaves) are saved whole, as
+the reference saves unsharded arrays, so ``restore`` can load them into
+any mesh: into a ``like`` tree of placed leaves each restored array is
+cut as its ``like`` leaf is placed — the elastic rescale is a restore
+onto another mesh.
 """
 from __future__ import annotations
 
@@ -28,12 +34,15 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel import sharding
 
 
 def _host(x, snapshot: bool = False) -> np.ndarray:
     """A leaf as a host numpy array; bf16 as fp32 (npz has no bf16).
     ``snapshot``: a copy that later in-place updates of the tensor cannot
     reach (a CPU tensor's numpy view shares its memory)."""
+    if isinstance(x, sharding.Sharded):
+        return _host(sharding.to_whole(x), snapshot)
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -110,10 +119,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: int, like) -> Any:
     """Restore into the structure of ``like``: each leaf a tensor of the
-    ``like`` leaf's dtype on its device."""
+    ``like`` leaf's dtype on its device, or — a ``Sharded`` ``like``
+    leaf — cut and placed as it is (``sharding.place_like``)."""
     path = Path(ckpt_dir) / f"step_{step}" / "arrays.npz"
+
+    def load(arr, leaf):
+        x = torch.from_numpy(np.asarray(arr))
+        if isinstance(leaf, sharding.Sharded):
+            return sharding.place_like(x.to(leaf.dtype), leaf)
+        return x.to(device=leaf.device, dtype=leaf.dtype)
+
     with np.load(path) as data:
-        new = [torch.from_numpy(np.asarray(data[key])).to(
-            device=leaf.device, dtype=leaf.dtype)
-            for key, leaf in tree_lib.flatten(like)]
+        new = [load(data[key], leaf) for key, leaf in tree_lib.flatten(like)]
     return tree_lib.unflatten(like, new)

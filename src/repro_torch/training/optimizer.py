@@ -1,13 +1,21 @@
 """AdamW with global-norm clipping and a warmup-cosine schedule, as pure
 functions over parameter trees.
 
-Port of ``repro.training.optimizer`` (its sharding specs are left to the
-tensor-parallel slice).  Moments are fp32 whatever the parameters' dtype;
+Port of ``repro.training.optimizer``.  Moments are fp32 whatever the
+parameters' dtype, and are placed as the parameters are (``state_specs``:
+FSDP over ``data`` x TP over ``model``, ZeRO-3-style fully sharded);
 each parameter is updated in fp32 and cast back to its own dtype.
 Decoupled weight decay applies to leaves with ``ndim >= 2`` *as stored*:
 the stacked (L, d) norm scales are decayed, as in the reference.  The
 step is a 0-d int32 tensor and the schedule computes in fp32.  ``update``
 returns new tensors and leaves its arguments as they were.
+
+On placed trees (``parallel.sharding.Sharded`` leaves, the sharded train
+step's) the update is elementwise, so it runs piece by piece: once for
+each distinct piece (``sharding.map_pieces``), its result on every place
+that holds the piece.  The global norm sums each distinct piece's squares
+once — a cut leaf's pieces each once, a replicated leaf once, not once a
+place.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -41,12 +50,21 @@ class AdamWState(NamedTuple):
 
 def init(params) -> AdamWState:
     def zeros(p):
+        if isinstance(p, sharding.Sharded):
+            return sharding.map_pieces(zeros, p)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     dev = tree_lib.leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=tree_lib.map_leaves(zeros, params),
                       v=tree_lib.map_leaves(zeros, params))
+
+
+def state_specs(param_spec_tree) -> AdamWState:
+    """Optimizer state specs mirroring the parameter specs (the step
+    replicated)."""
+    return AdamWState(step=sharding.P(), m=param_spec_tree,
+                      v=param_spec_tree)
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -62,9 +80,12 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_lib.leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in fp32; on a placed
+    tree each distinct piece once, summed on the first leaf's device."""
+    dev = tree_lib.leaves(tree)[0].device
+    return torch.sqrt(sum(p.float().square().sum().to(dev)
+                          for g in tree_lib.leaves(tree)
+                          for p in sharding.pieces(g)))
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params
@@ -80,16 +101,17 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params
     b2c = 1 - cfg.beta2 ** step.float()
 
     def upd(p, g, m, v):
-        g = g.float() * scale
+        dev = p.device
+        g = g.float() * scale.to(dev)
         m = cfg.beta1 * m + (1 - cfg.beta1) * g
         v = cfg.beta2 * v + (1 - cfg.beta2) * g.square()
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        delta = (m / b1c.to(dev)) / (torch.sqrt(v / b2c.to(dev)) + cfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        return (p.float() - lr.to(dev) * delta).to(p.dtype), m, v
 
     flat_p = tree_lib.leaves(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    out = [sharding.map_pieces(upd, p, g, m, v) for p, g, m, v in zip(
         flat_p, tree_lib.leaves(grads), tree_lib.leaves(state.m),
         tree_lib.leaves(state.v))]
     new_p = tree_lib.unflatten(params, [o[0] for o in out])

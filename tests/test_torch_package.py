@@ -48,7 +48,9 @@ def test_import_loads_neither_jax_nor_repro():
         "'repro_torch.launch.train', 'repro_torch.launch.steps', "
         "'repro_torch.training.checkpoint', "
         "'repro_torch.examples.train_lm', "
-        "'repro_torch.parallel.sharding', 'repro_torch.launch.mesh'):\n"
+        "'repro_torch.parallel.sharding', 'repro_torch.launch.mesh', "
+        "'repro_torch.launch.specs', 'repro_torch.launch.dryrun', "
+        "'repro_torch.parallel.pipeline', 'repro_torch.core.roofline'):\n"
         "    assert n in names and n in sys.modules, n\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
