@@ -19,14 +19,20 @@ outside the repository.  Phases, each of which raises on failure:
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
      compute, outputs within |out - ref| <= 2e-2 + 2e-2 |ref| element by
-     element: paged decode and paged prefill on a bf16 pool and on int8
-     and fp8 SCLAD pools (prefill pools and scales bit for bit; a first
+     element: paged decode and paged prefill on a bf16 pool, an f8 pool
+     (float8_e4m3fn, no scales; a chunk row planted with values past 448
+     and subnormals, stored as the card's PyTorch casts them, whose
+     behaviour past 464 is printed) and int8 and fp8 SCLAD pools
+     (prefill pools and scales bit for bit; a first
      chunk, one with a 16-token patch prefix, and a continuation, also
      at internvl2-26b's heads, 48 over 8 kv heads of 128: rep 6, with a
      first chunk behind its 256 patch positions, and at qwen2-moe-a2.7b's,
      16 over 16 of 128: rep 1), the dense decode of the wave path, and
      the paged decode at qwen2-moe-a2.7b's and internvl2-26b's heads and
-     the dense decode at internvl2-26b's; the decode kernels also on a
+     the dense decode at internvl2-26b's; on the f8 pool also K1 and K2
+     at qwen2-moe-a2.7b's heads and K1 at internvl2-26b's, and the dense
+     decode on f8 stripes at head dims 64, 112 (zamba2-7b's 32 over 32)
+     and 128 (internvl2-26b's); the decode kernels also on a
      second length set straddling their 128-position split boundaries
      (and a stale length past the table or stripe), each bitwise equal
      from launch to launch; kernel, plain and
@@ -35,17 +41,20 @@ outside the repository.  Phases, each of which raises on failure:
      it) beside each kernel's bound;
   4. model checks: full-width tinyllama-1.1b with seeded random bf16
      weights, ``prefill_slots`` and ``decode_step`` logits with the
-     kernels on vs off on bf16, int8 and fp8 pools, a control that reads
-     one wrong block, which the same limit must catch, and the int8/fp8
-     pools vs the bf16 pool within the quantization gates;
+     kernels on vs off on bf16, int8, fp8 and f8 pools, a control that
+     reads one wrong block (bf16 and f8 pools), which the same limit must
+     catch, and the int8/fp8/f8 pools vs the bf16 pool within the
+     quantization gates;
   5. engine runs, each with the kernels' launch counts set to 0 just
      before and read just after: the port's ``ServingEngine`` serving 12
      requests (16-600 prompt tokens, a shared 64-token system prefix on
      half of them, 32 new tokens each at temperature 0.8) on a bf16, an
-     int8 and an fp8 pool, and in ``mode="wave"`` (dense stripes, the
-     dense decode kernel); a bf16 / int8 pair at the same pool bytes with
-     16 lanes (blocks, block bytes, mean live lanes, preemptions, decode
-     tok/s of each); then under ``torch.profiler`` one continuation
+     int8, an fp8 and an f8 pool (180224 bytes a block), and in
+     ``mode="wave"`` (dense stripes, the dense decode kernel) on bf16 and
+     f8 stripes; a bf16 / int8 / f8 trio at the same pool bytes with 16
+     lanes (blocks, block bytes, mean live lanes, preemptions, decode
+     tok/s of each; the f8 pool twice the bf16 blocks); then under
+     ``torch.profiler`` one continuation
      chunk of 8 rows (device-busy share, top kernels, the prefill
      kernel by name) and three decode steps of 8 lanes (the decode
      kernels' split and combine passes by name);
@@ -75,15 +84,16 @@ outside the repository.  Phases, each of which raises on failure:
      heads, both against their plain versions;
   8. speculative decoding and the async front end: the paged prefill
      kernel at the verify pass's shape (8 lanes of SPEC_K + 1 = 5 rows,
-     lengths 1-5, starts 1-1000, tinyllama-1.1b's heads on bf16, int8 and
-     fp8 pools, and internvl2-26b's on bf16) against its plain version as
-     above; full-width tinyllama-1.1b's verify pass (``prefill_slots``
-     over 5 tokens behind a cached context) against five ``decode_step``s
-     from a copy of the same pool, within the model checks' limit on bf16
-     and int8 pools, with a wrong-block control that must fail it; the
-     12-request trace at temperature 0 with speculation off and on
-     (``spec_k`` 4) on bf16 and int8 pools (no decode-kernel launch under
-     speculation, prefill-kernel launches 22 x (chunks + verify passes),
+     lengths 1-5, starts 1-1000, tinyllama-1.1b's heads on bf16, int8,
+     fp8 and f8 pools, and internvl2-26b's on bf16) against its plain
+     version as above; full-width tinyllama-1.1b's verify pass
+     (``prefill_slots`` over 5 tokens behind a cached context) against
+     five ``decode_step``s from a copy of the same pool, within the model
+     checks' limit on bf16 and int8 pools, with a wrong-block control that
+     must fail it; the 12-request trace at temperature 0 with speculation
+     off and on (``spec_k`` 4) on bf16, int8 and f8 pools (no decode-kernel
+     launch under speculation, prefill-kernel launches 22 x (chunks +
+     verify passes),
      every request ends, pool invariants hold, no block stays live; the
      share of requests equal to the spec-off run is printed); and
      ``repro_torch.launch.serve`` in process through the async front end
@@ -98,7 +108,8 @@ outside the repository.  Phases, each of which raises on failure:
      (internvl2-26b: every other request of the shared prefix carries
      one of two random images, which must hit the prefix cache past the
      patches; the rest the zero stub), a wave run of 4 requests of 8 new
-     tokens, and for qwen2-moe-a2.7b a profiled decode step (device time
+     tokens (internvl2-26b also on f8 stripes), and for qwen2-moe-a2.7b a
+     profiled decode step (device time
      of each MoE stage); stablelm-1.6b, phi3-medium-14b and granite-3-8b
      through the model checks on a bf16 pool and a 4-request run of 16
      new tokens; each run's launch counts as the 12-request runs';
@@ -126,7 +137,9 @@ outside the repository.  Phases, each of which raises on failure:
      prompt tokens (mamba2-1.3b, zamba2-7b) or 8 of 4-64 (whisper-base),
      32 new tokens each, with the SSD kernel launched once a Mamba-2
      block a wave and the dense decode kernel once an attention layer a
-     decode step, the paged kernels never;
+     decode step, the paged kernels never; zamba2-7b and whisper-base
+     again on f8 stripes, 4 requests of 8 new tokens (whisper-base's
+     cache, its cross K/V included, checked float8_e4m3fn);
  11. training on one card, the kernels' launch counts set to 0 before
      each run and read after: full-width tinyllama-1.1b (bf16 weights
      from seed 0) takes TRAIN_STEPS AdamW steps on one TokenStream batch
@@ -156,8 +169,9 @@ outside the repository.  Phases, each of which raises on failure:
      moving exactly their psum / all_gather / broadcast bytes (no pool
      byte), and a control that hands shard 1 shard 0's query heads, which
      must fail the limit; K1 and K2 against their plain versions at the
-     per-shard heads (16 over 2, 8 over 1) on bf16 and int8 pools as in
-     phase 3, and the sharded dispatch (pools placed once) against one
+     per-shard heads (16 over 2, 8 over 1) on bf16 and int8 pools (16
+     over 2 also on an f8 pool) as in phase 3, and the sharded dispatch
+     (pools placed once) against one
      launch on every head (outputs within the kernel tolerance, written
      pools and scales bit for bit; whether the outputs are bit for bit
      printed); the 12-request trace greedy meshless and on a 1-way mesh
@@ -221,7 +235,16 @@ CHUNK = 128                   # prefill chunk
 TOL = 2e-2                    # kernel vs plain, bf16 outputs
 #: Quantized vs bf16 pool, as a share of the logit range: the JAX
 #: package's LOGIT_ERR_GATE (int8 0.15, fp8 0.35) over its span of ~3.
-QUANT_GATE = {"int8": 0.05, "fp8": 0.12}
+#: The f8 pool (float8_e4m3fn, no scales) takes fp8's: both keep 3
+#: mantissa bits an element, and f8 loses more only below 2^-6 (its
+#: subnormals, absolute error at most 2^-10) or past 448 (which K/V do
+#: not reach).
+QUANT_GATE = {"int8": 0.05, "fp8": 0.12, "f8": 0.12}
+#: A chunk K row planted into the f8 prefill checks (tiled over D): values
+#: past 448, where PyTorch builds cast differently (NaN or +-448), the
+#: round-to-even tie at 464, and subnormals.
+F8_PLANTED = (440.0, 447.0, 448.0, 460.0, 463.9, 464.0, 470.0, 1e3, 1e4,
+              -500.0, -1e4, 1e-3, 2.0 ** -9, 2.0 ** -11, 3e-3, -2.0 ** -8)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12        # fp32 outside the tensor cores
@@ -431,18 +454,20 @@ def rel_err(torch, what, out, ref, limit=SSD_REL):
 
 
 def row_bytes(kv_dtype: str, D: int) -> int:
-    """Pool bytes of one (position, kv head) row: the D-vector's payload
-    plus, for a SCLAD pool, its fp32 scale."""
-    return D * 2 if kv_dtype == "bf16" else D + 4
+    """Pool bytes of one (position, kv head) row: the D-vector (2 bytes an
+    element in bf16, 1 in f8 and the SCLAD payloads) plus, for a SCLAD
+    pool, its fp32 scale."""
+    return {"bf16": 2 * D, "f8": D}.get(kv_dtype, D + 4)
 
 
 def make_pool(torch, gen, N, Hk, D, kv_dtype):
-    """A random K (or V) pool: bf16, or bf16 values quantized by the
-    port's codec -> (payload, scales or None)."""
+    """A random K (or V) pool: bf16, the bf16 values cast to f8, or
+    quantized by the port's codec -> (payload, scales or None)."""
     from repro_torch.models import kv_quant
     x = torch.randn(N, BS, Hk, D, generator=gen, device="cuda").bfloat16()
-    if kv_dtype == "bf16":
-        return x, None
+    if kv_dtype in ("bf16", "f8"):
+        return x.to(torch.float8_e4m3fn if kv_dtype == "f8" else x.dtype), \
+            None
     return kv_quant.quantize(x, kv_dtype)
 
 
@@ -481,7 +506,7 @@ def split_lengths_check(torch, what, out, ref, lens) -> float:
 
 
 def check_decode(torch, cfg, gen, kv_dtype="bf16"):
-    """Kernel 1 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
+    """Kernel 1 (bf16 or f8 pool) or its SCLAD body (int8/fp8 pool) vs its
     plain version at the decode step's shapes, then on lengths that
     straddle the split boundaries; bitwise equal launch to launch."""
     import torch.nn.functional as F
@@ -560,6 +585,11 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
 #: internvl2-26b's heads (H, Hk, D): 48 over 8 kv heads of 128 (rep 6),
 #: the prefill checks' second head shape beside tinyllama-1.1b's.
 REP6_HEADS = (48, 8, 128)
+#: zamba2-7b's shared attention: 32 over 32 heads of 112.
+ZAMBA_HEADS = (32, 32, 112)
+#: An f8 pool block at full width: tinyllama-1.1b's 22 layers x 16
+#: positions x 4 kv heads x 64, K and V, one byte each (bf16 360448).
+F8_BLOCK_BYTES = 22 * 16 * 4 * 64 * 2
 PATCH_PREFIX = 16  # the patch-prefix case's prefix
 VLM_PREFIX = 256   # internvl2-26b's patch prefix (num_patches)
 SPEC_K = 4         # drafts per verify pass: P = SPEC_K + 1 rows per lane
@@ -567,7 +597,7 @@ VERIFY = "verify"  # check_prefill's case of the speculative verify pass
 
 
 def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
-    """Kernel 2 (bf16 pool) or its SCLAD body (int8/fp8 pool) vs its
+    """Kernel 2 (bf16 or f8 pool) or its SCLAD body (int8/fp8 pool) vs its
     plain version at the prefill chunk's shapes with ``heads`` = (H, Hk,
     D): a first chunk, a first chunk behind a 16-position patch prefix
     (sharing the chunk's 128 rows), a first chunk behind internvl2-26b's
@@ -575,9 +605,11 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     continuation (with a block-straddling start and a shared context
     block) and the speculative verify pass (``VERIFY``: SPEC_K + 1 = 5
     rows, lengths 1-5, starts 1-1000, a shared context block); pools (and
-    scales) bit for bit, bitwise equal launch to launch.  ``cases`` picks
-    some of them (default: all but the 256-position prefix and the verify
-    pass)."""
+    scales) bit for bit, bitwise equal launch to launch.  On an f8 pool
+    the last row of lane 0 carries F8_PLANTED in kv head 0, so the written
+    pool holds values past 448 cast as this PyTorch build casts them.
+    ``cases`` picks some of them (default: all but the 256-position prefix
+    and the verify pass)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
@@ -620,7 +652,11 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
         # A prefix shorter than the chunk shares its P rows (lengths
         # clamped); a longer one comes ahead of a whole chunk.
         S = P + prefix * (prefix >= P)
-        q, kn, vn = (x[:, :S].contiguous() for x in (q_all, kn_all, vn_all))
+        q, kn, vn = (x[:, :S].clone(memory_format=torch.contiguous_format)
+                     for x in (q_all, kn_all, vn_all))
+        if kv_dtype == "f8":
+            kn[0, -1, 0] = torch.tensor(F8_PLANTED, device=dev).repeat(
+                D // len(F8_PLANTED)).to(kn.dtype)
         lens = all_lens.clamp(max=S - prefix)
         sidx = torch.arange(S, device=dev)
         # Real rows and keys: the patch prefix and the prompt tokens.
@@ -702,9 +738,10 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     return results
 
 
-def check_dense_decode(torch, heads, gen, S=MAX_LEN):
+def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16"):
     """Kernel 3 (dense stripes, the wave path's decode) vs its plain
-    version: 8 rows of (S, Hk, D) bf16 stripes at ``heads`` (H, Hk, D)
+    version: 8 rows of (S, Hk, D) bf16 (or, ``kv_dtype="f8"``, the bf16
+    values cast to float8_e4m3fn) stripes at ``heads`` (H, Hk, D)
     (S = 1024 by default; internvl2-26b's wave stripes add its 256 patch
     positions), mixed lengths, then lengths that straddle the split
     boundaries; bitwise equal launch to launch.  At a D that is not a
@@ -717,16 +754,18 @@ def check_dense_decode(torch, heads, gen, S=MAX_LEN):
     from repro_torch.kernels.flash_decode.ref import decode_ref
     dev = "cuda"
     H, Hk, D = heads
+    sd = torch.float8_e4m3fn if kv_dtype == "f8" else torch.bfloat16
     q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
-    kc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
-    vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16()
+    kc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16().to(sd)
+    vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16().to(sd)
     lens = torch.tensor([1, 17, 600, 1024, 0, 333, 64, 5],
                         dtype=torch.int32, device=dev)
     live = lens > 0
     out = flash_decode(q, kc, vc, lens)
     torch.cuda.synchronize()
     ref = decode_ref(q, kc, vc, lens)
-    what = f"dense decode kernel (heads {H}/{Hk}/{D}, stripes of {S})"
+    what = (f"dense decode kernel (heads {H}/{Hk}/{D}, {kv_dtype} stripes "
+            f"of {S})")
     err = assert_close(torch, what, out[live], ref[live])
     same_launches(torch, what, out, lambda: flash_decode(q, kc, vc, lens))
     lens2 = torch.tensor([SPLIT - 1, SPLIT, SPLIT + 1, S, S + 300,
@@ -753,11 +792,13 @@ def check_dense_decode(torch, heads, gen, S=MAX_LEN):
     plain_ms = cuda_ms(lambda: decode_ref(q, kc, vc, lens))
     mask = (torch.arange(S, device=dev)[None] < lens[:, None]
             )[:, None, None, :]
-    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    # SDPA's yardstick on a dense bf16 copy (f8 stripes widened first).
+    kt, vt = (x.to(q.dtype).transpose(1, 2) for x in (kc, vc))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True))
     n = lens.clamp(max=S).double().sum().item()
-    nbytes = 2 * n * Hk * D * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+    nbytes = (2 * n * Hk * D * kc.element_size() + 2 * q.numel() * 2
+              + lens.numel() * 4)
     bound_ms, bound_by = bound(nbytes, 4 * H * D * n)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
@@ -1305,8 +1346,8 @@ def routing(torch, log, replay):
         raise AssertionError("routing replay: calls differ from the log")
 
 
-def check_model(torch, cfg, params, card, pools=("bf16", "int8", "fp8"),
-                quant_gate=True):
+def check_model(torch, cfg, params, card,
+                pools=("bf16", "int8", "fp8", "f8"), quant_gate=True):
     """prefill_slots (first chunk, continuation) and decode_step logits
     with the kernels on vs off, full width, on each of ``pools`` (bf16
     first).  Tolerance: 5% of the logits' range — 22 bf16 layers (24-48
@@ -1320,9 +1361,10 @@ def check_model(torch, cfg, params, card, pools=("bf16", "int8", "fp8"),
     decode step with one table entry of one lane pointed at the trash
     block (16 of its 80 keys read from the wrong block; of 336 behind
     internvl2-26b's patches) must differ from the right one by more than
-    it.  Then the quantized pools against the bf16 pool, kernels on,
-    within QUANT_GATE of the range — a gate set on tinyllama-1.1b, only
-    printed with ``quant_gate`` False."""
+    it; on an f8 pool the same control runs on the f8 pool.  Then the
+    int8 / fp8 / f8 pools against the bf16 pool, kernels on, within
+    QUANT_GATE of the range — a gate set on tinyllama-1.1b, only printed
+    with ``quant_gate`` False."""
     on = {}
     for kv_dtype in pools:
         picks = []
@@ -1337,15 +1379,16 @@ def check_model(torch, cfg, params, card, pools=("bf16", "int8", "fp8"),
             compare_logits(torch, f"{cfg.name} {kv_dtype} pool, kernels on "
                            f"vs off, free routing", free, off, 0.05, card,
                            enforce=False)
-        if kv_dtype == "bf16":
+        if kv_dtype in ("bf16", "f8"):
             with routing(torch, picks, replay=True):
-                bad = model_logits(torch, cfg, params, "bf16", "off",
+                bad = model_logits(torch, cfg, params, kv_dtype, "off",
                                    wrong=True)
             span = (off[2].max() - off[2].min()).item()
             err = (bad[2] - off[2]).abs().max().item()
             print(f"model check {cfg.name} control (decode reading one "
-                  f"wrong block) [{card}]: max|wrong-off| {err:.4g} of "
-                  f"range {span:.4g} (must exceed {0.05 * span:.4g})")
+                  f"wrong block, {kv_dtype} pool) [{card}]: max|wrong-off| "
+                  f"{err:.4g} of range {span:.4g} (must exceed "
+                  f"{0.05 * span:.4g})")
             if err <= 0.05 * span:
                 raise AssertionError("model check cannot see a decode that "
                                      "reads one wrong block: its limit is "
@@ -1476,9 +1519,10 @@ def run_engine(torch, cfg, params, card, kv_dtype="bf16", mode="auto",
 
 
 def run_same_bytes_pair(torch, cfg, params, card):
-    """A bf16 pool and an int8 pool of the same device bytes (the bf16
-    pool holds 8 lanes of ~600-token requests), 16 lanes, 24 requests:
-    the SCLAD pool's extra blocks become extra live lanes."""
+    """A bf16 pool, an int8 pool and an f8 pool of the same device bytes
+    (the bf16 pool holds 8 lanes of ~600-token requests), 16 lanes, 24
+    requests: the compressed pools' extra blocks become extra live
+    lanes.  Returns {kv_dtype: (blocks, EngineStats)}."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.sampler import SamplerConfig
@@ -1488,7 +1532,7 @@ def run_same_bytes_pair(torch, cfg, params, card):
     bf16_blocks = 8 * (-(-(600 + 32) // BS))
     rows = {}
     wrappers = launch_counts()
-    for kv_dtype in ("bf16", "int8"):
+    for kv_dtype in ("bf16", "int8", "f8"):
         probe = ServingEngine(cfg, params, max_batch=1, max_len=BS,
                               block_size=BS, num_blocks=1, device="cuda",
                               kv_dtype=kv_dtype)
@@ -1514,7 +1558,7 @@ def run_same_bytes_pair(torch, cfg, params, card):
         s = eng.stats
         if len(out) != len(reqs) or any(len(t) != 32 for t in out.values()):
             raise AssertionError(f"same-bytes {kv_dtype} run lost requests")
-        rows[kv_dtype] = s
+        rows[kv_dtype] = blocks, s
         print(f"same-bytes pair {kv_dtype} [{card}]: {blocks} blocks x "
               f"{s.kv_block_bytes} B = {blocks * s.kv_block_bytes / 2**20:.1f}"
               f" MiB pool; mean live lanes {s.mean_active_requests:.2f} "
@@ -1522,9 +1566,15 @@ def run_same_bytes_pair(torch, cfg, params, card):
               f"decode {s.tokens_per_s:.1f} tok/s ({s.decode_steps} steps, "
               f"{s.decode_s / s.decode_steps * 1e3:.2f} ms/step); wall "
               f"{wall:.2f} s; launches {launches}")
-    if rows["int8"].peak_decode_lanes <= rows["bf16"].peak_decode_lanes:
-        raise AssertionError("the int8 pool held no more lanes than the "
-                             "bf16 pool of the same bytes")
+    for kv_dtype in ("int8", "f8"):
+        if rows[kv_dtype][1].peak_decode_lanes <= \
+                rows["bf16"][1].peak_decode_lanes:
+            raise AssertionError(f"the {kv_dtype} pool held no more lanes "
+                                 f"than the bf16 pool of the same bytes")
+    if rows["f8"][0] != 2 * rows["bf16"][0]:
+        raise AssertionError(f"the f8 pool holds {rows['f8'][0]} blocks, not "
+                             f"twice the bf16 pool's {rows['bf16'][0]}")
+    return rows
 
 
 def device_times(torch, prof, skip=()):
@@ -1706,9 +1756,10 @@ def run_family(torch, arch, card):
     0 before and read after.  moe and vlm: kernels on vs off on bf16 and
     int8 pools, the 12-request trace on a bf16 pool (vlm: two images and
     the stub), a wave run of 4 requests of distinct lengths and 8 new
-    tokens, (moe) a profiled decode step and (vlm) 4 requests of 16
-    greedy tokens with speculation off and on (``run_spec``).  Dense: bf16
-    pool, 4 requests of 16 new tokens.  Returns {run: launches}."""
+    tokens (vlm: again on f8 stripes), (moe) a profiled decode step and
+    (vlm) 4 requests of 16 greedy tokens with speculation off and on
+    (``run_spec``).  Dense: bf16 pool, 4 requests of 16 new tokens.
+    Returns {run: launches}."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     cfg = get_config(arch)
@@ -1746,6 +1797,9 @@ def run_family(torch, arch, card):
             torch, cfg, params, card, mode="wave", reqs=wave,
             images=None if imgs is None else imgs[:4], max_new=8)
         if cfg.family == "vlm":
+            launches["wave f8"], _ = run_engine(
+                torch, cfg, params, card, kv_dtype="f8", mode="wave",
+                reqs=wave, images=imgs[:4], max_new=8)
             # Speculation behind the patch prefix: two requests carry an
             # image, two the stub.
             launches["spec"] = run_spec(torch, cfg, params, card,
@@ -1936,8 +1990,10 @@ def run_recurrent(torch, arch, gen, card):
     (the Mamba-2 leaves the reference fixes at its values), freed
     afterwards: init peak memory, its kernels at the model's shapes (K4
     at the prefill's, K3 at the attention heads'), check_recurrent_model,
-    and the wave engine on 12 requests (8 for audio) of 32 new tokens.
-    Returns (kernel results, the engine run's launches)."""
+    and the wave engine on 12 requests (8 for audio) of 32 new tokens;
+    hybrid and audio also on f8 stripes, 4 requests of 8 new tokens (the
+    audio cache's stripes, cross K/V included, checked f8).  Returns
+    (kernel results, the engine run's launches, the f8 run's or None)."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -1970,9 +2026,26 @@ def run_recurrent(torch, arch, gen, card):
         else [RECURRENT_LENS[i % 5] for i in range(12)]
     reqs = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
     launches, _ = run_engine(torch, cfg, params, card, reqs=reqs)
+    f8 = None
+    if cfg.family != "ssm":
+        if cfg.family == "audio":
+            from dataclasses import replace
+            c8 = replace(cfg, kv_dtype="f8")
+            _, cache = M.prefill(c8, params, {
+                "tokens": torch.ones(1, 4, dtype=torch.int32, device="cuda"),
+                "frames": torch.zeros(1, cfg.encdec.encoder_seq_len,
+                                      cfg.d_model, dtype=torch.bfloat16,
+                                      device="cuda")}, 8)
+            dts = {k: str(v.dtype) for k, v in cache.items()}
+            print(f"{arch} f8 wave cache [{card}]: {dts}")
+            if set(dts.values()) != {"torch.float8_e4m3fn"}:
+                raise AssertionError(f"{arch}: an f8 wave cache holds {dts}")
+            del cache
+        f8, _ = run_engine(torch, cfg, params, card, kv_dtype="f8",
+                           reqs=reqs[:4], max_new=8)
     del params
     torch.cuda.empty_cache()
-    return kernels, launches
+    return kernels, launches, f8
 
 
 #: The training phase's tinyllama-1.1b batch and run: one TokenStream batch
@@ -2589,6 +2662,8 @@ def run_sharded(torch, gen, card):
         del placed
         for kd in ("bf16", "int8"):
             kernels[m, kd] = per_shard_kernels(torch, cfg, m, gen, card, kd)
+        if m == 2:  # K1 and K2 on an f8 pool's slice, 16 over 2 heads
+            per_shard_kernels(torch, cfg, m, gen, card, "f8")
     # The greedy trace: meshless and on a 1-way mesh (the same layer loop
     # with and without Sharded parts) before and after the 2- and 4-shard
     # runs, then the 4-shard ones on int8 pools.
@@ -3164,19 +3239,23 @@ def main() -> int:
                 print(f"    {short_name(fn)}: {nreg} registers, {spill} "
                       f"bytes of spills")
     report_tensor_cores(_build, card)
+    from repro_torch.models import kv_quant
+    print(f"f8 cast past 464 (torch {torch.__version__}, cuda / cpu): "
+          f"{'+-448' if kv_quant.f8_saturates('cuda') else 'NaN'} / "
+          f"{'+-448' if kv_quant.f8_saturates('cpu') else 'NaN'}; the "
+          f"prefill kernel's f8 scatter follows the card's")
 
     # 3. Kernel checks.
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dec = {kd: check_decode(torch, cfg, gen, kd)
-           for kd in ("bf16", "int8", "fp8")}
+    pools = ("bf16", "int8", "fp8", "f8")
+    dec = {kd: check_decode(torch, cfg, gen, kd) for kd in pools}
     tiny = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-    pre = {kd: check_prefill(torch, tiny, gen, kd)
-           for kd in ("bf16", "int8", "fp8")}
+    pre = {kd: check_prefill(torch, tiny, gen, kd) for kd in pools}
     pre6 = {kd: check_prefill(torch, REP6_HEADS, gen, kd,
                               cases=("first", f"first, prefix {VLM_PREFIX}",
                                      "continuation"))
-            for kd in ("bf16", "int8", "fp8")}
+            for kd in pools}
     dense = check_dense_decode(torch, tiny, gen)
     # The new families' heads: qwen2-moe-a2.7b 16 over 16 of 128 (rep 1),
     # internvl2-26b 48 over 8 of 128 (rep 6).
@@ -3188,6 +3267,18 @@ def main() -> int:
                             cases=("first", "continuation"))
     dense_vlm = check_dense_decode(torch, REP6_HEADS, gen,
                                    S=MAX_LEN + VLM_PREFIX)
+    # The f8 pool and stripes beyond tinyllama-1.1b's heads: K1 and K2 at
+    # qwen2-moe-a2.7b's (rep 1) and internvl2-26b's (rep 6, above), K3 at
+    # head dims 64 (tinyllama-1.1b), 112 (zamba2-7b's shared attention,
+    # 32 over 32) and 128 (internvl2-26b).
+    dec8 = {"moe": check_decode(torch, moe_cfg, gen, "f8"),
+            "vlm": check_decode(torch, vlm_cfg, gen, "f8")}
+    pre_moe8 = check_prefill(torch, moe_heads, gen, "f8",
+                             cases=("first", "continuation"))
+    dense8 = {64: check_dense_decode(torch, tiny, gen, kv_dtype="f8"),
+              112: check_dense_decode(torch, ZAMBA_HEADS, gen, kv_dtype="f8"),
+              128: check_dense_decode(torch, REP6_HEADS, gen,
+                                      S=MAX_LEN + VLM_PREFIX, kv_dtype="f8")}
     rows = [(f"paged_flash_decode[{kd}]", r) for kd, r in dec.items()]
     rows += [(f"paged_flash_prefill[{kd}, {k}]", v)
              for kd, res in pre.items() for k, v in res.items()]
@@ -3199,6 +3290,11 @@ def main() -> int:
     rows += [(f"paged_flash_prefill[bf16, {k}, heads {moe_heads}]", v)
              for k, v in pre_moe.items()]
     rows.append((f"flash_decode[dense, heads {REP6_HEADS}]", dense_vlm))
+    rows += [(f"paged_flash_decode[f8, heads {moe_heads}]", dec8["moe"]),
+             (f"paged_flash_decode[f8, heads {REP6_HEADS}]", dec8["vlm"])]
+    rows += [(f"paged_flash_prefill[f8, {k}, heads {moe_heads}]", v)
+             for k, v in pre_moe8.items()]
+    rows += [(f"flash_decode[f8, D={d}]", r) for d, r in dense8.items()]
     for name, r in rows:
         print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
@@ -3228,14 +3324,19 @@ def main() -> int:
     check_model(torch, cfg, params, card)
 
     # 5. The main path, one run per pool encoding and mode, then the
-    # same-bytes pair and a profile of the bf16 engine's decode step.
+    # same-bytes trio and a profile of the bf16 engine's decode step.
     launches = {}
     for kv_dtype, mode in (("bf16", "auto"), ("int8", "auto"),
-                           ("fp8", "auto"), ("bf16", "wave")):
+                           ("fp8", "auto"), ("f8", "auto"), ("bf16", "wave"),
+                           ("f8", "wave")):
         launches[kv_dtype, mode], eng = run_engine(
             torch, cfg, params, card, kv_dtype=kv_dtype, mode=mode)
         if (kv_dtype, mode) == ("bf16", "auto"):
             bf16_engine = eng
+        if (kv_dtype, mode) == ("f8", "auto") and \
+                eng.stats.kv_block_bytes != F8_BLOCK_BYTES:
+            raise AssertionError(f"f8 pool: {eng.stats.kv_block_bytes} "
+                                 f"bytes a block, not {F8_BLOCK_BYTES}")
     run_same_bytes_pair(torch, cfg, params, card)
     profile_prefill(torch, bf16_engine, cfg, card)
     profile_decode(torch, bf16_engine, cfg, card)
@@ -3249,7 +3350,7 @@ def main() -> int:
     # speculation off and on (bf16 and int8 pools), then the launcher
     # through the front end and a two-replica router with a crash.
     ver = {kd: check_prefill(torch, tiny, gen, kd, cases=(VERIFY,))[VERIFY]
-           for kd in ("bf16", "int8", "fp8")}
+           for kd in pools}
     ver["bf16, heads REP6"] = check_prefill(torch, REP6_HEADS, gen,
                                             cases=(VERIFY,))[VERIFY]
     for kd, r in ver.items():
@@ -3259,7 +3360,7 @@ def main() -> int:
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){rates(r)}")
     check_verify_model(torch, cfg, params, card)
     spec = {kd: run_spec(torch, cfg, params, card, kv_dtype=kd)
-            for kd in ("bf16", "int8")}
+            for kd in ("bf16", "int8", "f8")}
     run_launcher(torch, card)
 
     # 9. The other attention families at full width, one at a time.
@@ -3361,6 +3462,31 @@ def main() -> int:
                      err=max(r["err"] for r in attn.values())),
     ]
     dense_src = "src/repro_torch/csrc/dense_decode.cu"
+    # The f8 kinds: the TPU kernels' fp route over an f8 cache (probs @ V
+    # in bf16, `_pv_dtype`), the paged entries at tinyllama-1.1b's shapes
+    # with the worst error over every f8 head shape checked.
+    kernels += [
+        kernel_entry("paged_flash_decode[f8]", dec_src, f"{dec_tpu}:183",
+                     runs("paged_flash_decode", ("f8", "auto")), dec["f8"],
+                     err=max(r["err"] for r in [dec["f8"]]
+                             + list(dec8.values()))),
+        kernel_entry("paged_flash_prefill[f8]", pre_src, f"{pre_tpu}:231",
+                     runs("paged_flash_prefill", ("f8", "auto")),
+                     pre["f8"]["continuation"],
+                     err=max(r["err"] for res in (pre["f8"], pre6["f8"],
+                                                  pre_moe8)
+                             for r in res.values())),
+        kernel_entry(f"paged_flash_prefill[f8, verify, P={SPEC_K + 1}]",
+                     pre_src, f"{pre_tpu}:231",
+                     spec["f8"]["paged_flash_prefill"], ver["f8"]),
+        kernel_entry("flash_decode[f8, D=64]", dense_src, f"{dec_tpu}:78",
+                     runs("flash_decode", ("f8", "wave")), dense8[64]),
+        kernel_entry("flash_decode[f8, D=112]", dense_src, f"{dec_tpu}:78",
+                     recurrent[HYBRID_ARCH][2]["flash_decode"], dense8[112]),
+        kernel_entry("flash_decode[f8, D=128]", dense_src, f"{dec_tpu}:78",
+                     family[VLM_ARCH]["wave f8"]["flash_decode"],
+                     dense8[128]),
+    ]
     ssd_src, ssd_tpu = ("src/repro_torch/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:66")
     for arch in (HYBRID_ARCH, AUDIO_ARCH):

@@ -1,16 +1,17 @@
 // One decode-attention body for Hopper (sm_90a), shared by the paged
 // flash-decode kernel (paged_decode.cu: keys reached through a block
-// table, bf16 or SCLAD int8/fp8 pool) and the dense flash-decode kernel
-// (dense_decode.cu: keys in per-row bf16 stripes).
+// table, bf16, f8 or SCLAD int8/fp8 pool) and the dense flash-decode
+// kernel (dense_decode.cu: keys in per-row bf16 or f8 stripes).
 //
 // Replaces the bodies of the TPU kernels `_paged_decode_kernel` and
 // `_decode_kernel` of src/repro/kernels/flash_decode/flash_decode.py: one
 // new query token per row attends over its cached positions [0, n), n =
 // min(lengths[b], width), width = T * bs (paged) or S (dense), with an
 // fp32 online softmax.  The templates take a row-address policy
-// (PagedRows / DenseRows: position -> pool row), the payload type (bf16,
-// int8 or fp8 e4m3 with fp32 scales) and D (64 or 128; the dense kernel
-// also 112, bf16 only); q's type picks the body.
+// (PagedRows / DenseRows: position -> pool row), the payload type (bf16;
+// f8_e4m3, one e4m3 byte without a scale; int8 or fp8 e4m3 with fp32
+// scales) and D (64 or 128; the dense kernel also 112); q's type picks
+// the body.
 //
 // Bound on this card.  The work reads each live K/V row once (2 * n * Hk
 // rows of D payload elements, plus a 4-byte scale on a SCLAD pool) and
@@ -47,7 +48,10 @@
 // ldmatrix.trans), l summing the fp32 p.  A SCLAD payload is dequantized
 // in shared memory first, payload * scale in fp32 rounded to bf16: the
 // cast chain of kv_quant.dequantize(..., q.dtype) and of
-// paged_attention.cuh's load_tile_dequant.  fp32 q (decode_exact_kernel)
+// paged_attention.cuh's load_tile_dequant.  An f8 payload is staged as
+// bytes and widened to bf16 the same way with scale 1 (exact), so the
+// kernel reads half the bf16 bytes and scores the values the plain
+// version scores after its cast.  fp32 q (decode_exact_kernel)
 // keeps exact fp32 arithmetic on the CUDA cores (one lane per key for the
 // scores, one lane per column for P @ V) through the same staging, split
 // and combine.
@@ -112,14 +116,15 @@ struct DenseRows {
 template <typename T, int D, typename P>
 struct Layout {
   static constexpr bool kTc = std::is_same<T, bf16>::value;
-  static constexpr bool kQuant = kQuantized<P>;
+  static constexpr bool kByte = kBytePayload<P>;  // SCLAD or f8
+  static constexpr bool kScaled = kQuantized<P>;  // SCLAD
   static constexpr int kStride = D + 8;  // bf16 elements of a padded row
   // A staged pool row: a padded bf16 row, or D payload bytes + 16.
-  static constexpr int kRowBytes = kQuant ? D + 16 : kStride * 2;
+  static constexpr int kRowBytes = kByte ? D + 16 : kStride * 2;
   static constexpr int kStage = kWarpKeys * kRowBytes;        // K or V
-  // bf16 q on a SCLAD pool: the dequantized bf16 K and V of the warp.
-  static constexpr int kConv = kTc && kQuant ? kWarpKeys * kStride * 2 : 0;
-  static constexpr int kScales = kQuant ? kWarpKeys * 4 : 0;
+  // bf16 q on a one-byte payload: the widened bf16 K and V of the warp.
+  static constexpr int kConv = kTc && kByte ? kWarpKeys * kStride * 2 : 0;
+  static constexpr int kScales = kScaled ? kWarpKeys * 4 : 0;
   static constexpr int kQ = kTc ? kMaxRep * kStride * 2 : kMaxRep * D * 4;
   static constexpr int kPerWarp = 2 * (kStage + kConv + kScales);
   static constexpr int kMergeO = kWarps * kRowTile * D * 4;
@@ -134,7 +139,7 @@ struct WarpSmem {
   using L = Layout<T, D, P>;
   unsigned char* q;          // [kMaxRep][kStride] bf16, or [kMaxRep][D] fp32
   unsigned char* stage[2];   // K, V: [kWarpKeys][kRowBytes]
-  bf16* conv[2];             // K, V: [kWarpKeys][kStride] (bf16 q, SCLAD)
+  bf16* conv[2];             // K, V: [kWarpKeys][kStride] (bf16 q, bytes)
   float* scale[2];           // K, V: [kWarpKeys]          (SCLAD)
   float* mo;                 // [kWarps][kRowTile][D] merge: accumulators
   float* mm;                 // [kWarps][kRowTile]    merge: m (log2 units)
@@ -156,7 +161,10 @@ struct WarpSmem {
 
 // Put this warp's keys p0 .. p0 + 31 (those below n; the rest zero-filled)
 // in shared memory: two cp.async commit groups of 16 keys, both left in
-// flight; a SCLAD pool's scales by plain loads (0 for keys past n).
+// flight; a SCLAD pool's scales by plain loads (0 for keys past n).  A
+// stage's 16-byte pieces may not fill whole rounds of the warp (7 a row
+// for one-byte rows at D 112): the last round's extra lanes copy
+// nothing.
 template <typename T, int D, typename P, typename Rows>
 __device__ __forceinline__ void stage_keys(const WarpSmem<T, D, P>& sm,
                                            const Rows& rows, int b, int h,
@@ -166,27 +174,28 @@ __device__ __forceinline__ void stage_keys(const WarpSmem<T, D, P>& sm,
   using L = Layout<T, D, P>;
   constexpr int kPieces = D * int(sizeof(P)) / 16;  // 16-byte pieces a row
   constexpr int kElems = 16 / int(sizeof(P));
-  static_assert(kStageKeys * kPieces % 32 == 0,
-                "a stage's pieces must split evenly over the warp's lanes");
+  constexpr int kStagePieces = kStageKeys * kPieces;
   const bool live = p0 + lane < n;
   const long long row = live ? rows.row(b, h, p0 + lane) : 0;
-  if constexpr (L::kQuant) {
+  if constexpr (L::kScaled) {
     sm.scale[0][lane] = live ? ks[row] : 0.f;
     sm.scale[1][lane] = live ? vs[row] : 0.f;
   }
 #pragma unroll
   for (int st = 0; st < kWarpKeys / kStageKeys; ++st) {
 #pragma unroll
-    for (int i = 0; i < kStageKeys * kPieces / 32; ++i) {
+    for (int i = 0; i < (kStagePieces + 31) / 32; ++i) {
       const int e = lane + 32 * i;
       const int t = st * kStageKeys + e / kPieces, c = e % kPieces;
-      const long long r = __shfl_sync(0xffffffffu, row, t);
-      const bool in = p0 + t < n;
-      const long long off = r * D + c * kElems;
-      mma::cp_async16(sm.stage[0] + t * L::kRowBytes + c * 16,
-                      in ? k + off : k, in);
-      mma::cp_async16(sm.stage[1] + t * L::kRowBytes + c * 16,
-                      in ? v + off : v, in);
+      const long long r = __shfl_sync(0xffffffffu, row, t & 31);
+      if (kStagePieces % 32 == 0 || e < kStagePieces) {
+        const bool in = p0 + t < n;
+        const long long off = r * D + c * kElems;
+        mma::cp_async16(sm.stage[0] + t * L::kRowBytes + c * 16,
+                        in ? k + off : k, in);
+        mma::cp_async16(sm.stage[1] + t * L::kRowBytes + c * 16,
+                        in ? v + off : v, in);
+      }
     }
     mma::cp_async_commit();
   }
@@ -242,9 +251,9 @@ __device__ __forceinline__ void merge_warps(const WarpSmem<T, D, P>& sm,
   }
 }
 
-// SCLAD keys t of stage st, payload * scale in fp32 rounded to bf16
-// (paged_attention.cuh's dequant8), into the warp's bf16 tiles (8
-// elements a lane a step).
+// One-byte keys t of stage st, payload * scale in fp32 rounded to bf16
+// (paged_attention.cuh's dequant8; scale 1 for f8, exact), into the
+// warp's bf16 tiles (8 elements a lane a step).
 template <int D, typename P>
 __device__ __forceinline__ void dequant_stage(
     const WarpSmem<bf16, D, P>& sm, int st, int lane) {
@@ -259,7 +268,7 @@ __device__ __forceinline__ void dequant_stage(
       *reinterpret_cast<uint4*>(sm.conv[kv] + t * L::kStride + c * 8) =
           dequant8<P>(*reinterpret_cast<const uint2*>(
                           sm.stage[kv] + t * L::kRowBytes + c * 8),
-                      sm.scale[kv][t]);
+                      L::kScaled ? sm.scale[kv][t] : 1.f);
   }
 }
 
@@ -287,10 +296,10 @@ __global__ void __launch_bounds__(kThreads)
   stage_q(sm, q, grow0 * D, rep);
   __syncthreads();
 
-  const bf16* kt = L::kQuant ? sm.conv[0]
-                             : reinterpret_cast<const bf16*>(sm.stage[0]);
-  const bf16* vt = L::kQuant ? sm.conv[1]
-                             : reinterpret_cast<const bf16*>(sm.stage[1]);
+  const bf16* kt = L::kByte ? sm.conv[0]
+                            : reinterpret_cast<const bf16*>(sm.stage[0]);
+  const bf16* vt = L::kByte ? sm.conv[1]
+                            : reinterpret_cast<const bf16*>(sm.stage[1]);
   const bf16* qs = reinterpret_cast<const bf16*>(sm.q);
   float* ws_ml = ws + static_cast<long long>(gridDim.z) * H * n_split * D;
   for (int mt = 0; mt * kRowTile < rep; ++mt) {
@@ -314,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
         else
           mma::cp_async_wait<0>();
         __syncwarp();
-        if constexpr (L::kQuant) {
+        if constexpr (L::kByte) {
           dequant_stage(sm, st, lane);
           __syncwarp();
         }
@@ -405,11 +414,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One element pair (d, d + 1) / one element d of a staged row, as fp32:
-// bf16 exactly, a SCLAD payload times its scale (no rounding: fp32 q).
+// bf16 or f8 exactly, a SCLAD payload times its scale (no rounding: fp32
+// q; s is 1 for f8).
 template <typename P>
 __device__ __forceinline__ float2 staged_pair(const unsigned char* row,
                                               int d, float s) {
-  if constexpr (kQuantized<P>) {
+  if constexpr (kBytePayload<P>) {
     const uint32_t w = *reinterpret_cast<const uint16_t*>(row + d);
     return make_float2(byte_to_float<P>(w) * s, byte_to_float<P>(w >> 8) * s);
   } else {
@@ -419,7 +429,7 @@ __device__ __forceinline__ float2 staged_pair(const unsigned char* row,
 template <typename P>
 __device__ __forceinline__ float staged_elem(const unsigned char* row, int d,
                                              float s) {
-  if constexpr (kQuantized<P>)
+  if constexpr (kBytePayload<P>)
     return byte_to_float<P>(row[d]) * s;
   else
     return to_float(reinterpret_cast<const bf16*>(row)[d]);
@@ -453,7 +463,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const float* qs = reinterpret_cast<const float*>(sm.q);
   const unsigned char* krow = sm.stage[0] + lane * L::kRowBytes;
-  const float ks = L::kQuant ? sm.scale[0][lane] : 1.f;
+  const float ks = L::kScaled ? sm.scale[0][lane] : 1.f;
   const bool live = p0 + lane < n;
   const int nk = min(kWarpKeys, max(n - p0, 0));  // live keys of the warp
   float* ws_ml = ws + static_cast<long long>(gridDim.z) * H * n_split * D;
@@ -487,7 +497,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kCols; ++i) acc[r][i] = 0.f;
     for (int t = 0; t < nk; ++t) {
       const unsigned char* vrow = sm.stage[1] + t * L::kRowBytes;
-      const float vsc = L::kQuant ? sm.scale[1][t] : 1.f;
+      const float vsc = L::kScaled ? sm.scale[1][t] : 1.f;
       float vv[kCols];
 #pragma unroll
       for (int i = 0; i < kCols; ++i)

@@ -1,15 +1,22 @@
 // Dense flash-decode for Hopper (sm_90a): decode attention over per-row
-// K/V stripes.
+// bf16 or f8 K/V stripes.
 //
 // Replaces the TPU kernel `flash_decode` (body `_decode_kernel`) of
 // src/repro/kernels/flash_decode/flash_decode.py: one new query token per
-// row attends over positions [0, lengths[b]) of that row's bf16 stripes
+// row attends over positions [0, lengths[b]) of that row's stripes
 // k_cache/v_cache (B, S, Hk, D), with an fp32 online softmax.  Output
 // (B, H, D) in q's type.  This is the wave path's decode read (the dense
 // (L, B, max_len, Hk, D) cache that model.prefill builds).
 //
-// Bound on this card.  The work reads 2 * sum_b(min(len_b, S)) * Hk * D * 2
-// bytes of K/V and does about 4 * H * D operations per position read: far
+// Stripe encodings.  bf16, or f8 (kv_dtype "f8": float8_e4m3fn, no
+// scales) read one byte an element and widened to bf16 on load, exactly.
+// The reference casts its f8 stripes to the compute dtype before its
+// kernel (src/repro/models/layers.py attention_decode); reading them as
+// they are gives the same values from half the bytes.
+//
+// Bound on this card.  The work reads 2 * sum_b(min(len_b, S)) * Hk * D * e
+// bytes of K/V (e = 2 for bf16, 1 for f8) and does about 4 * H * D
+// operations per position read: far
 // below the card's ~295 operations per byte, so device-memory bandwidth
 // bounds it.
 //
@@ -31,37 +38,62 @@
 // replaces.
 #include "decode_attention.cuh"
 
+namespace repro_torch {
+namespace {
+
+// The split and combine passes for q of type T at head dim D, on bf16
+// (kv_kind 0) or f8 (3) stripes.
+template <typename T, int D>
+int launch_kv(int kv_kind, const void* q, const void* k_cache,
+              const void* v_cache, decode::DenseRows rows, float* ws,
+              void* out, int B, int H, int Hk, int n_split, cudaStream_t s) {
+  switch (kv_kind) {
+    case kKvBf16:
+      return decode::launch<T, D, __nv_bfloat16>(q, k_cache, v_cache, nullptr,
+                                                 nullptr, rows, ws, out, B, H,
+                                                 Hk, n_split, s);
+    case kKvF8:
+      return decode::launch<T, D, f8_e4m3>(q, k_cache, v_cache, nullptr,
+                                           nullptr, rows, ws, out, B, H, Hk,
+                                           n_split, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+}  // namespace repro_torch
+
 // q, out: (B, H, D) bf16 (q_bf16 = 1) or fp32; k_cache, v_cache:
-// (B, S, Hk, D) bf16, 16-byte aligned; lengths: (B,) int32; ws:
-// B * H * n_split * (D + 2) fp32 scratch, n_split = ceil(S / 128).
-// Launches the split pass and the combine pass on `stream`.  Returns a
-// cudaError_t code.
+// (B, S, Hk, D) bf16 (kv_kind 0) or f8 e4m3 (3), 16-byte aligned;
+// lengths: (B,) int32; ws: B * H * n_split * (D + 2) fp32 scratch,
+// n_split = ceil(S / 128).  Launches the split pass and the combine pass
+// on `stream`.  Returns a cudaError_t code.
 extern "C" int repro_dense_decode(const void* q, const void* k_cache,
                                   const void* v_cache, const int* lengths,
                                   void* ws, void* out, int B, int S, int H,
                                   int Hk, int D, int n_split, int q_bf16,
-                                  void* stream) {
+                                  int kv_kind, void* stream) {
   using namespace repro_torch;
-  using decode::launch;
   using bf16 = __nv_bfloat16;
   if (B <= 0 || B > 65535 || Hk <= 0 || Hk > 65535 || H % Hk != 0 ||
       H / Hk > decode::kMaxRep || S <= 0 ||
-      n_split != (S + decode::kSplit - 1) / decode::kSplit)
+      n_split != (S + decode::kSplit - 1) / decode::kSplit ||
+      (kv_kind != kKvBf16 && kv_kind != kKvF8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decode::DenseRows rows{lengths, S, Hk};
   float* w = static_cast<float*>(ws);
   if (D == 64 && q_bf16)
-    return launch<bf16, 64, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<bf16, 64>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   if (D == 112 && q_bf16)
-    return launch<bf16, 112, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<bf16, 112>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   if (D == 128 && q_bf16)
-    return launch<bf16, 128, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<bf16, 128>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   if (D == 64 && !q_bf16)
-    return launch<float, 64, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<float, 64>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   if (D == 112 && !q_bf16)
-    return launch<float, 112, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<float, 112>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   if (D == 128 && !q_bf16)
-    return launch<float, 128, bf16>(q, k_cache, v_cache, nullptr, nullptr, rows, w, out, B, H, Hk, n_split, s);
+    return launch_kv<float, 128>(kv_kind, q, k_cache, v_cache, rows, w, out, B, H, Hk, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

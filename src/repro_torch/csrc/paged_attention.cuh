@@ -28,8 +28,19 @@
 // The SCLAD arithmetic must match models/kv_quant.py bit for bit, so the
 // build keeps IEEE division (no --use_fast_math), int8 rounds with rintf
 // (half to even, as torch.round) and fp8 converts with round to nearest
-// even, saturating (|x / scale| never reaches 464, where torch's cast
-// would give NaN, so the two agree).
+// even, saturating (|x / scale| never exceeds 448, so no value reaches a
+// range where casts differ).
+//
+// An f8 cache (kv_dtype "f8": float8_e4m3fn stripes or pool, no scales)
+// holds the K/V values themselves, cast once.  Unscaled values can pass
+// 448, so its encoder (f8_encode) is PyTorch's own float -> float8_e4m3fn
+// cast written out bit for bit (c10's fp8e4m3fn_from_fp32_value): round
+// to nearest even, subnormals too.  Builds of PyTorch differ past 464:
+// 2.11 makes every |x| > 464 (and +-inf) NaN, as JAX does; 2.13
+// saturates it to +-448.  The caller says which (`saturate`, from
+// kv_quant.f8_saturates), so the kernels store what the plain route's
+// `.to(float8_e4m3fn)` stores.  Its decode is exact (every e4m3 value is
+// a bf16 value).
 #pragma once
 
 #include <cmath>
@@ -97,9 +108,44 @@ struct Codec<fp8_e4m3> {
   }
 };
 
+// An f8 cache element: one e4m3 byte, the value itself (no scale).
+struct f8_e4m3 {
+  uint8_t bits;
+};
+
+// PyTorch's float -> float8_e4m3fn cast (c10 fp8e4m3fn_from_fp32_value):
+// the byte of x rounded to nearest even.  |x| >= 480, +-inf and NaN give
+// the NaN byte, and so do the values that round up to it (464 < |x| <
+// 480); with `saturate` every one of them but NaN gives +-448 instead.
+// Integer steps and one IEEE addition (the subnormal rounding), so it is
+// exact without --use_fast_math.
+__device__ __forceinline__ uint8_t f8_encode(float x, bool saturate) {
+  const uint32_t all = __float_as_uint(x);
+  const uint32_t sign = all & 0x80000000u;
+  const uint32_t mag = all ^ sign;
+  uint8_t r;
+  if (mag >= (1087u << 20)) {  // 480 and above, inf, NaN
+    r = 0x7f;
+  } else if (mag < (121u << 23)) {  // below 2^-6: a subnormal result
+    const uint32_t denorm = 141u << 23;
+    r = static_cast<uint8_t>(
+        __float_as_uint(__uint_as_float(mag) + __uint_as_float(denorm)) -
+        denorm);
+  } else {
+    const uint32_t odd = (mag >> 20) & 1u;
+    r = static_cast<uint8_t>(
+        (mag + (static_cast<uint32_t>(7 - 127) << 23) + 0x7ffffu + odd) >> 20);
+  }
+  if (saturate && r == 0x7f && mag <= 0x7f800000u) r = 0x7e;  // not NaN
+  return r | static_cast<uint8_t>(sign >> 24);
+}
+
+// Payloads with fp32 scales (SCLAD), and one-byte payloads (SCLAD or f8).
 template <typename P>
 constexpr bool kQuantized =
     std::is_same<P, int8_t>::value || std::is_same<P, fp8_e4m3>::value;
+template <typename P>
+constexpr bool kBytePayload = kQuantized<P> || std::is_same<P, f8_e4m3>::value;
 
 // amax * float32(1 / qmax), or 1 for an all-zero row: kv_quant.quantize's
 // scale, bit for bit (a multiply by the rounded constant, not a division).
@@ -129,6 +175,16 @@ __device__ __forceinline__ float byte_to_float<fp8_e4m3>(uint32_t byte) {
   fp8_e4m3 x;
   x.__x = static_cast<__nv_fp8_storage_t>(byte & 0xffu);
   return to_float(x);
+}
+template <>
+__device__ __forceinline__ float byte_to_float<f8_e4m3>(uint32_t byte) {
+  return byte_to_float<fp8_e4m3>(byte);  // the same e4m3 byte, unscaled
+}
+// Two neighbouring f8 elements as fp32 (one 2-byte load; D is even).
+__device__ __forceinline__ float2 load_pair(const f8_e4m3* p) {
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(p);
+  return make_float2(byte_to_float<f8_e4m3>(w),
+                     byte_to_float<f8_e4m3>(w >> 8));
 }
 // Four neighbouring one-byte payload elements as fp32 (one 4-byte load;
 // D is a multiple of 4, so rows are 4-byte aligned).
@@ -168,8 +224,20 @@ __device__ __forceinline__ uint2 encode8(const float (&x)[8], float scale) {
   return make_uint2(w[0], w[1]);
 }
 
+// Eight f8 values encoded (torch's cast): eight bytes, the first in the
+// lowest byte.
+__device__ __forceinline__ uint2 encode8_f8(const float (&x)[8],
+                                           bool saturate) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w[j / 4] |= uint32_t(f8_encode(x[j], saturate)) << (8 * (j % 4));
+  return make_uint2(w[0], w[1]);
+}
+
 // Eight payload bytes dequantized: payload * scale in fp32, each rounded
-// to bf16 (kv_quant.dequantize(..., bfloat16)), packed as eight bf16.
+// to bf16 (kv_quant.dequantize(..., bfloat16)), packed as eight bf16.  An
+// f8 payload takes scale 1: its bf16 values, exact.
 template <typename P>
 __device__ __forceinline__ uint4 dequant8(uint2 w, float s) {
   uint4 y;
@@ -377,8 +445,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
   return err;
 }
 
-// Pool payload codes of the C entry points.
-enum KvKind : int { kKvBf16 = 0, kKvInt8 = 1, kKvFp8 = 2 };
+// Pool payload codes of the C entry points (kernels/_build.KV_KINDS).
+enum KvKind : int { kKvBf16 = 0, kKvInt8 = 1, kKvFp8 = 2, kKvF8 = 3 };
 
 }  // namespace repro_torch
 

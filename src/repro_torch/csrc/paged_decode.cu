@@ -1,4 +1,5 @@
-// Paged flash-decode for Hopper (sm_90a), bf16 or SCLAD (int8/fp8) pool.
+// Paged flash-decode for Hopper (sm_90a), bf16, f8 or SCLAD (int8/fp8)
+// pool.
 //
 // Replaces the TPU kernel `paged_flash_decode` (body `_paged_decode_kernel`,
 // fp and `quantized` branches) of src/repro/kernels/flash_decode/
@@ -7,7 +8,11 @@
 // (N, bs, Hk, D) block pool through the row's (B, T) block table, with an
 // fp32 online softmax.  Output (B, H, D).
 //
-// Pool encodings.  A bf16 pool is read as it is.  A SCLAD pool holds an
+// Pool encodings.  A bf16 pool is read as it is.  An f8 pool (kv_dtype
+// "f8": float8_e4m3fn, no scales) is read one byte an element and widened
+// to bf16 on load, exactly: the values the reference's fp route scores
+// after its cast of the pool, with probs @ V in bf16 as its `_pv_dtype`
+// has it for f8.  A SCLAD pool holds an
 // int8 or fp8 (e4m3) payload and fp32 scales (N, bs, Hk) read through the
 // same table walk; on load each element becomes payload * scale in fp32,
 // rounded to q's type (the cast chain of kv_quant.dequantize(..., q.dtype)),
@@ -15,7 +20,8 @@
 //
 // Bound on this card.  The work reads the live K/V bytes, per layer
 // 2 * sum_b(len_b) * Hk * (D * payload_bytes + scale_bytes) (payload 2
-// bytes and no scale for bf16; 1 byte and a 4-byte scale for int8/fp8),
+// bytes and no scale for bf16; 1 byte and no scale for f8; 1 byte and a
+// 4-byte scale for int8/fp8),
 // and does about 4 * H * D operations per cached position: far below the
 // card's ~295 operations per byte, so device-memory bandwidth bounds it.
 //
@@ -59,6 +65,10 @@ int launch_kv(int kv_kind, const void* q, const void* k_pool,
       return decode::launch<T, D, fp8_e4m3>(q, k_pool, v_pool, k_scale,
                                             v_scale, rows, ws, out, B, H, Hk,
                                             n_split, s);
+    case kKvF8:
+      return decode::launch<T, D, f8_e4m3>(q, k_pool, v_pool, nullptr,
+                                           nullptr, rows, ws, out, B, H, Hk,
+                                           n_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -67,8 +77,9 @@ int launch_kv(int kv_kind, const void* q, const void* k_pool,
 }  // namespace repro_torch
 
 // q, out: (B, H, D) bf16 (q_bf16 = 1) or fp32; pools: (N, bs, Hk, D) bf16
-// (kv_kind 0), int8 (1) or fp8 e4m3 (2), 16-byte aligned; k_scale,
-// v_scale: (N, bs, Hk) fp32 for kv_kind 1-2, else null; lengths: (B,)
+// (kv_kind 0), int8 (1), fp8 e4m3 with scales (2) or f8 e4m3 without (3),
+// 16-byte aligned; k_scale, v_scale: (N, bs, Hk) fp32 for kv_kind 1-2,
+// else null; lengths: (B,)
 // int32; tables: (B, T) int32; ws: B * H * n_split * (D + 2) fp32 scratch,
 // n_split = ceil(T * bs / 128).  Launches the split pass and the combine
 // pass on `stream`.  Returns a cudaError_t code.
@@ -83,7 +94,8 @@ extern "C" int repro_paged_decode(const void* q, const void* k_pool,
   if (B <= 0 || B > 65535 || Hk <= 0 || Hk > 65535 || H % Hk != 0 ||
       H / Hk > decode::kMaxRep || bs <= 0 || T <= 0 ||
       n_split != (T * bs + decode::kSplit - 1) / decode::kSplit ||
-      (kv_kind != kKvBf16 && (k_scale == nullptr || v_scale == nullptr)))
+      ((kv_kind == kKvInt8 || kv_kind == kKvFp8) &&
+       (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decode::PagedRows rows{lengths, tables, T, bs, Hk};

@@ -1,5 +1,5 @@
 // Paged flash-prefill for Hopper (sm_90a), with the chunk's K/V scatter,
-// bf16 or SCLAD (int8/fp8) pool.
+// bf16, f8 or SCLAD (int8/fp8) pool.
 //
 // Replaces the TPU kernel `paged_flash_prefill` (body `_prefill_kernel`,
 // fp and `kv_dtype` branches) of src/repro/kernels/flash_prefill/
@@ -46,6 +46,15 @@
 // (kv_quant.quantize: float32(1/qmax) multiply, IEEE division, rintf,
 // saturating fp8; no fast-math) and writes its payload and scale.
 //
+// f8 pool (kv_dtype "f8": float8_e4m3fn, no scales), the reference's fp
+// route on an f8 pool: context rows are widened to q's type (exact), the
+// chunk's own K/V rows are attended to as they are (unrounded, no
+// fake-quantization), and the scatter stores each row's fp32 values cast
+// to e4m3 by PyTorch's own cast (paged_attention.cuh's f8_encode: round
+// to nearest even; past 464 NaN or +-448 as the caller's `f8_saturate`
+// says the running PyTorch does), so the pool bytes equal the plain
+// version's `.to(float8_e4m3fn)` bit for bit, values past 448 included.
+//
 // bf16 q: the tensor-core body (prefill_tc_kernel), FlashAttention-2 form
 // as flash_attention.cu.  One 16-row m tile a warp, 8 warps (two blocks
 // an SM at D = 64, one at D = 128); the last m tile is padded with zero
@@ -78,7 +87,8 @@
 // FMAs, 32-key tiles), so fp32 parameters keep fp32 products.
 //
 // Bound on this card.  The work must read the context K/V,
-// 2 * sum_b(start_b) * Hk * (D * payload_bytes + scale_bytes) bytes, plus
+// 2 * sum_b(start_b) * Hk * (D * payload_bytes + scale_bytes) bytes (1
+// payload byte for f8 and SCLAD, scales for SCLAD only), plus
 // the chunk's q, K, V and the output, and write the new K/V (and scales);
 // it does 4 * H * D operations per visible (query, key) pair.  At the main
 // path's shapes (chunks of 128 tokens over a few hundred cached positions)
@@ -134,7 +144,8 @@ __device__ __forceinline__ void load8(float (&x)[8], const float* p) {
 // position start + p (patch prefix) or start + p - pad (a prompt token);
 // left-pad rows are not stored.  Every thread of the block takes 8
 // elements of a (row, K or V) pair, D / 8 neighbouring lanes a row.  A
-// bf16 pool takes the values; a SCLAD pool takes kv_quant.quantize's
+// bf16 pool takes the values; an f8 pool their e4m3 cast (f8_encode); a
+// SCLAD pool takes kv_quant.quantize's
 // payload and scale: the row's amax over D (by shuffles among its lanes),
 // scale = row_scale(amax), payload = encode(x / scale), the scale from the
 // row's first lane.  The caller's block size is a multiple of 32.
@@ -144,7 +155,7 @@ __device__ __forceinline__ void scatter_rows(
     P* __restrict__ k_pool, P* __restrict__ v_pool,
     float* __restrict__ k_scale, float* __restrict__ v_scale,
     const int* __restrict__ table, const Chunk& c, int b, int h, int S,
-    int Hk, int bs, int T_, int prefix, int q0, int nq) {
+    int Hk, int bs, int T_, int prefix, int q0, int nq, bool f8_sat) {
   constexpr int kLanes = D / 8;
   const int total = 2 * nq * kLanes;
   // Whole rounds of the block: every lane reaches the shuffles.
@@ -169,6 +180,8 @@ __device__ __forceinline__ void scatter_rows(
         *reinterpret_cast<uint2*>(row) = encode8<P>(x, scale);
         if (col == 0) (i % 2 ? v_scale : k_scale)[dst] = scale;
       }
+    } else if constexpr (kBytePayload<P>) {
+      if (live) *reinterpret_cast<uint2*>(row) = encode8_f8(x, f8_sat);
     } else if (live) {
       uint32_t w[4];
 #pragma unroll
@@ -193,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ starts,
                          const int* __restrict__ tables, T* __restrict__ out,
                          int S, int H, int Hk, int bs, int T_, int prefix,
-                         int qpos, float scale) {
+                         int qpos, float scale, int f8_sat) {
   extern __shared__ float smem[];
   __shared__ long long row_off[kTileKeys];
   const TileSmem<D, kRows> sm(smem);
@@ -281,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Phase 2: this block's chunk rows into the pool.
   scatter_rows<D>(k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, c,
-                  b, h, S, Hk, bs, T_, prefix, q0, nq);
+                  b, h, S, Hk, bs, T_, prefix, q0, nq, f8_sat != 0);
 }
 
 // ---- bf16 q: the tensor-core body.
@@ -301,15 +314,16 @@ struct TcShape {
 };
 
 // Dynamic shared memory of a block, in bytes: the Q tile, the K and V
-// rings, and on a SCLAD pool the bf16 K/V tiles being attended to and the
-// ring's scales.
+// rings, and on a one-byte pool (SCLAD or f8) the bf16 K/V tiles being
+// attended to, plus on a SCLAD pool the ring's scales.
 template <int D, typename P>
 struct TcSmem {
   using Sh = TcShape<D>;
-  static constexpr bool kQuant = kQuantized<P>;
+  static constexpr bool kByte = kBytePayload<P>;  // SCLAD or f8
+  static constexpr bool kQuant = kQuantized<P>;   // SCLAD
   static constexpr size_t kQ = size_t(Sh::kRows) * Sh::kStride * 2;
   static constexpr size_t kRing = size_t(2) * Sh::kStages * Sh::kTile * 2;
-  static constexpr size_t kConv = kQuant ? size_t(2) * Sh::kTile * 2 : 0;
+  static constexpr size_t kConv = kByte ? size_t(2) * Sh::kTile * 2 : 0;
   static constexpr size_t kScales = kQuant ? size_t(2) * Sh::kStages * kBK * 4 : 0;
   static constexpr size_t kBytes = kQ + kRing + kConv + kScales;
 };
@@ -333,7 +347,7 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
                       const int* __restrict__ starts,
                       const int* __restrict__ tables, bf16* __restrict__ out,
                       int S, int H, int Hk, int bs, int T_, int prefix,
-                      int qpos, float scale_log2) {
+                      int qpos, float scale_log2, int f8_sat) {
   using Sh = TcShape<D>;
   using L = TcSmem<D, P>;
   constexpr int kS = Sh::kStride, kNT = Sh::kThreads;
@@ -346,8 +360,8 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
   bf16* qs = reinterpret_cast<bf16*>(pf_smem);   // [kRows][kS]
   bf16* kr = qs + Sh::kRows * kS;                // [kStages][kBK][kS]
   bf16* vr = kr + kStages * Sh::kTile;           // [kStages][kBK][kS]
-  bf16* ck = vr + kStages * Sh::kTile;           // [kBK][kS]  (SCLAD)
-  bf16* cv = ck + Sh::kTile;                     // [kBK][kS]  (SCLAD)
+  bf16* ck = vr + kStages * Sh::kTile;           // [kBK][kS]  (SCLAD, f8)
+  bf16* cv = ck + Sh::kTile;                     // [kBK][kS]  (SCLAD, f8)
   float* sk = reinterpret_cast<float*>(pf_smem + L::kQ + L::kRing + L::kConv);
   float* sv = sk + kStages * kBK;                // [kStages][kBK] (SCLAD)
 
@@ -372,7 +386,7 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
   }
 
   const int* table = tables + static_cast<long long>(b) * T_;
-  if constexpr (L::kQuant) {
+  if constexpr (L::kByte) {
     // The bf16 tiles start at zero: rows past a tile's keys are skipped
     // below and keep finite values (0 * p = 0 in P @ V).
     for (int e = tid; e < 2 * Sh::kTile / 8; e += kNT)
@@ -420,8 +434,8 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
     const int slot = t % kStages;
     bf16* kd = kr + slot * Sh::kTile;
     bf16* vd = vr + slot * Sh::kTile;
-    if constexpr (L::kQuant) {
-      if (kt.ctx) {  // payload bytes and scales
+    if constexpr (L::kByte) {
+      if (kt.ctx) {  // payload bytes (and a SCLAD pool's scales)
         unsigned char* kb = reinterpret_cast<unsigned char*>(kd);
         unsigned char* vb = reinterpret_cast<unsigned char*>(vd);
         const int pr = tid / kPayPieces, pc = (tid % kPayPieces) * 16;
@@ -433,11 +447,13 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
           mma::cp_async16(kb + r * Sh::kPayStride + pc, k_pool + o, in);
           mma::cp_async16(vb + r * Sh::kPayStride + pc, v_pool + o, in);
         }
-        if (tid < kBK) {
-          const bool in = tid < kt.n;
-          const long long row = in ? pool_row(kt.key0 + tid) : 0;
-          mma::cp_async4(sk + slot * kBK + tid, k_scale + row, in);
-          mma::cp_async4(sv + slot * kBK + tid, v_scale + row, in);
+        if constexpr (L::kQuant) {
+          if (tid < kBK) {
+            const bool in = tid < kt.n;
+            const long long row = in ? pool_row(kt.key0 + tid) : 0;
+            mma::cp_async4(sk + slot * kBK + tid, k_scale + row, in);
+            mma::cp_async4(sv + slot * kBK + tid, v_scale + row, in);
+          }
         }
         return;
       }
@@ -471,7 +487,7 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
 
   // Phase 2 while the first copies are in flight.
   scatter_rows<D>(k_new, v_new, k_pool, v_pool, k_scale, v_scale, table, c,
-                  b, h, S, Hk, bs, T_, prefix, q0, nq);
+                  b, h, S, Hk, bs, T_, prefix, q0, nq, f8_sat != 0);
 
   uint32_t qf[D / 16][4];
   float o[D / 8][4];
@@ -498,9 +514,10 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
     const int slot = t % kStages;
     const bf16* kt_s = kr + slot * Sh::kTile;
     const bf16* vt_s = vr + slot * Sh::kTile;
-    if constexpr (L::kQuant) {
-      // The tile as bf16 into ck / cv: a context tile dequantized, a chunk
-      // tile fake-quantized.
+    if constexpr (L::kByte) {
+      // The tile as bf16 into ck / cv: a context tile dequantized (an f8
+      // one widened with scale 1), a SCLAD chunk tile fake-quantized; an
+      // f8 pool's chunk tile is attended to as it is, from the ring.
       if (kt.ctx) {
         constexpr int kChunks = D / 8;  // 8 payload bytes -> 16 bf16 bytes
 #pragma unroll
@@ -515,10 +532,10 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
                 r * Sh::kPayStride + ch * 8;
             *reinterpret_cast<uint4*>((kv ? cv : ck) + r * kS + ch * 8) =
                 dequant8<P>(*reinterpret_cast<const uint2*>(src),
-                            (kv ? sv : sk)[slot * kBK + r]);
+                            L::kQuant ? (kv ? sv : sk)[slot * kBK + r] : 1.f);
           }
         }
-      } else {
+      } else if constexpr (L::kQuant) {
         // kPieces neighbouring lanes per row, 8 elements each: quantized
         // and dequantized as the scatter and the context tiles do.
 #pragma unroll
@@ -534,9 +551,11 @@ __global__ void __launch_bounds__(TcShape<D>::kThreads,
               dequant8<P>(encode8<P>(x, s), s);
         }
       }
-      __syncthreads();
-      kt_s = ck;
-      vt_s = cv;
+      if (L::kQuant || kt.ctx) {
+        __syncthreads();
+        kt_s = ck;
+        vt_s = cv;
+      }
     }
     if (!busy) return;
     if (t == 0) {
@@ -587,7 +606,7 @@ int launch_tc(const void* q, const void* k_new, const void* v_new,
               void* k_pool, void* v_pool, float* k_scale, float* v_scale,
               const int* lengths, const int* starts, const int* tables,
               void* out, int B, int S, int H, int Hk, int bs, int T_,
-              int prefix, int qpos, cudaStream_t stream) {
+              int prefix, int qpos, int f8_sat, cudaStream_t stream) {
   static bool smem_set = false;
   const size_t smem = TcSmem<D, P>::kBytes;
   cudaError_t err = allow_smem(prefill_tc_kernel<D, P>, smem, smem_set);
@@ -599,7 +618,8 @@ int launch_tc(const void* q, const void* k_new, const void* v_new,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
       static_cast<const bf16*>(v_new), static_cast<P*>(k_pool),
       static_cast<P*>(v_pool), k_scale, v_scale, lengths, starts, tables,
-      static_cast<bf16*>(out), S, H, Hk, bs, T_, prefix, qpos, scale_log2);
+      static_cast<bf16*>(out), S, H, Hk, bs, T_, prefix, qpos, scale_log2,
+      f8_sat);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -608,7 +628,7 @@ int launch_exact(const void* q, const void* k_new, const void* v_new,
                  void* k_pool, void* v_pool, float* k_scale, float* v_scale,
                  const int* lengths, const int* starts, const int* tables,
                  void* out, int B, int S, int H, int Hk, int bs, int T_,
-                 int prefix, int qpos, cudaStream_t stream) {
+                 int prefix, int qpos, int f8_sat, cudaStream_t stream) {
   static bool smem_set = false;
   const size_t smem = TileSmem<D, kRows>::kFloats * sizeof(float);
   cudaError_t err =
@@ -620,7 +640,8 @@ int launch_exact(const void* q, const void* k_new, const void* v_new,
       static_cast<const float*>(q), static_cast<const float*>(k_new),
       static_cast<const float*>(v_new), static_cast<P*>(k_pool),
       static_cast<P*>(v_pool), k_scale, v_scale, lengths, starts, tables,
-      static_cast<float*>(out), S, H, Hk, bs, T_, prefix, qpos, scale);
+      static_cast<float*>(out), S, H, Hk, bs, T_, prefix, qpos, scale,
+      f8_sat);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -629,16 +650,16 @@ int launch(int q_bf16, const void* q, const void* k_new, const void* v_new,
            void* k_pool, void* v_pool, float* k_scale, float* v_scale,
            const int* lengths, const int* starts, const int* tables,
            void* out, int B, int S, int H, int Hk, int bs, int T_,
-           int prefix, cudaStream_t s) {
+           int prefix, int f8_sat, cudaStream_t s) {
   // The block holds qpos * rep <= its body's query rows.
   const int qpos = (q_bf16 ? TcShape<D>::kRows : kRows) / (H / Hk);
   if (q_bf16)
     return launch_tc<D, P>(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
                            lengths, starts, tables, out, B, S, H, Hk, bs, T_,
-                           prefix, qpos, s);
+                           prefix, qpos, f8_sat, s);
   return launch_exact<D, P>(q, k_new, v_new, k_pool, v_pool, k_scale,
                             v_scale, lengths, starts, tables, out, B, S, H,
-                            Hk, bs, T_, prefix, qpos, s);
+                            Hk, bs, T_, prefix, qpos, f8_sat, s);
 }
 
 template <int D>
@@ -646,21 +667,25 @@ int launch_kv(int kv_kind, int q_bf16, const void* q, const void* k_new,
               const void* v_new, void* k_pool, void* v_pool, float* k_scale,
               float* v_scale, const int* lengths, const int* starts,
               const int* tables, void* out, int B, int S, int H, int Hk,
-              int bs, int T_, int prefix, cudaStream_t s) {
+              int bs, int T_, int prefix, int f8_sat, cudaStream_t s) {
   switch (kv_kind) {
     case kKvBf16:
       return launch<D, __nv_bfloat16>(q_bf16, q, k_new, v_new, k_pool,
                                       v_pool, nullptr, nullptr, lengths,
                                       starts, tables, out, B, S, H, Hk, bs,
-                                      T_, prefix, s);
+                                      T_, prefix, 0, s);
     case kKvInt8:
       return launch<D, int8_t>(q_bf16, q, k_new, v_new, k_pool, v_pool,
                                k_scale, v_scale, lengths, starts, tables, out,
-                               B, S, H, Hk, bs, T_, prefix, s);
+                               B, S, H, Hk, bs, T_, prefix, 0, s);
     case kKvFp8:
       return launch<D, fp8_e4m3>(q_bf16, q, k_new, v_new, k_pool, v_pool,
                                  k_scale, v_scale, lengths, starts, tables,
-                                 out, B, S, H, Hk, bs, T_, prefix, s);
+                                 out, B, S, H, Hk, bs, T_, prefix, 0, s);
+    case kKvF8:
+      return launch<D, f8_e4m3>(q_bf16, q, k_new, v_new, k_pool, v_pool,
+                                nullptr, nullptr, lengths, starts, tables,
+                                out, B, S, H, Hk, bs, T_, prefix, f8_sat, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -670,11 +695,13 @@ int launch_kv(int kv_kind, int q_bf16, const void* q, const void* k_new,
 
 // q: (B, S, H, D); k_new, v_new: (B, S, Hk, D), all bf16 (q_bf16 = 1: the
 // tensor-core body) or fp32 (the exact body), 16-byte aligned; pools:
-// (N, bs, Hk, D) bf16 (kv_kind 0), int8 (1) or fp8 e4m3 (2), 16-byte
-// aligned, updated in place; k_scale, v_scale: (N, bs, Hk) fp32, updated
-// in place, for kv_kind 1-2, else null; lengths: (B,) int32; starts: (B,)
-// int32, or null for a first chunk; tables: (B, T) int32; out: (B, S, H *
-// D) in q's type.  Returns a cudaError_t code.
+// (N, bs, Hk, D) bf16 (kv_kind 0), int8 (1), fp8 e4m3 with scales (2)
+// or f8 e4m3 without (3), 16-byte aligned, updated in place; k_scale,
+// v_scale: (N, bs, Hk) fp32, updated in place, for kv_kind 1-2, else
+// null; lengths: (B,) int32; starts: (B,) int32, or null for a first
+// chunk; tables: (B, T) int32; out: (B, S, H * D) in q's type;
+// f8_saturate (kv_kind 3): 1 if the f8 cast saturates past 464 to
+// +-448, 0 if it gives NaN there.  Returns a cudaError_t code.
 extern "C" int repro_paged_prefill(const void* q, const void* k_new,
                                    const void* v_new, void* k_pool,
                                    void* v_pool, float* k_scale,
@@ -682,17 +709,19 @@ extern "C" int repro_paged_prefill(const void* q, const void* k_new,
                                    const int* starts, const int* tables,
                                    void* out, int B, int S, int H, int Hk,
                                    int D, int bs, int T, int prefix,
-                                   int q_bf16, int kv_kind, void* stream) {
+                                   int q_bf16, int kv_kind, int f8_saturate,
+                                   void* stream) {
   using namespace repro_torch;
   if (B <= 0 || B > 65535 || Hk <= 0 || Hk > 65535 || H % Hk != 0 ||
       H / Hk > kMaxRep || bs <= 0 || T <= 0 || S <= 0 ||
       prefix < 0 || prefix > S ||
-      (kv_kind != kKvBf16 && (k_scale == nullptr || v_scale == nullptr)))
+      ((kv_kind == kKvInt8 || kv_kind == kKvFp8) &&
+       (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch_kv<64>(kv_kind, q_bf16, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<64>(kv_kind, q_bf16, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, f8_saturate, s);
   if (D == 128)
-    return launch_kv<128>(kv_kind, q_bf16, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, s);
+    return launch_kv<128>(kv_kind, q_bf16, q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, lengths, starts, tables, out, B, S, H, Hk, bs, T, prefix, f8_saturate, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,14 +44,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: stream are c_void_p: a bare Python int would be cut to 32 bits.
 ENTRY_POINTS = {
     "paged_decode": ("repro_paged_decode", [_P] * 9 + [_I] * 9 + [_P]),
-    "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 10 + [_P]),
-    "dense_decode": ("repro_dense_decode", [_P] * 6 + [_I] * 7 + [_P]),
+    "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 11 + [_P]),
+    "dense_decode": ("repro_dense_decode", [_P] * 6 + [_I] * 8 + [_P]),
     "sclad_matmul": ("repro_sclad_matmul", [_P] * 5 + [_I] * 8 + [_P]),
     "ssd_scan": ("repro_ssd_scan", [_P] * 7 + [_I] * 6 + [_P]),
     "flash_attention": ("repro_flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
 }
-#: Pool payload dtype -> the ``kv_kind`` code of the paged entry points.
-KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+#: (cache dtype, has scales) -> the ``kv_kind`` code of the kernels'
+#: entry points: bf16 0; the SCLAD int8 (1) and fp8 (2) payloads with
+#: fp32 scales; float8_e4m3fn without scales (3, ``kv_dtype="f8"``).
+KV_KINDS = {(torch.bfloat16, False): 0, (torch.int8, True): 1,
+            (torch.float8_e4m3fn, True): 2, (torch.float8_e4m3fn, False): 3}
 HEADERS = ("paged_attention.cuh", "mma.cuh", "decode_attention.cuh",
            "flash_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -177,16 +180,17 @@ def refuse_grad(what: str, *tensors) -> None:
 
 
 def kv_kind(what: str, k_pool, kv_scales) -> int:
-    """The ``kv_kind`` code of a pool for the paged entry points; raises
-    unless the pool is bf16 without scales, or int8 / float8_e4m3fn with
+    """The ``kv_kind`` code of a pool (or stripes) for the kernels' entry
+    points, from its dtype and whether it has scales; raises unless it is
+    bf16 or float8_e4m3fn without scales, or int8 / float8_e4m3fn with
     contiguous fp32 (N, bs, Hk) scales on the pool's device."""
-    kind = KV_KINDS.get(k_pool.dtype)
+    kind = KV_KINDS.get((k_pool.dtype, kv_scales is not None))
     if kind is None:
-        raise TypeError(f"{what}: pool dtype {k_pool.dtype} not bf16, int8 "
-                        f"or float8_e4m3fn")
-    if (kind != 0) != (kv_scales is not None):
-        raise TypeError(f"{what}: an int8/fp8 pool needs kv_scales, a bf16 "
-                        f"pool takes none")
+        raise TypeError(
+            f"{what}: pool dtype {k_pool.dtype} "
+            f"{'with' if kv_scales is not None else 'without'} scales is "
+            f"not a kind the kernels take (bf16 or float8_e4m3fn without "
+            f"scales; int8 or float8_e4m3fn with kv_scales)")
     for s in kv_scales or ():
         if s.dtype != torch.float32 or s.shape != k_pool.shape[:3] \
                 or s.device != k_pool.device or not s.is_contiguous():

@@ -2,10 +2,16 @@
 
 * ``paged_flash_decode`` (``csrc/paged_decode.cu``) — port of
   ``repro.kernels.flash_decode.flash_decode.paged_flash_decode``, for a
-  bf16 pool and for a SCLAD int8/fp8 pool with its fp32 scales;
+  bf16 or f8 (float8_e4m3fn, no scales) pool and for a SCLAD int8/fp8
+  pool with its fp32 scales;
 * ``flash_decode`` (``csrc/dense_decode.cu``) — port of
   ``repro.kernels.flash_decode.flash_decode.flash_decode``: decode over
-  dense (B, S, Hk, D) bf16 stripes (the wave path's cache).
+  dense (B, S, Hk, D) bf16 or f8 stripes (the wave path's cache).
+
+An f8 pool or f8 stripes are read as they are, one byte an element, and
+each element widened on load (exact: every e4m3 value is a bf16 value),
+so the kernels score what the plain versions score after their cast to
+the compute dtype.
 
 Both run one body (``csrc/decode_attention.cuh``): the key walk is split
 across blocks at a fixed ``SPLIT`` positions (``decode_splits``: from the
@@ -29,6 +35,8 @@ from repro_torch.kernels.flash_decode.ref import decode_ref, paged_decode_ref
 HEAD_DIMS = (64, 128)  # the paged kernel's head dims
 #: The dense kernel's: also zamba2-7b's shared attention, 3584 / 32 = 112.
 DENSE_HEAD_DIMS = (64, 112, 128)
+#: The dense kernel's stripe dtypes (kv_kind 0 and 3).
+DENSE_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)
 MAX_REP = 32  # query heads per kv head the kernel holds in one block
 #: Positions a block of the split pass walks (``kSplit`` in
 #: ``csrc/decode_attention.cuh``).
@@ -98,13 +106,16 @@ def _check_inputs(q, k_pool, v_pool, lengths, block_tables, kv_scales):
 
 
 def _check_dense(q, k_cache, v_cache, lengths):
+    """Checks the dense call's inputs; returns the stripes' ``kv_kind``
+    (0 bf16, 3 float8_e4m3fn)."""
     B = q.shape[0]
     if any(t.device != q.device for t in (k_cache, v_cache, lengths)):
         raise ValueError("flash_decode: all inputs must be on one device")
-    if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16 \
+    if k_cache.dtype not in DENSE_DTYPES or v_cache.dtype != k_cache.dtype \
             or v_cache.shape != k_cache.shape or k_cache.dim() != 4 \
             or k_cache.shape[0] != B:
-        raise TypeError("flash_decode: k/v caches must be bf16 (B, S, Hk, D)")
+        raise TypeError("flash_decode: k/v caches must be bf16 or "
+                        "float8_e4m3fn (B, S, Hk, D)")
     _check_q("flash_decode", q, k_cache.shape[2], k_cache.shape[3],
              DENSE_HEAD_DIMS)
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
@@ -113,6 +124,7 @@ def _check_dense(q, k_cache, v_cache, lengths):
         raise ValueError("flash_decode: inputs must be contiguous")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash_decode: caches must be 16-byte aligned")
+    return _build.kv_kind("flash_decode", k_cache, None)
 
 
 def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
@@ -121,7 +133,8 @@ def paged_flash_decode(q, k_pool, v_pool, lengths, block_tables,
 
     q:            (B, H, D) one new token per row, bf16 or fp32;
     k_pool/v_pool:(N, bs, Hk, D) the shared block pool (trash block
-                  included): bf16, or a SCLAD int8 / float8_e4m3fn payload;
+                  included): bf16, float8_e4m3fn without scales (f8), or
+                  a SCLAD int8 / float8_e4m3fn payload;
     lengths:      (B,) int32 valid cache positions per row (dead lanes'
                   lengths only cover trash blocks; their output is junk
                   the caller's active mask discards);
@@ -165,8 +178,8 @@ def flash_decode(q, k_cache, v_cache, lengths):
 
     q:        (B, H, D) one new token per row, bf16 or fp32, D in
               ``DENSE_HEAD_DIMS``;
-    k_cache/v_cache: (B, S, Hk, D) bf16 stripes (row b's position j at
-              [b, j]);
+    k_cache/v_cache: (B, S, Hk, D) bf16 or float8_e4m3fn stripes (row
+              b's position j at [b, j]);
     lengths:  (B,) int32 valid positions per row (read up to min(len, S)).
 
     Returns (B, H, D) in q.dtype; a row with no live position gets zeros.
@@ -174,7 +187,7 @@ def flash_decode(q, k_cache, v_cache, lengths):
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, lengths)
     _build.refuse_grad("flash_decode", q, k_cache, v_cache)
-    _check_dense(q, k_cache, v_cache, lengths)
+    kind = _check_dense(q, k_cache, v_cache, lengths)
     B, S, Hk, D = k_cache.shape
     n_split, ws = _workspace(q, S)
     out = torch.empty_like(q)
@@ -182,7 +195,7 @@ def flash_decode(q, k_cache, v_cache, lengths):
         "dense_decode", "flash_decode", q.device,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, S,
-        q.shape[1], Hk, D, n_split, int(q.dtype == torch.bfloat16))
+        q.shape[1], Hk, D, n_split, int(q.dtype == torch.bfloat16), kind)
     flash_decode.launches += 1
     return out
 

@@ -3,9 +3,9 @@
 ``decode_attention`` is what ``models.layers.attention_decode`` (and so
 ``model.decode_step`` and the serving engine's decode window) calls.  The
 cache layout is chosen by ``block_tables``: the paged (N, bs, Hk, D) pool
-(bf16 or SCLAD int8/fp8 with ``kv_scales``), or, with ``None``, dense
-(B, S, Hk, D) stripes (the wave path).  The implementation is chosen by
-``resolve_kernel``:
+(bf16, f8, or SCLAD int8/fp8 with ``kv_scales``), or, with ``None``,
+dense (B, S, Hk, D) bf16 or f8 stripes (the wave path).  The
+implementation is chosen by ``resolve_kernel``:
 
   * ``"auto"`` (default) — the CUDA kernel for CUDA tensors, the plain
     PyTorch version for CPU tensors;
@@ -54,11 +54,11 @@ def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
 
     q: (B, H, D) the new token's rotated queries; k_cache/v_cache: the
     shared (N, bs, Hk, D) block pool when ``block_tables`` (B, T) int32 is
-    given, else (B, S, Hk, D) dense bf16 stripes; lengths: (B,) int32 (a
-    scalar or 0-d tensor broadcasts) valid positions per row; kv_scales:
-    (k_scale, v_scale) (N, bs, Hk) fp32 of a SCLAD pool (paged layout
-    only).  Returns (B, H, D).  The caller owns the cache write of the new
-    K/V; this is the read side only.
+    given, else (B, S, Hk, D) dense bf16 or f8 stripes; lengths: (B,)
+    int32 (a scalar or 0-d tensor broadcasts) valid positions per row;
+    kv_scales: (k_scale, v_scale) (N, bs, Hk) fp32 of a SCLAD pool (paged
+    layout only).  Returns (B, H, D).  The caller owns the cache write of
+    the new K/V; this is the read side only.
 
     A paged pool that is a ``sharding.Sharded`` (placed once, cut on its
     KV heads where the ``model`` axis divides Hk, else whole on every

@@ -2,11 +2,15 @@
 kernel in ``repro_torch/csrc/paged_prefill.cu``.
 
 Port of ``repro.kernels.flash_prefill.flash_prefill.paged_flash_prefill``,
-for a bf16 pool and for a SCLAD int8/fp8 pool with its fp32 scales.  The
-pools (and scales) are updated IN PLACE — the reference package aliases
-them with ``input_output_aliases`` instead — and returned, so the call
-keeps the reference's return signature.  A CUDA tensor launches the
-kernel, or the call raises; the plain PyTorch version
+for a bf16 pool, an f8 pool (float8_e4m3fn without scales: the context
+widened on load, the chunk attended to unrounded, the scatter storing
+the cast to e4m3 as this PyTorch build's ``to(torch.float8_e4m3fn)``
+gives it, ``kv_quant.f8_saturates`` past 464), and a SCLAD int8/fp8
+pool with its fp32 scales.  The pools (and scales) are updated IN PLACE
+— the reference package aliases them with ``input_output_aliases``
+instead — and returned, so the call keeps the reference's return
+signature.  A CUDA tensor launches the kernel, or the call raises; the
+plain PyTorch version
 (``ref.prefill_attention_ref``) runs only for tensors on the CPU.
 ``paged_flash_prefill.launches`` counts kernel launches.
 
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.ref import prefill_attention_ref
+from repro_torch.models import kv_quant
 
 HEAD_DIMS = (64, 128)
 MAX_REP = 32  # query heads per kv head
@@ -67,7 +72,7 @@ def _check_inputs(q, k_new, v_new, k_pool, v_pool, lengths, block_tables,
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("paged_flash_prefill: k/v pools must share a dtype")
     kind = _build.kv_kind("paged_flash_prefill", k_pool, kv_scales)
-    want = {0: None, 1: "int8", 2: "fp8"}[kind]
+    want = {0: None, 1: "int8", 2: "fp8", 3: None}[kind]
     if kv_dtype != want:
         raise TypeError(f"paged_flash_prefill: kv_dtype {kv_dtype!r} does "
                         f"not name a {k_pool.dtype} pool")
@@ -107,7 +112,8 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
                    prompt tokens LEFT-padded to P), bf16 or fp32;
     k_new/v_new:   (B, S, Hk, D) the chunk's rotated K/V, q's dtype;
     k_pool/v_pool: (N, bs, Hk, D) shared block pool, updated in place: bf16,
-                   or a SCLAD int8 / float8_e4m3fn payload;
+                   float8_e4m3fn without scales (f8), or a SCLAD int8 /
+                   float8_e4m3fn payload;
     lengths:       (B,) int32 true chunk token count per row (<= P);
     block_tables:  (B, T) int32 per-lane tables;
     start:         None for a first chunk (no cached context: the table
@@ -145,7 +151,8 @@ def paged_flash_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
         None if start is None else start.data_ptr(),
         block_tables.data_ptr(), out.data_ptr(),
         B, S, H, Hk, D, bs, block_tables.shape[1], prefix,
-        int(q.dtype == torch.bfloat16), kind)
+        int(q.dtype == torch.bfloat16), kind,
+        int(kind == 3 and kv_quant.f8_saturates(q.device)))
     paged_flash_prefill.launches += 1
     if kv_scales is not None:
         return (out, k_pool, v_pool) + tuple(kv_scales)

@@ -12,7 +12,10 @@ Twins of ``repro.kernels.flash_prefill.ref``, with the same arithmetic:
     K/V, with junk-tail entries dropped;
   * on a SCLAD pool (``kv_scales`` + ``kv_dtype``): the context payload
     dequantized on load, the chunk's own K/V fake-quantized before it is
-    attended to, and the scatter writing quantized payload and scales.
+    attended to, and the scatter writing quantized payload and scales;
+  * on an f8 pool (float8_e4m3fn, no scales): the context cast to the
+    compute dtype (exact), the chunk's own K/V attended to unrounded, and
+    the scatter storing the K/V cast to float8_e4m3fn (``kv_quant.put``).
 
 The pools (and scales) are updated IN PLACE and returned (the same
 tensors), where the reference package returns new arrays.
@@ -160,6 +163,6 @@ def scatter_new_kv_ref(k_new, v_new, k_pool, v_pool, lengths, block_tables,
         k_scale[b_w, o_w] = ks1
         v_scale[b_w, o_w] = vs1
         return k_pool, v_pool, k_scale, v_scale
-    k_pool[b_w, o_w] = compact(k_new)[writable].to(k_pool.dtype)
-    v_pool[b_w, o_w] = compact(v_new)[writable].to(v_pool.dtype)
+    kv_quant.put(k_pool, (b_w, o_w), compact(k_new)[writable])
+    kv_quant.put(v_pool, (b_w, o_w), compact(v_new)[writable])
     return k_pool, v_pool

@@ -151,8 +151,11 @@ def device_bytes(cfg, shape_name: str, mesh) -> Dict[str, float]:
     def tot(trees, shs):
         return sum(_spec_bytes({"x": t}, {"x": s}, sizes)
                    for t, s in zip(trees, shs))
-    return {"argument_size_in_bytes": tot(args, in_sh),
-            "output_size_in_bytes": tot(outs, out_sh)}
+    out = {"argument_size_in_bytes": tot(args, in_sh),
+           "output_size_in_bytes": tot(outs, out_sh)}
+    if shape.kind != "train":  # the KV/state cache the step holds
+        out["cache_size_in_bytes"] = tot(outs[1:], out_sh[1:])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +367,9 @@ BASIS = {
     "attention_correction": "0: the blockwise attention's loops are "
                             "Python, every block counted",
     "compile_s": "null: no compiler",
-    "memory_analysis": "argument/output bytes per device from "
-                       "shardings_for's specs; temp null: no buffer plan",
+    "memory_analysis": "argument/output bytes per device (and a serving "
+                       "step's cache bytes) from shardings_for's specs; "
+                       "temp null: no buffer plan",
     "roofline": "core.roofline with the H100's constants (989 TFLOP/s "
                 "bf16, 3.35 TB/s HBM3, 450 GB/s NVLink a direction)",
 }
@@ -376,9 +380,7 @@ def _cfg_for(arch: str, reduced: bool, kv_dtype: str):
     if reduced:
         cfg = cfg.reduced()
     if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"--kv-dtype {kv_dtype}: float8 stripes and pools without "
-            f"scales are not ported yet")
+        cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
     return cfg
 
 
@@ -554,8 +556,6 @@ def main(argv=None):
         print(json.dumps(rec, indent=2))
         return 0 if rec["status"] == "ok" else 1
 
-    if args.kv_dtype != "bf16":
-        _cfg_for("tinyllama-1.1b", False, args.kv_dtype)  # raises
     if args.all:
         todo = list(cells(args.mesh))
     else:

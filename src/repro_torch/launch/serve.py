@@ -117,10 +117,11 @@ def main(argv=None):
                     help="which in-flight request pool pressure preempts")
     ap.add_argument("--kv-dtype", default=None,
                     choices=list(kv_quant.KV_DTYPES),
-                    help="paged KV pool representation: fp/bf16, or the "
-                         "SCLAD compressed encodings int8/fp8 (payload + "
-                         "fp32 per-position-per-head scales); f8 is not "
-                         "ported")
+                    help="KV cache representation: fp/bf16; f8 "
+                         "(float8_e4m3fn stripes and pool, no scales, half "
+                         "the bytes); or the SCLAD compressed pool "
+                         "encodings int8/fp8 (payload + fp32 "
+                         "per-position-per-head scales)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many shared system-prompt tokens to "
                          "every request (exercises the prefix cache)")

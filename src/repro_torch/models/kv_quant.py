@@ -24,7 +24,9 @@ import torch
 
 #: Every accepted ``ModelConfig.kv_dtype`` spelling:
 #:   "fp"/"bf16" — bf16 pool (the port's fp pool);
-#:   "f8"        — float8 dense stripes / fp-exact f8 pool (not ported);
+#:   "f8"        — float8_e4m3fn dense stripes and paged pool, no scales:
+#:                 the K/V value cast (``to(float8_e4m3fn)``: round to
+#:                 nearest even; past 464 see ``f8_saturates``);
 #:   "int8"      — SCLAD paged pool: int8 payload + fp32 scales;
 #:   "fp8"       — SCLAD paged pool: float8_e4m3fn payload + fp32 scales.
 KV_DTYPES = ("fp", "bf16", "f8", "int8", "fp8")
@@ -60,10 +62,35 @@ def qmax(kv_dtype: str) -> float:
 
 def raw(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself, or its bytes (uint8 view) when it holds fp8: advanced
-    indexing of payloads (the pool gathers and writes) goes through this,
-    since not every PyTorch build indexes float8 tensors on every device.
-    The bits are unchanged."""
+    indexing of payloads and f8 stripes (the pool gathers and writes, the
+    stripe stores), and their ``torch.cat``, go through this, since not
+    every PyTorch build indexes or concatenates float8 tensors on every
+    device.  The bits are unchanged."""
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+_F8_SATURATES: dict = {}
+
+
+def f8_saturates(device) -> bool:
+    """Whether this PyTorch build's cast to float8_e4m3fn on ``device``
+    saturates finite values past 464 to +-448 (True: torch 2.13) or makes
+    them NaN, as JAX does (False: torch 2.11).  Below that the builds
+    agree.  Asked once per device type with one small cast; the CUDA
+    prefill kernel's f8 scatter takes the answer, so that it stores what
+    ``.to(float8_e4m3fn)`` stores."""
+    kind = torch.device(device).type
+    if kind not in _F8_SATURATES:
+        x = torch.tensor([470.0], device=device).to(torch.float8_e4m3fn)
+        _F8_SATURATES[kind] = bool(x.float().isfinite().item())
+    return _F8_SATURATES[kind]
+
+
+def put(dst: torch.Tensor, index, x: torch.Tensor) -> None:
+    """``dst[index] = x`` cast to ``dst``'s dtype, through ``raw``: the
+    cache stores of K/V rows into bf16 or f8 stripes and pools.  An f8
+    store is ``x.to(float8_e4m3fn)``, one rounding from x's value."""
+    raw(dst)[index] = raw(x.to(dst.dtype))
 
 
 def quantize(x: torch.Tensor, kv_dtype: str):

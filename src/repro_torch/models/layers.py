@@ -296,7 +296,12 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
         are stored — plain PyTorch here, as in the reference, for either
         read path;
       * dense (``block_tables=None``): k_cache/v_cache are (B, S, Hk, D)
-        bf16 stripes and the new K/V lands at ``[b, pos]``.
+        bf16 or f8 stripes and the new K/V lands at ``[b, pos]``.
+
+    An f8 pool or f8 stripes (``kv_dtype="f8"``) store the K/V cast to
+    float8_e4m3fn (``kv_quant.put``).  The plain read casts them to the
+    compute dtype; the kernels take the f8 tensors as they are and widen
+    each element on load (every e4m3 value is exact in bf16 and fp32).
 
     ``use_rope=False`` (whisper: absolute positions) leaves q and k
     unrotated.  Writes happen in place, where the reference returns new
@@ -350,8 +355,8 @@ def _decode_store(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if block_tables is None:
         if kv_scales is not None:
             raise ValueError("kv_scales belong to the paged pool layout")
-        k_cache[rows, pos.long()] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, pos.long()] = v[:, 0].to(v_cache.dtype)
+        kv_quant.put(k_cache, (rows, pos.long()), k[:, 0])
+        kv_quant.put(v_cache, (rows, pos.long()), v[:, 0])
     else:
         bs, T = k_cache.shape[1], block_tables.shape[1]
         blk = block_tables[rows, torch.clamp(pos // bs, max=T - 1).long()] \
@@ -366,8 +371,8 @@ def _decode_store(cfg: ModelConfig, p: Params, x: torch.Tensor,
             k_scale[blk, off] = ks1
             v_scale[blk, off] = vs1
         else:
-            k_cache[blk, off] = k[:, 0].to(k_cache.dtype)
-            v_cache[blk, off] = v[:, 0].to(v_cache.dtype)
+            kv_quant.put(k_cache, (blk, off), k[:, 0])
+            kv_quant.put(v_cache, (blk, off), v[:, 0])
     return q[:, 0].contiguous(), pos
 
 

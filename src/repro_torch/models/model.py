@@ -31,11 +31,13 @@ block leaves: ``blocks`` (L, ...) for dense/moe/vlm/ssm, ``groups``
 scans.  Two caches:
 
   * the paged pool (continuous batching, attention families only): (L,
-    N, bs, Hk, D) ``k``/``v`` leaves, bf16 or — for a SCLAD ``kv_dtype``
+    N, bs, Hk, D) ``k``/``v`` leaves, bf16, float8_e4m3fn for
+    ``kv_dtype="f8"`` (no scales), or — for a SCLAD ``kv_dtype``
     ("int8"/"fp8") — the compressed payload plus (L, N, bs, Hk) fp32
     ``k_scale``/``v_scale``;
   * the wave path's dense caches (``init_cache``): (L, B, ctx, Hk, D)
-    bf16 stripes, ctx = max_len plus the vlm patch prefix; stacked
+    stripes in ``kv_store_dtype`` (bf16, float8_e4m3fn for "f8"), ctx =
+    max_len plus the vlm patch prefix; stacked
     ``conv``/``state`` Mamba-2 caches for ssm (and hybrid's ``groups`` /
     ``tail``, beside its (groups, B, max_len, Hk, D) ``attn_k``/``attn_v``
     stripes); self-attention stripes plus ``cross_k``/``cross_v`` of the
@@ -75,10 +77,6 @@ Params = Dict[str, Any]
 
 #: Weight of the MoE load-balancing loss in ``loss_fn``.
 MOE_AUX_COEF = 0.01
-
-#: Pool representations the port serves: bf16 and the SCLAD encodings
-#: ("f8", float8 stripes and pools without scales, is not ported).
-SERVED_KV_DTYPES = ("bf16", "fp", "int8", "fp8")
 
 #: The families with attention KV caches: the paged pool's.
 ATTENTION_FAMILIES = ("dense", "moe", "vlm")
@@ -273,19 +271,12 @@ def layer_params(params: Params, layer: int, key: str = "blocks",
     return _tree_map(lambda v: v[group, layer], params[key])
 
 
-def check_kv_dtype(cfg: ModelConfig) -> None:
-    if cfg.kv_dtype not in SERVED_KV_DTYPES:
-        raise NotImplementedError(
-            f"kv_dtype {cfg.kv_dtype!r} is not ported (the port serves "
-            f"{SERVED_KV_DTYPES})")
-
-
 def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
-    """Dense-stripe storage dtype: bf16.  The SCLAD values only change the
+    """Dense-stripe (and fp pool) storage dtype: bf16, float8_e4m3fn for
+    ``kv_dtype="f8"`` (half the bytes).  The SCLAD values only change the
     paged pool's layout; the stripes keep bf16 under them, as in the
     reference."""
-    check_kv_dtype(cfg)
-    return torch.bfloat16
+    return torch.float8_e4m3fn if cfg.kv_dtype == "f8" else torch.bfloat16
 
 
 def _zeros_like_stacked(one: Params, lead: Tuple[int, ...]) -> Params:
@@ -356,7 +347,8 @@ def _pool_leaves(cfg: ModelConfig, num_blocks: int, block_size: int):
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.head_dim)
     if not kv_quant.is_quantized(cfg.kv_dtype):
-        return {"k": (shape, torch.bfloat16, 0), "v": (shape, torch.bfloat16, 0)}
+        kvd = kv_store_dtype(cfg)
+        return {"k": (shape, kvd, 0), "v": (shape, kvd, 0)}
     kvd = kv_quant.payload_dtype(cfg.kv_dtype)
     return {"k": (shape, kvd, 0), "v": (shape, kvd, 0),
             "k_scale": (shape[:-1], torch.float32, 1),
@@ -374,7 +366,9 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     block_size, Hk, hd) for K and for V.  Block 0 is the trash block
     dead lanes write into; the host-side ``serving.paged.BlockStore``
     hands out the rest.  bf16 whatever the parameter dtype, as in the
-    reference; with a SCLAD ``cfg.kv_dtype`` ("int8"/"fp8") the leaves
+    reference, or float8_e4m3fn with no scale leaves for ``kv_dtype="f8"``
+    (fp-exact: each value is the K/V cast); with a SCLAD ``cfg.kv_dtype``
+    ("int8"/"fp8") the leaves
     hold the compressed payload and two more fp32 leaves ``k_scale`` /
     ``v_scale`` (L, num_blocks, block_size, Hk) hold the per-position,
     per-head scales, initialised to ones (an all-zero payload row's scale
@@ -389,7 +383,6 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     ``sharding.attn_shard_size``, so placement and dispatch agree.  Each
     shard's part is made on its device; no whole pool is built."""
     check_paged(cfg, "init_paged_cache")
-    check_kv_dtype(cfg)
     leaves = _pool_leaves(cfg, num_blocks, block_size)
     if mesh is None:
         dev = resolve_device(device)
@@ -423,7 +416,7 @@ def copy_cache_block(cache: Params, src: int, dst: int) -> Params:
     for x in cache.values():
         for part in (x.distinct_parts() if isinstance(x, sharding.Sharded)
                      else (x,)):
-            part[:, dst] = part[:, src]
+            kv_quant.raw(part)[:, dst] = kv_quant.raw(part)[:, src]
     return cache
 
 
@@ -1138,8 +1131,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
                                    cache["groups"], (g, i), h, ssd_kernel)
             h, k, v = _attn_block_body(cfg, params["shared_attn"], h,
                                        positions)
-            cache["attn_k"][g, :, :S] = k.to(cache["attn_k"].dtype)
-            cache["attn_v"][g, :, :S] = v.to(cache["attn_v"].dtype)
+            kv_quant.put(cache["attn_k"], (g, slice(None), slice(S)), k)
+            kv_quant.put(cache["attn_v"], (g, slice(None), slice(S)), v)
         for i in range(tail):
             h = _mamba_prefill(cfg, layer_params(params, i, "tail"),
                                cache["tail"], (i,), h, ssd_kernel)
@@ -1161,14 +1154,14 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             h = h + layers.apply_mlp(
                 cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
             for name, x in (("k", k), ("v", v)):
-                cache[name][layer, :, :S] = x.to(cache[name].dtype)
-            cache["cross_k"][layer] = ck.to(cache["cross_k"].dtype)
-            cache["cross_v"][layer] = cv.to(cache["cross_v"].dtype)
+                kv_quant.put(cache[name], (layer, slice(None), slice(S)), x)
+            kv_quant.put(cache["cross_k"], layer, ck)
+            kv_quant.put(cache["cross_v"], layer, cv)
         return unembed(cfg, params, h[:, -1]), cache
     S = h.shape[1]
     for layer in range(cfg.num_layers):
         h, k, v = _attn_block_body(cfg, layer_params(params, layer), h,
                                    positions)
-        cache["k"][layer, :, :S] = k.to(cache["k"].dtype)
-        cache["v"][layer, :, :S] = v.to(cache["v"].dtype)
+        kv_quant.put(cache["k"], (layer, slice(None), slice(S)), k)
+        kv_quant.put(cache["v"], (layer, slice(None), slice(S)), v)
     return unembed(cfg, params, h[:, -1]), cache

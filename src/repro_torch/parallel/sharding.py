@@ -645,6 +645,15 @@ def gather(s: Sharded) -> torch.Tensor:
     return s.parts[0]
 
 
+def _cat(ts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat``, on the bytes of float8 parts (an f8 pool's): not
+    every PyTorch build concatenates float8 tensors on every device."""
+    if ts[0].dtype != torch.float8_e4m3fn:
+        return torch.cat(ts, dim)
+    return torch.cat([t.view(torch.uint8) for t in ts], dim) \
+        .view(torch.float8_e4m3fn)
+
+
 def to_whole(s) -> torch.Tensor:
     """The whole tensor on place 0's device, assembled from the pieces
     without a collective (nothing counted, no autograd): a host fetch,
@@ -657,9 +666,9 @@ def to_whole(s) -> torch.Tensor:
         list(enumerate(pieces)))}
     m = axes_size(s.mesh, TP_AXIS) if s.dim is not None else 1
     r = axes_size(s.mesh, s.rows[0]) if s.rows else 1
-    by_row = [torch.cat([held[j, i].to(dev0) for j in range(m)], s.dim)
+    by_row = [_cat([held[j, i].to(dev0) for j in range(m)], s.dim)
               if m > 1 else held[0, i].to(dev0) for i in range(r)]
-    return torch.cat(by_row, s.rows[1]) if r > 1 else by_row[0]
+    return _cat(by_row, s.rows[1]) if r > 1 else by_row[0]
 
 
 def _count(mesh, kind: str, nbytes: int) -> None:
@@ -756,7 +765,7 @@ class _Gather(_Op):
         out = [None] * len(xs)
         for g in self.grps:
             dev0 = xs[g[0]].device
-            full = torch.cat([xs[k].to(dev0) for k in g], self.dim)
+            full = _cat([xs[k].to(dev0) for k in g], self.dim)
             _count(self.mesh, self.kind, (len(g) - 1) * _nbytes(full))
             self._spread(out, g, full)
         return out

@@ -20,9 +20,12 @@ line:
     recomputed, mostly from prefix-cache hits;
   * ``decode_steps=k`` decode iterations per host sync, with one (2, k, B)
     copy to the host per window;
-  * the pool is bf16 or SCLAD-compressed (``kv_dtype="int8"/"fp8"``:
-    payload plus fp32 scales, about half the bytes per block, so more
-    blocks and concurrent lanes in the same memory);
+  * the pool is bf16, float8_e4m3fn (``kv_dtype="f8"``: the K/V cast,
+    no scales, half the bytes per block) or SCLAD-compressed
+    (``kv_dtype="int8"/"fp8"``: payload plus fp32 scales, about half the
+    bytes per block), so more blocks and concurrent lanes fit in the same
+    memory; ``kv_dtype="f8"`` stores the wave path's stripes as
+    float8_e4m3fn too;
   * both paged attention hot paths go through the hand-written kernels
     (``attn_kernel``: "auto" = kernels on the card, plain versions on the
     CPU; "on" = kernels; "off" = plain versions);
@@ -68,8 +71,8 @@ places and runs under its own ``sharding.use_axes``: nothing leaks into
 the ambient axis state.
 
 The engine raises ``NotImplementedError`` for what the port does not
-serve: ``kv_dtype="f8"``, and under a mesh ``mode="wave"``, the
-recurrent families and data axes above 1.
+serve: under a mesh ``mode="wave"``, the recurrent families and data
+axes above 1.
 """
 from __future__ import annotations
 
@@ -272,8 +275,8 @@ class ServingEngine:
         must already live there (with a ``mesh``: on its shard 0 device,
         whole or already placed, e.g. ``model.init_params(mesh=)``).
         Raises ``NotImplementedError`` for what the port does not serve
-        yet (``kv_dtype="f8"``; under a mesh: waves, the recurrent
-        families, data axes above 1).
+        yet (under a mesh: waves, the recurrent families, data axes above
+        1).
 
         ``mesh``: a ``launch.mesh.Mesh`` with a ``model`` axis (see the
         module docstring); its shard 0 device is the engine's, and
@@ -334,7 +337,6 @@ class ServingEngine:
             cfg = dc_replace(cfg, attn_kernel=attn_kernel)
         if kv_dtype is not None:
             cfg = dc_replace(cfg, kv_dtype=kv_dtype)
-        M.check_kv_dtype(cfg)
         if mesh is not None:
             self._check_mesh(cfg, mesh, mode, device)
             device = sharding.model_devices(mesh)[0]
@@ -891,8 +893,7 @@ class ServingEngine:
         self._alloc = BlockStore(self.num_blocks, bs, B, table_width,
                                  prefix_cache=self.prefix_cache,
                                  kv_dtype=cfg.kv_dtype)
-        # +1 device block: id 0 is the dead-lane trash sink.  Raises for
-        # the families and pool encodings the port does not serve yet.
+        # +1 device block: id 0 is the dead-lane trash sink.
         with sharding.use_axes(self._axes):
             self._cache = M.init_paged_cache(cfg, self.num_blocks + 1, bs,
                                              device=dev, mesh=self._mesh)

@@ -80,9 +80,19 @@ def test_serving_cell_and_refusals(tmp_path):
     skip = dryrun.run_cell("qwen2-moe-a2.7b", "long_500k", "single",
                            tmp_path, reduced=True)
     assert skip["status"] == "skipped"
-    with pytest.raises(NotImplementedError):
-        dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "train_4k",
-                     "--kv-dtype", "f8", "--out", str(tmp_path)])
+    # --kv-dtype f8 (it once raised) writes its __kvf8 record; its cache
+    # bytes are half the bf16 record's.
+    dryrun.main(["--arch", "qwen2-moe-a2.7b", "--shape", "long_500k",
+                 "--kv-dtype", "f8", "--out", str(tmp_path)])
+    assert (tmp_path / "qwen2-moe-a2.7b__long_500k__single__kvf8.json"
+            ).exists()
+    f8 = dryrun.run_cell("tinyllama-1.1b", "decode_32k", "multi", tmp_path,
+                         reduced=True, kv_dtype="f8")
+    assert f8["status"] == "ok"
+    cache = [r["memory_analysis"]["cache_size_in_bytes"] for r in (rec, f8)]
+    assert cache[0] > 0 and cache[1] * 2 == cache[0]
+    assert (tmp_path / "tinyllama-1.1b__decode_32k__multi__kvf8__reduced"
+            ".json").exists()
 
 
 def test_serving_smoke(tmp_path):

@@ -50,7 +50,9 @@ def test_import_loads_neither_jax_nor_repro():
         "'repro_torch.examples.train_lm', "
         "'repro_torch.parallel.sharding', 'repro_torch.launch.mesh', "
         "'repro_torch.launch.specs', 'repro_torch.launch.dryrun', "
-        "'repro_torch.parallel.pipeline', 'repro_torch.core.roofline'):\n"
+        "'repro_torch.parallel.pipeline', 'repro_torch.core.roofline', "
+        "'repro_torch.core.ccmem', 'repro_torch.core.explore', "
+        "'repro_torch.examples.codesign_search'):\n"
         "    assert n in names and n in sys.modules, n\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
@@ -137,14 +139,18 @@ def test_unported_options_raise():
     params = M.init_params(cfg, 0, device="cpu")
     two = make_mesh((1, 2), ("data", "model"), "cpu")
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
-    for c, kw in ((cfg, dict(kv_dtype="f8")),
-                  (cfg, dict(kv_dtype="f8", mode="wave")),
-                  (cfg, dict(mesh=two, mode="wave")),
+    for c, kw in ((cfg, dict(mesh=two, mode="wave")),
                   (ssm, dict(mesh=two)),
                   (cfg, dict(mesh=make_mesh((2, 2), ("data", "model"),
                                             "cpu")))):
         with pytest.raises(NotImplementedError):
             ServingEngine(c, params, device="cpu", **kw)
+    # kv_dtype="f8" is served: an f8 pool, and f8 stripes in waves.
+    f8 = ServingEngine(cfg, params, device="cpu", kv_dtype="f8")
+    assert f8.mode == "continuous" and f8._cache["k"].dtype == \
+        torch.float8_e4m3fn and set(f8._cache) == {"k", "v"}
+    assert ServingEngine(cfg, params, device="cpu", kv_dtype="f8",
+                         mode="wave").cfg.kv_dtype == "f8"
     # A (data=1, model=m) mesh serves the attention families, with
     # speculation too.
     assert ServingEngine(cfg, params, device="cpu", mesh=two,

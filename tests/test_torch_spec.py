@@ -90,9 +90,10 @@ def test_make_proposer_and_constructor_checks():
     assert ServingEngine(cfg, params, spec_decode="ngram", device="cpu",
                          mesh=make_mesh((1, 2), ("data", "model"), "cpu")
                          ).mode == "continuous"
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, params, spec_decode="ngram", kv_dtype="f8",
-                      device="cpu")
+    f8 = ServingEngine(cfg, params, spec_decode="ngram", kv_dtype="f8",
+                       device="cpu")
+    assert f8._cache["k"].dtype == torch.float8_e4m3fn \
+        and f8.spec_decode == "ngram"
     eng = ServingEngine(cfg, params, spec_decode="ngram", spec_k=3,
                         device="cpu")
     assert (eng.spec_decode, eng.spec_k) == ("ngram", 3)
