@@ -205,7 +205,33 @@ outside the repository.  Phases, each of which raises on failure:
      MoE layer at full width through ``apply_moe_manual`` at (2, 2)
      against the auto path in 2 dispatch groups (99% of tokens within 2%
      of scale, aux within 0.05) with its bytes equal to the count;
- 14. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 14. waves over a (data=1, model=m) mesh naming the card m times, every
+     family (``run_wave_sharded``; each config at full width, freed
+     before the next): tinyllama-1.1b at 2 and 4 shards, qwen2-moe-a2.7b
+     at 2, mamba2-1.3b at 2 and 4, zamba2-7b at 2 (13 of its 81 layers:
+     two groups of six and a tail of one) and whisper-base at 2.  The
+     dense decode kernel at each per-shard head shape (16 over 2 and 8
+     over 1 of 64; 8 over 8 of 128; 16 over 16 of 112; 4 over 4 of 64)
+     on bf16 and f8 stripes and the SSD kernel at each per-shard row
+     count (8 x 32 and 8 x 16; 8 x 56) at 64 and 512 positions in fp32,
+     each against its plain version as in phases 3 and 10, and each
+     sharded dispatch against one launch on every head (outputs within
+     the kernel tolerance, whether bit for bit printed; the written
+     stripes and the states bit for bit); ``prefill`` and two
+     ``decode_step``s sharded against meshless within 5% of the range
+     (bf16 weights; the MoE replaying the meshless expert choices),
+     0.5% (mamba2-1.3b, zamba2-7b) or 0.1% (whisper-base) on the weights
+     cast to fp32, a control that hands shard 1 shard 0's stripes or
+     states, which must fail the limit; K4 launched m x the Mamba-2
+     blocks in the prefill and K3 m x the attention layers a decode
+     step, K1 and K2 never; the last decode step's bytes between shards
+     exactly the count of its psums, all_gathers and broadcasts (no
+     stripe, state or window byte); and 4 greedy requests of 8 tokens
+     in waves meshless and at each shard count on bf16 and f8 stripes
+     (every request ends, launches counted as above; ms per decode step,
+     prefill tok/s and the share of requests equal to the meshless
+     run's printed);
+ 15. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1821,9 +1847,10 @@ RECURRENT_LENS = (16, 64, 128, 256, 512)
 AUDIO_LENS = (4, 16, 32, 64)
 
 
-def check_ssd_model(torch, cfg, gen, card):
+def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS):
     """Kernel 4 at ``cfg``'s prefill shapes: SSD_ROWS rows x H heads
-    folded into rows, at every wave prompt length (RECURRENT_LENS), fp32
+    folded into rows (H / ``ways``: one shard's heads), at every wave
+    prompt length (``lens``), fp32
     (what the model hands it: the exact fp32 body), chunk
     min(``ssm.chunk_size``, S) as the model calls it; against the plain
     recurrence within SSD_TOL and per head within SSD_REL_FP32, which the
@@ -1833,15 +1860,16 @@ def check_ssd_model(torch, cfg, gen, card):
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     s = cfg.ssm
-    BH, P, N = SSD_ROWS * s.nheads(cfg.d_model), s.head_dim, s.state_size
+    H = s.nheads(cfg.d_model) // ways
+    BH, P, N = SSD_ROWS * H, s.head_dim, s.state_size
     results = {}
-    for S in RECURRENT_LENS:
+    for S in lens:
         chunk = min(s.chunk_size, S)
         xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N, torch.float32)
         y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
         y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
         torch.cuda.synchronize()
-        what = f"ssd_scan ({cfg.name} prefill, {SSD_ROWS} x {S}, fp32)"
+        what = f"ssd_scan ({cfg.name} prefill, {SSD_ROWS} x {H}, {S}, fp32)"
         err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
                   assert_close(torch, what + " state", st, st_ref, SSD_TOL,
                                SSD_TOL))
@@ -1863,8 +1891,8 @@ def check_ssd_model(torch, cfg, gen, card):
         nbytes, ops = ssd_work(BH, S, P, N, chunk, 4)
         bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
         bf16_bound = bound(ssd_work(BH, S, P, N, chunk, 2)[0], ops)
-        print(f"kernel ssd_scan[{cfg.name} prefill, {SSD_ROWS} x {S}, "
-              f"chunk {chunk}] "
+        print(f"kernel ssd_scan[{cfg.name} prefill, {SSD_ROWS} x {H} rows, "
+              f"{S} positions, chunk {chunk}] "
               f"[{card}]: max|err| {err:.3g}, per-head relative {rel:.3g} "
               f"(limit {SSD_REL_FP32:g}; control {control:.3g}); fp32 body "
               f"{ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by}), bf16 "
@@ -3197,6 +3225,436 @@ def run_mesh_training(torch, gen, card):
     print(f"mesh training phase [{card}]: {time.perf_counter() - t0:.1f} s")
 
 
+#: Phase 15: waves over a model axis.  (config, shard counts); zamba2-7b
+#: at WAVE_DEPTH's 13 of its 81 layers (two groups of six and a tail of
+#: one), every width full.
+WAVE_SHARDS = (("tinyllama-1.1b", (2, 4)), ("qwen2-moe-a2.7b", (2,)),
+               ("mamba2-1.3b", (2, 4)), ("zamba2-7b", (2,)),
+               ("whisper-base", (2,)))
+WAVE_DEPTH = {"zamba2-7b": 13}
+#: Sharded vs meshless logits, a share of the meshless logits' range: the
+#: attention families on their bf16 weights (phase 12's limit), the
+#: recurrent ones on the weights cast to fp32 (phase 10's: random bf16
+#: Mamba-2 stacks are chaotic).
+WAVE_SHARE = {"dense": 0.05, "moe": 0.05, **RECURRENT_FP32_SHARE}
+#: The phase's prompt lengths: the model checks' (whisper: a
+#: transcript's opening), the K4 checks', the engine's 4 requests.
+WAVE_S = {"audio": 4}
+WAVE_SSD_LENS = (64, 512)
+WAVE_REQ_LENS = {"audio": (4, 4, 16, 16)}
+
+
+def wave_cfg(arch):
+    from dataclasses import replace
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if arch in WAVE_DEPTH:
+        cfg = replace(cfg, num_layers=WAVE_DEPTH[arch])
+    return cfg
+
+
+def wave_steps(torch, cfg, params, mesh=None, control=False):
+    """A wave's prefill (4 rows of WAVE_S tokens, 64 by default; whisper
+    behind zero frames) and two decode steps, kernels on, over ``mesh``
+    (``params`` placed there).  ``control``: after the prefill shard 1's
+    parts of every stripe and Mamba-2 state take shard 0's (shard 1
+    reads shard 0's heads).  The mesh's byte counters are cleared before
+    the last decode step.  Returns (logits, prefill launches, decode
+    launches)."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    dev = "cuda"
+    rng = torch.Generator(device=dev).manual_seed(3)
+    nb, S = 4, WAVE_S.get(cfg.family, 64)
+    toks = torch.randint(1, cfg.vocab_size, (nb, S + 2), generator=rng,
+                         device=dev)
+    batch = {"tokens": toks[:, :S]}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(nb, cfg.encdec.encoder_seq_len,
+                                      cfg.d_model, dtype=torch.bfloat16,
+                                      device=dev)
+    c = replace(cfg, attn_kernel="on")
+    wrappers = launch_counts()
+    counts = []
+    for w in wrappers.values():
+        w.launches = 0
+    with sharding.use_axes(mesh):
+        first, cache = M.prefill(c, params, batch, S + 8, mesh=mesh)
+        torch.cuda.synchronize()
+        counts.append({k: w.launches for k, w in wrappers.items()})
+        for w in wrappers.values():
+            w.launches = 0
+        if control:
+            from repro_torch.models import kv_quant
+            for path, x in M.tree_lib.flatten(cache):
+                if path.rsplit("/", 1)[-1] in ("k", "v", "attn_k", "attn_v",
+                                               "cross_k", "cross_v",
+                                               "state"):
+                    kv_quant.raw(x.parts[1]).copy_(kv_quant.raw(x.parts[0]))
+        out = [first.float()]
+        for i in range(2):
+            if mesh is not None and i == 1:
+                mesh.moved_bytes.clear()
+            d, cache = M.decode_step(c, params, cache,
+                                     toks[:, S + i:S + i + 1], S + i,
+                                     mesh=mesh)
+            out.append(d[:, 0].float())
+    torch.cuda.synchronize()
+    counts.append({k: w.launches for k, w in wrappers.items()})
+    return out, counts[0], counts[1]
+
+
+def wave_decode_bytes(cfg, nb, m, item):
+    """The collectives of one wave decode step of nb rows at m shards in
+    ``item``-byte activations (the weights' dtype): the embedding (a psum
+    of the masked lookups; an all_gather of the d_model columns where the
+    vocab does not divide); per attention layer a psum of ``wo``'s
+    partials where the heads are cut and of the MLP's (an MoE's routed
+    experts', its shared expert's; whisper's cross-attention's) where
+    their hidden dim is; per Mamba-2 block, where its heads are cut, the
+    gated norm's fp32 sum of squares and ``out_proj``'s psum; the logits
+    (an all_gather of the vocab columns; a psum of d_model partials where
+    the vocab does not divide); the broadcast tokens (int64) and
+    positions (int32).  A psum moves 2 (m - 1) times its bytes, an
+    all_gather and a broadcast m - 1."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    mesh = card_mesh(m)
+    heads = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
+    act = nb * cfg.d_model * item
+    logits = nb * cfg.vocab_size * item
+    if cfg.family in ("ssm", "hybrid"):
+        attn = M.hybrid_layout(cfg)[0] if cfg.hybrid else 0
+        mamba = cfg.num_layers \
+            if sharding.mamba_shard_size(mesh, cfg) > 1 else 0
+    else:
+        attn, mamba = cfg.num_layers, 0
+    per = heads + (cfg.d_ff % m == 0)
+    if cfg.family == "audio":
+        per += heads
+    if cfg.moe is not None and cfg.moe.shared_d_ff:
+        per += cfg.moe.shared_d_ff % m == 0
+    psum = act * (per * attn + mamba) + nb * 4 * mamba
+    gather = 0
+    if cfg.vocab_size % m:
+        gather += act
+        psum += logits
+    else:
+        psum += act
+        gather += logits
+    return {"psum": 2 * (m - 1) * psum, "all_gather": (m - 1) * gather,
+            "broadcast": (m - 1) * (nb * 8 + nb * 4)}
+
+
+def dense_shard_vs_solo(torch, cfg, mesh, gen, kv_dtype="bf16"):
+    """K3 through the sharded dispatch (stripes placed once on the mesh,
+    one launch a shard on its head slice) against one launch on every
+    head, after the same new row is stored into both (``kv_quant.put``;
+    f8 as bytes): the outputs within TOL, the written stripes bit for
+    bit.  Returns whether the outputs are bit for bit."""
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.models import kv_quant
+    from repro_torch.parallel import sharding
+    dev, H, Hk, D = "cuda", cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sd = torch.float8_e4m3fn if kv_dtype == "f8" else torch.bfloat16
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn(B, MAX_LEN, Hk, D, generator=gen,
+                          device=dev).bfloat16().to(sd) for _ in range(2))
+    new = [torch.randn(B, Hk, D, generator=gen, device=dev).bfloat16()
+           for _ in range(2)]
+    lens = torch.tensor([1, 17, 600, 1024, 700, 333, 64, 5],
+                        dtype=torch.int32, device=dev)
+    rows = (torch.arange(B, device=dev), (lens - 1).long())
+    cut = sharding.attn_shard_size(mesh, Hk) > 1
+    spec = sharding.P(None, None, "model" if cut else None, None)
+    placed = [sharding.shard(x.clone(), spec, mesh) for x in (kc, vc)]
+    for cache, pc, x in zip((kc, vc), placed, new):
+        kv_quant.put(cache, rows, x)
+        kv_quant.put(pc, rows, sharding.shard(x, spec[1:], mesh))
+    solo = decode_ops.decode_attention(q, kc, vc, lens, kernel="on")
+    shard = decode_ops.decode_attention(q, *placed, lens, kernel="on",
+                                        mesh=mesh)
+    torch.cuda.synchronize()
+    m = len(mesh.axis_devices())
+    what = (f"sharded dense dispatch vs one launch, {cfg.name}, {m} shards, "
+            f"{kv_dtype} stripes")
+    assert_close(torch, what, shard, solo)
+    for whole, pc in zip((kc, vc), placed):
+        if not same_bits(torch, sharding.gather(pc), whole):
+            raise AssertionError(f"{what}: the written stripes differ")
+    return same_bits(torch, shard, solo)
+
+
+def ssd_shard_vs_solo(torch, cfg, m, gen, S):
+    """K4 through ``ssm.ssd_via_kernel`` once a shard on its heads (b x
+    H/m folded rows) against one launch on every head, fp32 as served:
+    y within SSD_TOL, the states bit for bit.  Returns whether y is bit
+    for bit."""
+    from repro_torch.models import ssm
+    dev, s = "cuda", cfg.ssm
+    H, P, N = s.nheads(cfg.d_model), s.head_dim, s.state_size
+    x = torch.randn(SSD_ROWS, S, H, P, generator=gen, device=dev) * 0.5
+    dt = torch.rand(SSD_ROWS, S, H, generator=gen, device=dev) * 0.1
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    b, c = (torch.randn(SSD_ROWS, S, 1, N, generator=gen, device=dev)
+            for _ in range(2))
+    y, st = ssm.ssd_via_kernel(x, dt, A, b, c, s.chunk_size)
+    parts = [ssm.ssd_via_kernel(x[:, :, h].contiguous(), dt[:, :, h], A[h],
+                                b, c, s.chunk_size)
+             for h in torch.arange(H, device=dev).chunk(m)]
+    torch.cuda.synchronize()
+    ys, sts = (torch.cat(t, dim) for t, dim in zip(zip(*parts), (2, 1)))
+    what = f"sharded ssd_via_kernel vs one launch, {cfg.name}, {m} shards, {S}"
+    assert_close(torch, what, ys, y, SSD_TOL, SSD_TOL)
+    if not same_bits(torch, sts, st):
+        raise AssertionError(f"{what}: the states differ")
+    return same_bits(torch, ys, y)
+
+
+def wave_kernels(torch, cfg, m, gen, card):
+    """K3 and K4 at the per-shard shapes phase 15 launches at m shards:
+    K3 (bf16 and f8 stripes) as phase 3 checks it, K4 (fp32, WAVE_SSD_LENS
+    positions) as phase 10 does, and each sharded dispatch against one
+    launch on every head.  Returns {name: result}."""
+    from repro_torch.parallel import sharding
+    mesh = card_mesh(m)
+    out = {}
+    attn, ssm = recurrent_layers(cfg)
+    if attn:
+        a = sharding.attn_shard_size(mesh, cfg.num_kv_heads)
+        heads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
+        for kd in ("bf16", "f8"):
+            r = check_dense_decode(torch, heads, gen, kv_dtype=kd)
+            r["bitwise"] = dense_shard_vs_solo(torch, cfg, mesh, gen, kd)
+            out[f"flash_decode[{cfg.name}, {m} shards, heads {heads}, "
+                f"{kd}]"] = r
+    if ssm:
+        res = check_ssd_model(torch, cfg, gen, card, ways=m,
+                              lens=WAVE_SSD_LENS)
+        H = cfg.ssm.nheads(cfg.d_model) // m
+        for S, r in res.items():
+            r["bitwise"] = ssd_shard_vs_solo(torch, cfg, m, gen, S)
+            out[f"ssd_scan[{cfg.name}, {m} shards, {SSD_ROWS} x {H} rows, "
+                f"{S}]"] = r
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None \
+            else f"{r['library_ms']:.4f} ms"
+        print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+              f"sharded dispatch bit for bit one launch: {r['bitwise']}")
+    return out
+
+
+def wave_engine(torch, cfg, params, card, mesh=None):
+    """4 requests of 8 greedy tokens in waves (WAVE_REQ_LENS; two waves
+    of two), over ``mesh`` or none: every request ends; K3 launched m x
+    attention layers a decode step but each wave's last, K4 m x Mamba-2
+    blocks a wave, K1 and K2 never.  Returns (outputs, ms per decode
+    step, prefill tok/s, launches)."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    m = 1 if mesh is None else len(mesh.axis_devices())
+    rng = np.random.default_rng(5)
+    reqs = [rng.integers(1, cfg.vocab_size, size=n)
+            for n in WAVE_REQ_LENS.get(cfg.family, (64, 64, 512, 512))]
+    eng = ServingEngine(cfg, params, max_batch=B, max_len=MAX_LEN,
+                        eos_id=-1, attn_kernel="auto", seed=0,
+                        device="cuda", mesh=mesh, mode="wave")
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    uids = [eng.submit(p, max_new_tokens=8) for p in reqs]
+    out = eng.run()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    s = eng.stats
+    name = (f"engine {cfg.name} (wave, {cfg.kv_dtype} stripes, "
+            f"{'no mesh' if mesh is None else f'{m} shards'}, greedy)")
+    for u in uids:
+        if len(out[u]) != 8:
+            raise AssertionError(f"{name}: request {u} returned {out[u]}")
+    waves = len(set(len(p) for p in reqs))
+    attn, ssm = recurrent_layers(cfg)
+    want = {"flash_decode": m * attn * (s.decode_steps - waves),
+            "paged_flash_decode": 0, "paged_flash_prefill": 0,
+            "ssd_scan": m * ssm * waves}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want}")
+    ms = s.decode_s / s.decode_steps * 1e3
+    print(f"{name} [{card}]: {len(uids)} requests, {ms:.2f} ms per decode "
+          f"step ({s.decode_steps} steps), prefill "
+          f"{s.prefill_tokens_per_s:.1f} tok/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    return [out[u] for u in uids], ms, s.prefill_tokens_per_s, launches
+
+
+def wave_logits_check(torch, cfg, placed, mesh, want, card):
+    """wave_steps over ``mesh`` held to the meshless ``want`` within
+    WAVE_SHARE: K4 m x Mamba-2 blocks in the prefill, K3 m x attention
+    layers a decode step, K1 and K2 never, the last decode step's bytes
+    between shards exactly ``wave_decode_bytes``.  Returns the worst
+    share."""
+    m = len(mesh.axis_devices())
+    attn, ssm = recurrent_layers(cfg)
+    share = WAVE_SHARE[cfg.family]
+    got, pre, dec = wave_steps(torch, cfg, placed, mesh)
+    name = f"{cfg.name} wave, {m} shards vs none"
+    zero = {"paged_flash_decode": 0, "paged_flash_prefill": 0}
+    if pre != {**zero, "flash_decode": 0, "ssd_scan": m * ssm} or \
+            dec != {**zero, "flash_decode": 2 * m * attn, "ssd_scan": 0}:
+        raise AssertionError(f"{name}: launches prefill {pre}, decode {dec}")
+    moved = dict(mesh.moved_bytes)
+    item = 4 if placed["embed"].dtype == torch.float32 else 2
+    want_bytes = wave_decode_bytes(cfg, 4, m, item)
+    print(f"sharded wave decode step {name} [{card}]: bytes between shards "
+          f"{moved} (count {want_bytes})")
+    if moved != want_bytes:
+        raise AssertionError(f"{name}: the decode step moved {moved}, want "
+                             f"{want_bytes}")
+    return compare_logits(torch, name, got, want, share, card,
+                          names=("prefill", "decode 1", "decode 2"))
+
+
+def mesh_cuts_caches(cfg, mesh):
+    """Whether the wave caches' heads are cut over ``mesh`` (else every
+    shard holds them whole and there is no other shard's slice to
+    read)."""
+    from repro_torch.parallel import sharding
+    return sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1 \
+        or sharding.mamba_shard_size(mesh, cfg) > 1
+
+
+def control_fails(torch, cfg, placed, mesh, want, card):
+    """wave_steps with shard 1 reading shard 0's stripes and states must
+    leave wave_logits_check's limit."""
+    ssm = recurrent_layers(cfg)[1]
+    share = WAVE_SHARE[cfg.family]
+    name = f"{cfg.name} wave, {len(mesh.axis_devices())} shards vs none"
+    bad = wave_steps(torch, cfg, placed, mesh, control=True)[0]
+    ctl = max((x - y).abs().max().item() / (y.max() - y.min()).item()
+              for x, y in zip(bad, want))
+    print(f"model check {name} control (shard 1 reading shard 0's "
+          f"{'state' if ssm else 'heads'}) [{card}]: worst max|diff| "
+          f"{ctl:.4g} of the range (must exceed {share})")
+    if ctl <= share:
+        raise AssertionError(f"{name}: the check cannot see a shard reading "
+                             f"another's slice")
+
+
+def run_wave_sharded(torch, arch, ways, gen, card):
+    """Phase 14 for one config at full width (``wave_cfg``), freed
+    afterwards: ``wave_kernels`` at each shard count; the meshless
+    greedy engine run, then the meshless ``wave_steps`` (the attention
+    families on the bf16 weights, recording an MoE's expert choices; the
+    recurrent ones on the weights cast to fp32); at each shard count the
+    weights placed, ``wave_logits_check`` (an MoE replaying the meshless
+    choices, every shard routing alike), ``control_fails`` where the
+    caches are cut, and the engine on bf16 and f8
+    stripes (not for ssm: no stripes).  Returns
+    (kernel results by shard count, {(m, kv_dtype): launches})."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    cfg = wave_cfg(arch)
+    kernels = {}
+    for m in ways:
+        kernels[m] = wave_kernels(torch, cfg, m, gen, card)
+    recurrent = cfg.family in ("ssm", "hybrid", "audio")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"params {cfg.name}, {cfg.num_layers} layers [{card}]: "
+          f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB, init "
+          f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
+          f"GiB")
+    c8 = replace(cfg, kv_dtype="f8")
+    stripes = ("bf16",) if cfg.family == "ssm" else ("bf16", "f8")
+    runs = {(1, kd): wave_engine(torch, c8 if kd == "f8" else cfg, params,
+                                 card) for kd in stripes}
+    if recurrent:
+        params32 = as_fp32(params)
+        want = wave_steps(torch, cfg, params32, None)[0]
+    else:
+        picks = []
+        with routing(torch, picks, replay=False):
+            want = wave_steps(torch, cfg, params, None)[0]
+        del params  # the shards are drawn leaf by leaf below
+        torch.cuda.empty_cache()
+    worst = {}
+    for m in ways:
+        mesh = card_mesh(m)
+        if recurrent:
+            placed = sharding.place_serve(cfg, params32, mesh)
+            worst[m] = wave_logits_check(torch, cfg, placed, mesh, want,
+                                         card)
+        else:
+            placed = M.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+            with routing(torch, [e for e in picks for _ in range(m)],
+                         replay=True):
+                worst[m] = wave_logits_check(torch, cfg, placed, mesh,
+                                             want, card)
+        if mesh_cuts_caches(cfg, mesh):
+            control_fails(torch, cfg, placed, mesh, want, card)
+        if recurrent:
+            del placed
+            placed = sharding.place_serve(cfg, params, mesh)
+        for kd in stripes:
+            runs[m, kd] = wave_engine(torch, c8 if kd == "f8" else cfg,
+                                      placed, card, mesh)
+        del placed
+        torch.cuda.empty_cache()
+    for (m, kd), run in runs.items():
+        if m > 1:
+            same = sum(a == b for a, b in zip(runs[1, kd][0], run[0])) \
+                / len(run[0])
+            print(f"engine {cfg.name} wave {kd}, {m} shards vs none, greedy "
+                  f"[{card}]: {same:.2f} of requests token for token equal "
+                  f"(printed: near-ties flip)")
+    print(f"engine {cfg.name} wave ms per decode step / prefill tok/s "
+          f"[{card}]: " + ", ".join(
+              f"{m} shard{'s' * (m > 1)} {kd} {r[1]:.2f} / {r[2]:.1f}"
+              for (m, kd), r in runs.items()))
+    print(f"model check {cfg.name} wave sharded logits [{card}]: worst "
+          f"share of the range " + ", ".join(f"{m} shards {w:.4g}"
+                                             for m, w in worst.items()))
+    if recurrent:
+        del params, params32
+    torch.cuda.empty_cache()
+    return kernels, {k: r[3] for k, r in runs.items()}
+
+
+def wave_entries(results):
+    """The kernels line's phase 14 entries: one per per-shard shape
+    (K3 on bf16 and f8 stripes, K4 at 512 positions, the worst error
+    over both lengths), its launches from that shard count's engine
+    run."""
+    dense = ("src/repro_torch/csrc/dense_decode.cu",
+             "src/repro/kernels/flash_decode/flash_decode.py:78")
+    ssd = ("src/repro_torch/csrc/ssd_scan.cu",
+           "src/repro/kernels/ssd_scan/ssd_scan.py:66")
+    out = []
+    for arch, (kernels, launches) in results.items():
+        for m, res in kernels.items():
+            ssd_err = max((r["err"] for n, r in res.items()
+                           if n.startswith("ssd_scan")), default=0.0)
+            for name, r in res.items():
+                if name.startswith("flash_decode"):
+                    kd = "f8" if name.endswith("f8]") else "bf16"
+                    out.append(kernel_entry(
+                        name, *dense, launches[m, kd]["flash_decode"], r))
+                elif name.endswith(f", {max(WAVE_SSD_LENS)}]"):
+                    out.append(kernel_entry(
+                        name, *ssd, launches[m, "bf16"]["ssd_scan"], r,
+                        err=ssd_err))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -3382,7 +3840,12 @@ def main() -> int:
     # 13. Training over a (data, model) mesh on the one card.
     run_mesh_training(torch, gen, card)
 
-    # 14. Result lines.  The quantized bodies report their int8 times (fp8
+    # 14. Waves over a model axis of 2 and 4 shards on the one card, every
+    # family.
+    waves = {arch: run_wave_sharded(torch, arch, ways, gen, card)
+             for arch, ways in WAVE_SHARDS}
+
+    # 15. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -3506,6 +3969,7 @@ def main() -> int:
              ("prefill", True): (pre_src, f"{pre_tpu}:202")}
     for name, kernel, quant, n, r, err in sharded:
         kernels.append(kernel_entry(name, *lines[kernel, quant], n, r, err))
+    kernels += wave_entries(waves)
     kernels.append(kernel_entry(
         f"flash_attention[forward, B={TRAIN_B}]",
         "src/repro_torch/csrc/flash_attention.cu",

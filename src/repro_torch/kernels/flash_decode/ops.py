@@ -16,12 +16,12 @@ implementation is chosen by ``resolve_kernel``:
 The same knob selects the prefill-side kernel (``kernels.flash_prefill``)
 and, as ``kernel=``, the SCLD matmul of ``SCLDLinear``.
 
-A paged pool placed over a mesh (a ``parallel.sharding.Sharded``:
-``model.init_paged_cache(mesh=)`` or ``sharding.shard``) is read once per
-shard (``_sharded_paged_decode``): each shard calls this same
-single-device entry on its contiguous Hk/m pool slice and H/m query
-heads, so on the card each shard launches the kernel at its own head
-counts.
+A paged pool or dense stripes placed over a mesh (a
+``parallel.sharding.Sharded``: ``model.init_paged_cache(mesh=)``,
+``model.init_cache(mesh=)`` or ``sharding.shard``) are read once per
+shard (``_sharded_decode``): each shard calls this same single-device
+entry on its contiguous Hk/m slice and H/m query heads, so on the card
+each shard launches the kernel at its own head counts.
 """
 from __future__ import annotations
 
@@ -60,16 +60,16 @@ def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
     layout only).  Returns (B, H, D).  The caller owns the cache write of
     the new K/V; this is the read side only.
 
-    A paged pool that is a ``sharding.Sharded`` (placed once, cut on its
-    KV heads where the ``model`` axis divides Hk, else whole on every
-    shard) is read per shard (``_sharded_paged_decode``).  mesh: the
-    gate for plain pools — one whose KV heads the mesh's ``model`` axis
+    A pool or stripes that are a ``sharding.Sharded`` (placed once, cut
+    on their KV heads where the ``model`` axis divides Hk, else whole on
+    every shard) are read per shard (``_sharded_decode``).  mesh: the
+    gate for plain caches — one whose KV heads the mesh's ``model`` axis
     divides (``sharding.attn_shard_size``) must be placed first, and
     raises ``TypeError``; otherwise the single-device call.
     """
     if isinstance(k_cache, sharding.Sharded):
-        return _sharded_paged_decode(q, k_cache, v_cache, lengths,
-                                     block_tables, kernel, kv_scales)
+        return _sharded_decode(q, k_cache, v_cache, lengths, block_tables,
+                               kernel, kv_scales)
     check_placed(mesh, k_cache, block_tables)
     use_kernel = resolve_kernel(kernel, q.device)
     if block_tables is not None:
@@ -87,30 +87,36 @@ def decode_attention(q, k_cache, v_cache, lengths, block_tables=None, *,
     return flash_decode(q, k_cache, v_cache, lens)
 
 
-def check_placed(mesh, pool, block_tables) -> None:
-    """A plain paged pool under a mesh that would cut its KV heads: place
-    it once (``sharding.shard``, ``model.init_paged_cache(mesh=)``)
-    rather than copy it to the shards and back on every call."""
-    if block_tables is not None and \
-            sharding.attn_shard_size(mesh, pool.shape[2]) > 1:
+def check_placed(mesh, cache, block_tables) -> None:
+    """A plain paged pool (N, bs, Hk, D) or plain dense stripes (B, S, Hk,
+    D) under a mesh that would cut their KV heads: place them once
+    (``sharding.shard``, ``model.init_paged_cache(mesh=)``,
+    ``model.init_cache(mesh=)``) rather than copy them to the shards and
+    back on every call."""
+    if sharding.attn_shard_size(mesh, cache.shape[2]) > 1:
+        what = "paged pool" if block_tables is not None else "dense stripe"
         raise TypeError(
-            "a paged pool read over a mesh that cuts its KV heads must be "
-            "placed first (sharding.shard or init_paged_cache(mesh=))")
+            f"a {what} read over a mesh that cuts its KV heads must be "
+            f"placed first (sharding.shard, init_paged_cache(mesh=) or "
+            f"init_cache(mesh=))")
 
 
-def _sharded_paged_decode(q, k_cache, v_cache, lengths, block_tables, kernel,
-                          kv_scales):
-    """The paged decode read once per model shard.
+def _sharded_decode(q, k_cache, v_cache, lengths, block_tables, kernel,
+                    kv_scales):
+    """The decode read once per model shard, on a paged pool or (without
+    ``block_tables``) dense stripes: the paged or the dense decode
+    kernel once a shard.
 
-    Attention is independent per KV head, so cutting the pool's Hk axis
-    changes no arithmetic: shard i reads its contiguous Hk/m pool slice
-    with the matching contiguous H/m query heads (head h attends kv head
+    Attention is independent per KV head, so cutting the cache's Hk axis
+    changes no arithmetic: shard i reads its contiguous Hk/m slice with
+    the matching contiguous H/m query heads (head h attends kv head
     h // rep, and contiguous cuts keep rep per shard).  Tables and
-    lengths are broadcast, so every shard walks the same table; no pool
-    byte moves.  A pool whole on every shard gives each shard every
-    head.  A plain q is placed by ``paged_attn_specs`` and the output
-    gathered back on the head axis; a ``Sharded`` q (the model's path)
-    gets the per-shard outputs.
+    lengths are broadcast, so every shard walks the same table or
+    positions; no cache byte moves.  A cache whole on every shard gives
+    each shard every head.  A plain q is placed by ``paged_attn_specs``
+    and the output gathered back on the head axis; a ``Sharded`` q (the
+    model's path) gets the per-shard outputs.  f8 stripes go to each
+    shard's launch as they are (kind 3).
     """
     mesh, cut = k_cache.mesh, k_cache.dim is not None
     qs = sharding.shard(q, sharding.paged_attn_specs()["q_decode"] if cut

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel.sharding import Sharded
+
 #: Every accepted ``ModelConfig.kv_dtype`` spelling:
 #:   "fp"/"bf16" — bf16 pool (the port's fp pool);
 #:   "f8"        — float8_e4m3fn dense stripes and paged pool, no scales:
@@ -60,12 +62,18 @@ def qmax(kv_dtype: str) -> float:
     raise ValueError(f"{kv_dtype!r} is not a quantized kv_dtype")
 
 
-def raw(t: torch.Tensor) -> torch.Tensor:
+def raw(t):
     """``t`` itself, or its bytes (uint8 view) when it holds fp8: advanced
     indexing of payloads and f8 stripes (the pool gathers and writes, the
     stripe stores), and their ``torch.cat``, go through this, since not
     every PyTorch build indexes or concatenates float8 tensors on every
-    device.  The bits are unchanged."""
+    device.  The bits are unchanged.  A placed pool or stripe
+    (``sharding.Sharded``) gives the same placement of its parts' bytes,
+    places that share a part sharing its view."""
+    if isinstance(t, Sharded):
+        views: dict = {}
+        return t.with_parts([views.setdefault(id(p), raw(p))
+                             for p in t.parts])
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
@@ -86,10 +94,17 @@ def f8_saturates(device) -> bool:
     return _F8_SATURATES[kind]
 
 
-def put(dst: torch.Tensor, index, x: torch.Tensor) -> None:
+def put(dst, index, x) -> None:
     """``dst[index] = x`` cast to ``dst``'s dtype, through ``raw``: the
-    cache stores of K/V rows into bf16 or f8 stripes and pools.  An f8
-    store is ``x.to(float8_e4m3fn)``, one rounding from x's value."""
+    cache stores of K/V rows into bf16 or f8 stripes and pools (and of
+    the Mamba-2 states and windows).  An f8 store is
+    ``x.to(float8_e4m3fn)``, one rounding from x's value.  A placed
+    ``dst`` takes a placed ``x`` part by part, each place writing its
+    own slice: no byte moves between shards."""
+    if isinstance(dst, Sharded):
+        for d, x_ in zip(dst.parts, x.parts):
+            put(d, index, x_)
+        return
     raw(dst)[index] = raw(x.to(dst.dtype))
 
 

@@ -3,8 +3,8 @@ sinusoidal positions, QKV projection, full causal or bidirectional
 attention (``_sdpa``, ``chunked_attention``, ``self_attend``,
 ``attention``), cross
 attention over precomputed K/V, SwiGLU/GeGLU/GELU MLP, and single-token
-decode attention over a paged pool (bf16 or SCLAD int8/fp8) or dense
-stripes, on one device or per shard of a ``model`` mesh axis.
+decode attention over a paged pool (bf16, f8 or SCLAD int8/fp8) or
+dense stripes, on one device or per shard of a ``model`` mesh axis.
 
 Port of the serving-path functions of ``repro.models.layers``, as plain
 functions on tensors over explicit parameter dictionaries.  The
@@ -309,14 +309,16 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     lengths = pos + 1.  Returns (out (B, 1, d), k_cache, v_cache), plus
     (k_scale, v_scale) when ``kv_scales`` is given.
 
-    With a ``mesh`` (paged layout) every argument but ``cfg`` is a
+    With a ``mesh`` (either layout) every argument but ``cfg`` is a
     ``sharding.Sharded`` (x and the positions and tables equal on every
     shard) and so is the output: each shard projects its own heads
     (column-parallel q/k/v, ``sharding.shard_cfg``), stores its K/V into
-    its pool slice, reads through the sharded dispatch and multiplies by
-    its rows of ``wo``; a ``psum`` sums the partials.  Where the heads do
-    not divide the axis the attention leaves and the pool are whole on
-    every shard, each shard computes every head, and nothing is summed.
+    its pool or stripe slice (``kv_quant.put``, f8 as bytes), reads
+    through the sharded dispatch (the paged or dense decode kernel once a
+    shard) and multiplies by its rows of ``wo``; a ``psum`` sums the
+    partials.  Where the heads do not divide the axis the attention
+    leaves and the cache are whole on every shard, each shard computes
+    every head, and nothing is summed.
     """
     cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
     lcfg = sharding.shard_cfg(cfg, mesh)

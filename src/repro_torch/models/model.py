@@ -2,9 +2,11 @@
 training loss, paged prefill chunks and decode (the attention families),
 and the wave path's dense-cache prefill and decode (all six).
 
-Port of ``repro.models.model``, tensor-parallel paged serving over a
-``model`` mesh axis included (``prefill_slots`` / ``decode_step`` with
-``mesh=``), and the training loss over a placed (data, model) mesh
+Port of ``repro.models.model``, tensor-parallel serving over a ``model``
+mesh axis included (``prefill_slots`` / ``decode_step`` with ``mesh=`` on
+the paged pool; ``prefill`` / ``decode_step`` with ``mesh=`` on the wave
+path's dense caches, every family), and the training loss over a placed
+(data, model) mesh
 (``loss_fn(mesh=)``: FSDP gathers a layer inside its rematerialized body,
 TP over ``model`` for the attention families):
 
@@ -286,7 +288,7 @@ def _zeros_like_stacked(one: Params, lead: Tuple[int, ...]) -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None,
-               conv_dtype: torch.dtype = torch.bfloat16) -> Params:
+               conv_dtype: torch.dtype = torch.bfloat16, mesh=None) -> Params:
     """The wave path's dense caches, zeros, as the reference lays them
     out: (L, batch, ctx, Hk, hd) ``k`` and ``v`` stripes in
     ``kv_store_dtype`` (ctx = max_len, plus ``num_patches`` for the vlm
@@ -297,7 +299,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     encoder frames' (L, batch, frames, Hk, hd) ``cross_k``/``cross_v``.
     ``conv_dtype``: the Mamba-2 conv windows' (bf16, the reference's;
     ``prefill`` passes its compute dtype, which the reference's prompt
-    pass leaves there)."""
+    pass leaves there).
+
+    With a ``mesh`` (``device`` is then ignored) every leaf is a
+    ``sharding.Sharded`` placed by ``sharding.wave_cache_specs``: the
+    stripes cut on their KV heads, the Mamba-2 states on their heads and
+    the conv windows by components, where the heads divide the axis,
+    else whole on every shard.  Each shard's part is made on its device;
+    no whole cache is built."""
+    if mesh is not None:
+        meta = init_cache(cfg, batch, max_len, "meta", conv_dtype)
+        specs = sharding.wave_cache_specs(cfg, meta, mesh)
+        return tree_lib.map_leaves(lambda x, spec: sharding.place_new(
+            x.shape, spec, mesh, lambda sh, d: torch.zeros(
+                sh, dtype=x.dtype, device=d)), meta, specs)
     dev = resolve_device(device)
     fam, L = cfg.family, cfg.num_layers
 
@@ -430,13 +445,34 @@ def _attn_qkv(cfg: ModelConfig, blk: Params, x: torch.Tensor,
 
 
 def _attn_block_body(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-                     positions: torch.Tensor):
+                     positions: torch.Tensor, mesh=None):
     """One layer over a plain causal window (the wave path's prefill;
     every token routes, as in the reference):
     returns (x_out, k, v) with k/v of this call's tokens in the compute
-    dtype (``layers.self_attend``)."""
-    q, k, v = _attn_qkv(cfg, blk, x, positions)
-    return _attn_post(cfg, blk, x, layers.self_attend(cfg, q, k, v)), k, v
+    dtype (``layers.self_attend``).  Over a ``mesh`` each shard attends
+    with its own heads (k/v then cut on their heads) and ``wo`` and the
+    FFN run as ``_attn_post(mesh=)``."""
+    lcfg = sharding.shard_cfg(cfg, mesh)
+    q, k, v = sharding.smap(
+        lambda b_, x_, pos: _attn_qkv(lcfg, b_, x_, pos), blk, x, positions,
+        mesh=mesh, dim=_head_dim(cfg, mesh))
+    a = sharding.smap(lambda q_, k_, v_: layers.self_attend(lcfg, q_, k_, v_),
+                      q, k, v, mesh=mesh)
+    return _attn_post(cfg, blk, x, a, mesh=mesh), k, v
+
+
+def _head_dim(cfg: ModelConfig, mesh) -> Optional[int]:
+    """The dim of a (B, S, heads, D) projection cut over ``mesh``: 2
+    where the attention heads are cut, else None (whole on every
+    shard)."""
+    return 2 if sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1 \
+        else None
+
+
+def _psum_rows(y, w):
+    """The shards' partial products with ``w``'s rows summed (``psum``)
+    where ``w`` is cut, else y."""
+    return y if sharding.cut_dim(w) is None else sharding.psum(y)
 
 
 def _attn_post(cfg: ModelConfig, blk: Params, x: torch.Tensor,
@@ -475,8 +511,7 @@ def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor,
     for an MLP block.  Over a ``mesh`` the MLP is column- then
     row-parallel (a ``psum`` of the down projection's partials) and the
     MoE as ``moe.apply_moe(mesh=)``."""
-    xn = sharding.smap(lambda n, x_: layers.apply_norm(cfg, n, x_),
-                       blk["ln_mlp"], x, mesh=mesh)
+    xn = _norm(cfg, blk["ln_mlp"], x, mesh)
     if "moe" in blk:
         y, aux = moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid,
                                    mesh=mesh)
@@ -488,14 +523,27 @@ def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor,
     return sharding.smap(torch.add, x, y, mesh=mesh), aux
 
 
-def _project_patches(params: Params, patch_embeds: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
+def _norm(cfg: ModelConfig, p: Params, x, mesh=None):
+    """``layers.apply_norm`` of x by the norm leaves p, on each shard."""
+    return sharding.smap(lambda n, x_: layers.apply_norm(cfg, n, x_), p, x,
+                         mesh=mesh)
+
+
+def _prepend_patches(w, patch_embeds, h, mesh=None):
     """The vlm stub frontend: patch embeddings (B, num_patches, d) times
-    ``patch_proj`` in their promoted dtype (bf16 embeddings meet fp32
-    params in fp32, as jnp promotes them), cast to ``dtype``."""
-    w = params["patch_proj"]
-    ct = torch.promote_types(patch_embeds.dtype, w.dtype)
-    return (patch_embeds.to(ct) @ w.to(ct)).to(dtype)
+    ``patch_proj`` ``w`` in their promoted dtype (bf16 embeddings meet
+    fp32 params in fp32, as jnp promotes them), cast to h's dtype and
+    put ahead of h's positions.  Over a ``mesh`` a ``w`` cut on its
+    columns projects each shard's columns, then all_gathers them."""
+    def project(pe, w_, x):
+        ct = torch.promote_types(pe.dtype, w_.dtype)
+        return (pe.to(ct) @ w_.to(ct)).to(x.dtype)
+
+    patches = sharding.all_gather(sharding.smap(
+        project, patch_embeds, w, h, mesh=mesh,
+        dim=None if sharding.cut_dim(w) is None else 2))
+    return sharding.smap(lambda a_, b_: torch.cat([a_, b_], dim=1),
+                         patches, h, mesh=mesh)
 
 
 def _embed(embed, tokens: torch.Tensor, mesh=None):
@@ -530,8 +578,7 @@ def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None):
 def _unembed_placed(cfg: ModelConfig, params: Params, h, mesh=None):
     """``unembed`` over a ``mesh`` as a ``Sharded``: every place's logits
     (its data shard's rows), whole over ``model``."""
-    hn = sharding.smap(lambda n, x: layers.apply_norm(cfg, n, x),
-                       params["final_norm"], h, mesh=mesh)
+    hn = _norm(cfg, params["final_norm"], h, mesh)
     tied = cfg.tie_embeddings
     w = params["embed"] if tied else params["lm_head"]
     cut = sharding.cut_dim(w)
@@ -627,26 +674,18 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
     bc = functools.partial(sharding.broadcast, mesh=mesh)
     h = _embed(params["embed"], bc(tokens), mesh)
     if prefix:
-        w = params["patch_proj"]
-        patches = sharding.all_gather(sharding.smap(
-            lambda pe, w_, x: _project_patches({"patch_proj": w_}, pe,
-                                               x.dtype),
-            bc(patch_embeds), w, h, mesh=mesh,
-            dim=None if sharding.cut_dim(w) is None else 2))
-        h = sharding.smap(lambda a_, b_: torch.cat([a_, b_], dim=1),
-                          patches, h, mesh=mesh)
+        h = _prepend_patches(params["patch_proj"], bc(patch_embeds), h,
+                             mesh)
     positions, real_key = bc(positions), bc(real_key)
     lengths, tables = bc(lengths), bc(block_tables)
     attn["start"] = bc(attn["start"])
     lcfg = sharding.shard_cfg(cfg, mesh)
-    heads = 2 if sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1 \
-        else None
     for layer in range(cfg.num_layers):
         blk = layer_params(params, layer)
         q, k, v = sharding.smap(
             lambda b_, x, pos: tuple(t.contiguous()
                                      for t in _attn_qkv(lcfg, b_, x, pos)),
-            blk, h, positions, mesh=mesh, dim=heads)
+            blk, h, positions, mesh=mesh, dim=_head_dim(cfg, mesh))
         a = prefill_ops.prefill_attention(
             q, k, v, cache["k"][layer], cache["v"][layer], lengths, tables,
             kv_scales=_layer_scales(cache, layer), mesh=mesh, **attn)[0]
@@ -677,127 +716,150 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     Returns (logits (B, 1, vocab), cache) with the cache written in place.
 
-    With a ``mesh`` (paged pool only) the attention families' layer loop
-    runs tensor-parallel, as ``prefill_slots`` says.
+    With a ``mesh`` the layer loop runs tensor-parallel, as
+    ``prefill_slots`` says, on the paged pool (``init_paged_cache(mesh=)``)
+    or on the dense caches (``init_cache(mesh=)``, every family): each
+    shard writes and reads its own stripe heads (the dense decode kernel
+    once a shard), and updates its own Mamba-2 heads' states and windows
+    (``ssm.apply_mamba_decode(mesh=)``); whisper's cross-attention reads
+    each shard's cross K/V heads, its ``wo`` partials summed.
     """
     fam = cfg.family
     if block_tables is not None:
         check_paged(cfg, "decode_step")
-    elif mesh is not None:
-        raise NotImplementedError(
-            "decode_step over a mesh covers the paged pool only")
     prefix = cfg.num_patches if fam == "vlm" else 0
     pos = (torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
            + prefix).expand(tokens.shape[0])
+    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    h = _embed(params["embed"], bc(tokens), mesh)
+    pos, tables = bc(pos.contiguous()), bc(block_tables)
+    valid = bc(None if active is None else active[:, None])
     if fam in ATTENTION_FAMILIES:
-        bc = functools.partial(sharding.broadcast, mesh=mesh)
-        h = _embed(params["embed"], bc(tokens), mesh)
-        pos, tables = bc(pos.contiguous()), bc(block_tables)
-        valid = bc(None if active is None else active[:, None])
         for layer in range(cfg.num_layers):
             blk = layer_params(params, layer)
             scales = None if block_tables is None \
                 else _layer_scales(cache, layer)
-            xn = sharding.smap(lambda n, x: layers.apply_norm(cfg, n, x),
-                               blk["ln_attn"], h, mesh=mesh)
-            a = layers.attention_decode(
-                cfg, blk["attn"], xn, cache["k"][layer], cache["v"][layer],
-                pos, tables, kv_scales=scales, mesh=mesh)[0]
-            h = _ffn(cfg, blk, sharding.smap(torch.add, h, a, mesh=mesh),
-                     valid, mesh)
-        return unembed(cfg, params, h, mesh), cache
-    h = params["embed"][tokens.long()]
-    if fam == "ssm":
+            h = _attn_decode(cfg, blk, h, cache["k"][layer],
+                             cache["v"][layer], pos, tables, scales, valid,
+                             mesh)
+    elif fam == "ssm":
         for layer in range(cfg.num_layers):
             h = _mamba_decode(cfg, layer_params(params, layer), cache,
-                              (layer,), h)
+                              (layer,), h, mesh)
     elif fam == "hybrid":
         groups, per, tail = hybrid_layout(cfg)
-        shared = params["shared_attn"]
         for g in range(groups):
             for i in range(per):
                 h = _mamba_decode(cfg, layer_params(params, i, "groups", g),
-                                  cache["groups"], (g, i), h)
-            a = layers.attention_decode(
-                cfg, shared["attn"],
-                layers.apply_norm(cfg, shared["ln_attn"], h),
-                cache["attn_k"][g], cache["attn_v"][g], pos)[0]
-            h = _ffn(cfg, shared, h + a)
+                                  cache["groups"], (g, i), h, mesh)
+            h = _attn_decode(cfg, params["shared_attn"], h,
+                             cache["attn_k"][g], cache["attn_v"][g], pos,
+                             mesh=mesh)
         for i in range(tail):
             h = _mamba_decode(cfg, layer_params(params, i, "tail"),
-                              cache["tail"], (i,), h)
+                              cache["tail"], (i,), h, mesh)
     elif fam == "audio":
         if torch.as_tensor(position).dim() != 0:
             raise ValueError("audio decode takes one scalar position")
-        table = layers.sinusoidal_positions(cache["k"].shape[2],
-                                            cfg.d_model, h.device)
-        h = h + table[pos[0].long()]
+        ctx = cache["k"].shape[2]
+        h = sharding.smap(lambda x, p_: x + layers.sinusoidal_positions(
+            ctx, cfg.d_model, x.device)[p_[0].long()], h, pos, mesh=mesh)
         for layer in range(cfg.num_layers):
             blk = layer_params(params, layer, "dec_blocks")
-            h = h + layers.attention_decode(
-                cfg, blk["self_attn"],
-                layers.apply_norm(cfg, blk["ln_self"], h),
-                cache["k"][layer], cache["v"][layer], pos,
-                use_rope=False)[0]
-            h = h + layers.cross_attention(
-                cfg, blk["cross_attn"],
-                layers.apply_norm(cfg, blk["ln_cross"], h),
-                cache["cross_k"][layer].to(h.dtype),
-                cache["cross_v"][layer].to(h.dtype))
-            h = h + layers.apply_mlp(
-                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
+            xn = _norm(cfg, blk["ln_self"], h, mesh)
+            a = layers.attention_decode(
+                cfg, blk["self_attn"], xn, cache["k"][layer],
+                cache["v"][layer], pos, use_rope=False, mesh=mesh)[0]
+            h = sharding.smap(torch.add, h, a, mesh=mesh)
+            h = _cross_attend(cfg, blk, h, cache["cross_k"][layer],
+                              cache["cross_v"][layer], mesh)
+            h = _ffn(cfg, blk, h, mesh=mesh)
     else:
         raise ValueError(fam)
-    return unembed(cfg, params, h), cache
+    return unembed(cfg, params, h, mesh), cache
+
+
+def _attn_decode(cfg: ModelConfig, blk: Params, h, k_cache, v_cache, pos,
+                 tables=None, scales=None, valid=None, mesh=None):
+    """One attention layer's decode step (norm, ``layers.attention_decode``
+    with its cache store, residual, FFN); returns h after the layer."""
+    xn = _norm(cfg, blk["ln_attn"], h, mesh)
+    a = layers.attention_decode(cfg, blk["attn"], xn, k_cache, v_cache, pos,
+                                tables, kv_scales=scales, mesh=mesh)[0]
+    return _ffn(cfg, blk, sharding.smap(torch.add, h, a, mesh=mesh), valid,
+                mesh)
+
+
+def _cross_attend(cfg: ModelConfig, blk: Params, h, ck, cv, mesh=None):
+    """h plus whisper's cross-attention of the normed h over the cached
+    frames' K/V (stored in the stripes' dtype, read in h's), each shard
+    over its own heads, ``wo``'s partials summed."""
+    lcfg = sharding.shard_cfg(cfg, mesh)
+    c = sharding.smap(
+        lambda n, p_, x, k_, v_: layers.cross_attention(
+            lcfg, p_, layers.apply_norm(cfg, n, x), k_.to(x.dtype),
+            v_.to(x.dtype)),
+        blk["ln_cross"], blk["cross_attn"], h, ck, cv, mesh=mesh)
+    return sharding.smap(torch.add, h,
+                         _psum_rows(c, blk["cross_attn"]["wo"]), mesh=mesh)
 
 
 def _mamba_decode(cfg: ModelConfig, blk: Params, caches: Params, idx,
-                  h: torch.Tensor) -> torch.Tensor:
+                  h: torch.Tensor, mesh=None) -> torch.Tensor:
     """One Mamba-2 block's decode step, its window and state at ``idx``
     of the stacked ``caches`` replaced in place; returns h plus the
     block's output."""
+    xn = _norm(cfg, blk["ln"], h, mesh)
     y, new = ssm_lib.apply_mamba_decode(
-        cfg, blk["mamba"], {k: v[idx] for k, v in caches.items()},
-        layers.apply_norm(cfg, blk["ln"], h))
+        cfg, blk["mamba"], {k: v[idx] for k, v in caches.items()}, xn,
+        mesh=mesh)
     for k, v in new.items():
-        caches[k][idx] = v
-    return h + y
+        kv_quant.put(caches[k], idx, v)
+    return sharding.smap(torch.add, h, y, mesh=mesh)
 
 
 def _mamba_prefill(cfg: ModelConfig, blk: Params, caches: Params, idx,
-                   h: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+                   h: torch.Tensor, use_kernel: bool,
+                   mesh=None) -> torch.Tensor:
     """One Mamba-2 block over the prompt (the SSD kernel's route with
     ``use_kernel``), its final state and conv window written at ``idx``
     of the stacked ``caches``; returns h plus the block's output."""
-    y, st = ssm_lib.apply_mamba_block(cfg, blk["mamba"],
-                                      layers.apply_norm(cfg, blk["ln"], h),
-                                      use_kernel=use_kernel)
+    xn = _norm(cfg, blk["ln"], h, mesh)
+    y, st = ssm_lib.apply_mamba_block(cfg, blk["mamba"], xn,
+                                      use_kernel=use_kernel, mesh=mesh)
     for k, v in st.items():
-        caches[k][idx] = v
-    return h + y
+        kv_quant.put(caches[k], idx, v)
+    return sharding.smap(torch.add, h, y, mesh=mesh)
 
 
 def encode_audio(cfg: ModelConfig, params: Params, frames: torch.Tensor,
-                 remat: bool = False, use_kernel: bool = False
+                 remat: bool = False, use_kernel: bool = False, mesh=None
                  ) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings (B, F, d) -> (B, F,
     d): sinusoidal positions, bidirectional rope-free attention, the
     ``enc_norm``.  The frames are taken in the parameters' dtype: the
     reference's layer scan needs them there (bf16 frames with fp32
     parameters change its carry's type and do not trace).  ``remat`` and
-    ``use_kernel`` as in ``backbone``."""
-    h = frames.to(params["embed"].dtype) + layers.sinusoidal_positions(
-        frames.shape[1], cfg.d_model, frames.device)[None]
+    ``use_kernel`` as in ``backbone``.  ``mesh``: frames and parameters
+    placed (serving), each shard attending with its own heads, the
+    ``wo`` and MLP partials summed; the output equal on every shard."""
+    dt = params["embed"].dtype
+    h = sharding.smap(lambda f: f.to(dt) + layers.sinusoidal_positions(
+        f.shape[1], cfg.d_model, f.device)[None], frames, mesh=mesh)
+    lcfg = sharding.shard_cfg(cfg, mesh)
 
     def body(x, blk):
-        x = x + layers.attention(
-            cfg, blk["attn"], layers.apply_norm(cfg, blk["ln_attn"], x),
-            None, causal=False, use_rope=False, use_kernel=use_kernel)
-        return x + layers.apply_mlp(
-            cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], x))
+        a = sharding.smap(
+            lambda n, p_, x_: layers.attention(
+                lcfg, p_, layers.apply_norm(cfg, n, x_), None, causal=False,
+                use_rope=False, use_kernel=use_kernel),
+            blk["ln_attn"], blk["attn"], x, mesh=mesh)
+        x = sharding.smap(torch.add, x, _psum_rows(a, blk["attn"]["wo"]),
+                          mesh=mesh)
+        return _ffn(cfg, blk, x, mesh=mesh)
 
     h = _run_blocks(body, h, params["enc_blocks"], remat)
-    return layers.apply_norm(cfg, params["enc_norm"], h)
+    return _norm(cfg, params["enc_norm"], h, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -988,15 +1050,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     encoder_out = None
     prefix = 0
     if cfg.family == "vlm":
-        w = gather_data(params["patch_proj"])
-        patches = sharding.all_gather(sharding.smap(
-            lambda pe, w_, x: _project_patches({"patch_proj": w_}, pe,
-                                               x.dtype),
-            batch["patch_embeds"], w, h, mesh=mesh,
-            dim=None if sharding.cut_dim(w) is None else 2))
-        h = sharding.smap(lambda a_, b_: torch.cat([a_, b_], dim=1),
-                          patches, h, mesh=mesh)
-        prefix = patches.shape[1]
+        h = _prepend_patches(gather_data(params["patch_proj"]),
+                             batch["patch_embeds"], h, mesh)
+        prefix = batch["patch_embeds"].shape[1]
     elif cfg.family == "audio":
         encoder_out = encode_audio(cfg, params, batch["frames"], remat,
                                    use_kernel)
@@ -1094,7 +1150,7 @@ def _gather_layer(cfg: ModelConfig, blk: Params, mesh, heads_cut: bool,
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            max_len: int) -> Tuple[torch.Tensor, Params]:
+            max_len: int, mesh=None) -> Tuple[torch.Tensor, Params]:
     """The wave path's prompt pass: ``batch["tokens"]`` (B, S) int, all
     rows the same length, through every layer at once — behind the
     projected ``batch["patch_embeds"]`` (B, num_patches, d) for the vlm
@@ -1105,63 +1161,91 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     leaves its final state and conv window.  An ssm or hybrid prompt
     longer than ``ssm.chunk_size`` must be a multiple of it
     (``ssm.ssd_chunked``).  Returns (last-position logits (B, vocab),
-    cache)."""
+    cache).
+
+    With a ``mesh`` (``params`` placed by ``sharding.place_serve``) the
+    same layer loop runs tensor-parallel into ``init_cache(mesh=)``'s
+    placed caches: the embedding as ``_embed`` says; q/k/v
+    column-parallel with each shard's own heads, ``wo`` and the MLP
+    row-parallel, then ``psum`` (the MoE as ``moe.apply_moe(mesh=)``,
+    every row routing); each Mamba-2 block on the shard's heads
+    (``ssm.apply_mamba_block(mesh=)``, the SSD kernel once a shard);
+    whisper's encoder likewise, its cross K/V cut on their heads.  The
+    batch and the logits live on shard 0's device."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     fam = cfg.family
     dev = tokens.device
-    h = params["embed"][tokens.long()]
+    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    h = _embed(params["embed"], bc(tokens), mesh)
     if fam == "vlm":
-        h = torch.cat([_project_patches(params, batch["patch_embeds"],
-                                        h.dtype), h], dim=1)
-    positions = torch.arange(h.shape[1], device=dev)
-    cache = init_cache(cfg, B, max_len, device=dev, conv_dtype=h.dtype)
+        h = _prepend_patches(params["patch_proj"],
+                             bc(batch["patch_embeds"]), h, mesh)
+    positions = bc(torch.arange(h.shape[1], device=dev))
+    cache = init_cache(cfg, B, max_len, device=dev, conv_dtype=h.dtype,
+                       mesh=mesh)
     ssd_kernel = resolve_kernel(cfg.attn_kernel, dev) \
         if fam in ("ssm", "hybrid") else False
+
+    def store(name, index, x):
+        kv_quant.put(cache[name], index, x)
+
     if fam == "ssm":
         for layer in range(cfg.num_layers):
             h = _mamba_prefill(cfg, layer_params(params, layer), cache,
-                               (layer,), h, ssd_kernel)
-        return unembed(cfg, params, h[:, -1]), cache
-    if fam == "hybrid":
+                               (layer,), h, ssd_kernel, mesh)
+    elif fam == "hybrid":
         groups, per, tail = hybrid_layout(cfg)
         for g in range(groups):
             for i in range(per):
                 h = _mamba_prefill(cfg, layer_params(params, i, "groups", g),
-                                   cache["groups"], (g, i), h, ssd_kernel)
+                                   cache["groups"], (g, i), h, ssd_kernel,
+                                   mesh)
             h, k, v = _attn_block_body(cfg, params["shared_attn"], h,
-                                       positions)
-            kv_quant.put(cache["attn_k"], (g, slice(None), slice(S)), k)
-            kv_quant.put(cache["attn_v"], (g, slice(None), slice(S)), v)
+                                       positions, mesh)
+            store("attn_k", (g, slice(None), slice(S)), k)
+            store("attn_v", (g, slice(None), slice(S)), v)
         for i in range(tail):
             h = _mamba_prefill(cfg, layer_params(params, i, "tail"),
-                               cache["tail"], (i,), h, ssd_kernel)
-        return unembed(cfg, params, h[:, -1]), cache
-    if fam == "audio":
-        enc = encode_audio(cfg, params, batch["frames"])
-        h = h + layers.sinusoidal_positions(S, cfg.d_model, dev)[None]
-        hk, hd = cfg.num_kv_heads, cfg.head_dim
+                               cache["tail"], (i,), h, ssd_kernel, mesh)
+    elif fam == "audio":
+        enc = encode_audio(cfg, params, bc(batch["frames"]), mesh=mesh)
+        h = sharding.smap(lambda x: x + layers.sinusoidal_positions(
+            S, cfg.d_model, x.device)[None], h, mesh=mesh)
+        lcfg = sharding.shard_cfg(cfg, mesh)
+        heads = _head_dim(cfg, mesh)
+
+        def qkv(n, p_, x):
+            xn = layers.apply_norm(cfg, n, x)
+            return layers._project_qkv(lcfg, p_, xn, xn)
+
         for layer in range(cfg.num_layers):
             blk = layer_params(params, layer, "dec_blocks")
-            xn = layers.apply_norm(cfg, blk["ln_self"], h)
-            q, k, v = layers._project_qkv(cfg, blk["self_attn"], xn, xn)
-            h = h + layers.self_attend(cfg, q, k, v) @ blk["self_attn"]["wo"]
-            ck = (enc @ blk["cross_attn"]["wk"]).reshape(B, -1, hk, hd)
-            cv = (enc @ blk["cross_attn"]["wv"]).reshape(B, -1, hk, hd)
-            h = h + layers.cross_attention(
-                cfg, blk["cross_attn"],
-                layers.apply_norm(cfg, blk["ln_cross"], h), ck, cv)
-            h = h + layers.apply_mlp(
-                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], h))
-            for name, x in (("k", k), ("v", v)):
-                kv_quant.put(cache[name], (layer, slice(None), slice(S)), x)
-            kv_quant.put(cache["cross_k"], layer, ck)
-            kv_quant.put(cache["cross_v"], layer, cv)
-        return unembed(cfg, params, h[:, -1]), cache
-    S = h.shape[1]
-    for layer in range(cfg.num_layers):
-        h, k, v = _attn_block_body(cfg, layer_params(params, layer), h,
-                                   positions)
-        kv_quant.put(cache["k"], (layer, slice(None), slice(S)), k)
-        kv_quant.put(cache["v"], (layer, slice(None), slice(S)), v)
-    return unembed(cfg, params, h[:, -1]), cache
+            q, k, v = sharding.smap(qkv, blk["ln_self"], blk["self_attn"], h,
+                                    mesh=mesh, dim=heads)
+            a = sharding.smap(
+                lambda q_, k_, v_, wo: layers.self_attend(lcfg, q_, k_, v_)
+                @ wo, q, k, v, blk["self_attn"]["wo"], mesh=mesh)
+            h = sharding.smap(torch.add, h,
+                              _psum_rows(a, blk["self_attn"]["wo"]),
+                              mesh=mesh)
+            ck, cv = sharding.smap(
+                lambda e, p_: tuple((e @ p_[w]).reshape(
+                    B, -1, lcfg.num_kv_heads, cfg.head_dim)
+                    for w in ("wk", "wv")),
+                enc, blk["cross_attn"], mesh=mesh, dim=heads)
+            h = _ffn(cfg, blk, _cross_attend(cfg, blk, h, ck, cv, mesh),
+                     mesh=mesh)
+            store("k", (layer, slice(None), slice(S)), k)
+            store("v", (layer, slice(None), slice(S)), v)
+            store("cross_k", layer, ck)
+            store("cross_v", layer, cv)
+    else:
+        S = h.shape[1]
+        for layer in range(cfg.num_layers):
+            h, k, v = _attn_block_body(cfg, layer_params(params, layer), h,
+                                       positions, mesh)
+            store("k", (layer, slice(None), slice(S)), k)
+            store("v", (layer, slice(None), slice(S)), v)
+    return unembed(cfg, params, sharding.smap(lambda x: x[:, -1], h,
+                                              mesh=mesh), mesh), cache

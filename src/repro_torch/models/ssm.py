@@ -18,6 +18,17 @@ Both need S <= chunk or S % chunk == 0, as the reference asserts: the
 wave path groups prompts by exact length, so padding would change the
 state.  The decode update, the causal conv and the gated norm are plain
 PyTorch on either route (the reference has no kernel there).
+
+Over a ``model`` mesh axis (``mesh=``; the leaves placed by
+``sharding.mamba_spec``) each shard runs its own heads — projection onto
+its [z | x B C | dt] columns, causal conv, scan (the kernel once a
+shard, on its b x H/m folded rows) or one-step update, and D skip — as
+the reference's "heads are sharded over the model mesh axis".  The
+gated RMSNorm normalises over the whole d_inner, so its sum of squares
+is a ``psum`` of the shards' (``_sum_squares``), and ``out_proj``'s
+row-parallel partials are ``psum``med.  The collectives are the
+autograd-aware ones.  Where the heads do not divide the axis the block
+is whole on every shard and nothing is summed.
 """
 from __future__ import annotations
 
@@ -30,15 +41,18 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm_gated
+from repro_torch.parallel import sharding
 
 Params = Dict[str, torch.Tensor]
 
 
-def dims(cfg: ModelConfig):
-    """(d_inner, heads H, groups G, state N, head dim P, conv channels)."""
+def dims(cfg: ModelConfig, ways: int = 1):
+    """(d_inner, heads H, groups G, state N, head dim P, conv channels),
+    of one of ``ways`` shards cutting the heads
+    (``sharding.mamba_shard_size``): d_inner and H divided."""
     s = cfg.ssm
-    d_inner = s.d_inner(cfg.d_model)
-    H = s.nheads(cfg.d_model)
+    d_inner = s.d_inner(cfg.d_model) // ways
+    H = s.nheads(cfg.d_model) // ways
     G, N, P = s.ngroups, s.state_size, s.head_dim
     return d_inner, H, G, N, P, d_inner + 2 * G * N
 
@@ -192,47 +206,110 @@ def ssd_via_kernel(x, dt, A, B, C, chunk: int):
             state.reshape(b, H, P, N))
 
 
-def _split(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    d_inner, H, _, _, _, conv_dim = dims(cfg)
+def _split(dm, zxbcdt: torch.Tensor):
+    """(z, xBC, dt_raw) of the packed projection, ``dm`` = ``dims``."""
+    d_inner, H, _, _, _, conv_dim = dm
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:d_inner + conv_dim],
             zxbcdt[..., -H:])
 
 
+def _ways(p: Params, mesh) -> int:
+    """The shards the block's heads are cut over: the ``model`` axis size
+    where ``in_proj`` is placed cut, else 1."""
+    if sharding.cut_dim(p["in_proj"]) is None:
+        return 1
+    return sharding.axes_size(mesh, sharding.TP_AXIS)
+
+
+def _sum_squares(g, mesh):
+    """The gated norm's fp32 sum of squares over the whole d_inner: each
+    shard's over its columns, summed over the shards (``psum``)."""
+    return sharding.psum(sharding.smap(
+        lambda t: t.square().sum(-1, keepdim=True), g, mesh=mesh))
+
+
+def _gated_norm(cfg: ModelConfig, scale, y, z, ways: int, mesh):
+    """``rmsnorm_gated`` of y by z; over ``ways`` > 1 shards holding
+    d_inner / ways columns each, with ``_sum_squares`` for the mean over
+    all d_inner columns."""
+    if ways == 1:
+        return sharding.smap(rmsnorm_gated, scale, y, z, mesh=mesh)
+    g = sharding.smap(
+        lambda y_, z_: (y_ * F.silu(z_.float()).to(y_.dtype)).float(),
+        y, z, mesh=mesh)
+    ss = _sum_squares(g, mesh)
+    n = dims(cfg)[0]
+    return sharding.smap(
+        lambda g_, s_, sc, y_: (g_ * torch.rsqrt(s_ / n + 1e-6)
+                                * sc.float()).to(y_.dtype),
+        g, ss, scale, y, mesh=mesh)
+
+
+def _out(cfg: ModelConfig, p: Params, y, z, ways: int, mesh):
+    """Gated norm, then ``out_proj`` (row-parallel over the shards: a
+    ``psum`` of their partials)."""
+    y = sharding.smap(lambda y_, w: y_ @ w,
+                      _gated_norm(cfg, p["norm_scale"], y, z, ways, mesh),
+                      p["out_proj"], mesh=mesh)
+    return sharding.psum(y) if ways > 1 else y
+
+
+def _labelled(cfg: ModelConfig, state, conv, ways: int, mesh):
+    """The per-shard cache results placed as ``sharding.wave_cache_specs``
+    places the caches: the state cut on its heads, the conv window by
+    components."""
+    if ways == 1:
+        return {"state": state, "conv": conv}
+    nd = len(conv.parts[0].shape)
+    return {"state": sharding.Sharded(state.parts, 1, mesh),
+            "conv": sharding.Sharded(
+                conv.parts, nd - 1, mesh,
+                comps=sharding.mamba_components(cfg, "conv"))}
+
+
 def apply_mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      initial_state=None, *, use_kernel: bool = False):
+                      initial_state=None, *, use_kernel: bool = False,
+                      mesh=None):
     """x: (B, S, d) -> (out (B, S, d), {"state": final SSM state (B, H,
     P, N) fp32, "conv": the last k - 1 raw conv inputs (B, k - 1, conv
     channels) in x's dtype}).  The scan takes the kernel route with
     ``use_kernel``, else the plain one (module docstring); the kernel
     starts from a zero state, so ``initial_state`` on that route
-    raises."""
-    d_inner, H, G, N, P, conv_dim = dims(cfg)
-    B_, S_, _ = x.shape
+    raises.  ``mesh``: p, x (equal on every shard) and ``initial_state``
+    placed on it, the results too (module docstring)."""
+    ways = _ways(p, mesh)
+    dm = dims(cfg, ways)
     k = cfg.ssm.conv_kernel
-    z, xBC, dt_raw = _split(cfg, x @ p["in_proj"])
-    # The raw inputs decode's conv window starts from; zeros ahead of a
-    # prompt shorter than the window (the causal conv's own padding).
-    conv_tail = F.pad(xBC, (0, 0, max(k - 1 - S_, 0), 0))[:, -(k - 1):]
-    xBC = _causal_conv(p["conv_w"], p["conv_b"], xBC)
-    x_ssm = xBC[..., :d_inner].reshape(B_, S_, H, P)
-    B_ssm = xBC[..., d_inner:d_inner + G * N].reshape(B_, S_, G, N)
-    C_ssm = xBC[..., d_inner + G * N:].reshape(B_, S_, G, N)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
 
-    if use_kernel:
-        if initial_state is not None:
-            raise ValueError("the SSD kernel scans from a zero state: "
-                             "initial_state needs attn_kernel='off'")
-        y, state = ssd_via_kernel(x_ssm, dt, A, B_ssm, C_ssm,
-                                  cfg.ssm.chunk_size)
-    else:
-        y, state = ssd_chunked(x_ssm, dt, A, B_ssm, C_ssm,
-                               cfg.ssm.chunk_size, initial_state)
-    y = y + x_ssm.float() * p["D"][None, None, :, None]
-    y = y.reshape(B_, S_, d_inner).to(x.dtype)
-    y = rmsnorm_gated(p["norm_scale"], y, z)
-    return y @ p["out_proj"], {"state": state, "conv": conv_tail}
+    def heads(p_, x_, s0):
+        d_inner, H, G, N, P, _ = dm
+        B_, S_, _ = x_.shape
+        z, xBC, dt_raw = _split(dm, x_ @ p_["in_proj"])
+        # The raw inputs decode's conv window starts from; zeros ahead of
+        # a prompt shorter than the window (the causal conv's own padding).
+        conv_tail = F.pad(xBC, (0, 0, max(k - 1 - S_, 0), 0))[:, -(k - 1):]
+        xBC = _causal_conv(p_["conv_w"], p_["conv_b"], xBC)
+        x_ssm = xBC[..., :d_inner].reshape(B_, S_, H, P)
+        B_ssm = xBC[..., d_inner:d_inner + G * N].reshape(B_, S_, G, N)
+        C_ssm = xBC[..., d_inner + G * N:].reshape(B_, S_, G, N)
+        dt = F.softplus(dt_raw.float() + p_["dt_bias"])
+        A = -torch.exp(p_["A_log"])
+        if use_kernel:
+            if s0 is not None:
+                raise ValueError("the SSD kernel scans from a zero state: "
+                                 "initial_state needs attn_kernel='off'")
+            y, state = ssd_via_kernel(x_ssm, dt, A, B_ssm, C_ssm,
+                                      cfg.ssm.chunk_size)
+        else:
+            y, state = ssd_chunked(x_ssm, dt, A, B_ssm, C_ssm,
+                                   cfg.ssm.chunk_size, s0)
+        y = y + x_ssm.float() * p_["D"][None, None, :, None]
+        return (y.reshape(B_, S_, d_inner).to(x_.dtype), z, state,
+                conv_tail)
+
+    y, z, state, conv = sharding.smap(heads, p, x, initial_state, mesh=mesh)
+    return (_out(cfg, p, y, z, ways, mesh),
+            _labelled(cfg, state, conv, ways, mesh))
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device=None,
@@ -247,35 +324,45 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device=None,
                                  device=device)}
 
 
-def apply_mamba_decode(cfg: ModelConfig, p: Params, cache, x: torch.Tensor):
+def apply_mamba_decode(cfg: ModelConfig, p: Params, cache, x: torch.Tensor,
+                       mesh=None):
     """One token: x (B, 1, d) -> (out (B, 1, d), the new cache): the conv
     window rolls by one, the state takes one O(1) update.  The new cache's
     ``conv`` is in the promoted type of the old window and x (as the
-    reference's concatenation gives it)."""
-    d_inner, H, G, N, P, conv_dim = dims(cfg)
-    B_ = x.shape[0]
-    z, xBC, dt_raw = _split(cfg, x[:, 0] @ p["in_proj"])
+    reference's concatenation gives it).  ``mesh``: as
+    ``apply_mamba_block``'s, each shard updating its own heads' state and
+    window."""
+    ways = _ways(p, mesh)
+    dm = dims(cfg, ways)
 
-    conv = cache["conv"]
-    wt = torch.promote_types(conv.dtype, xBC.dtype)
-    win = torch.cat([conv.to(wt), xBC[:, None, :].to(wt)], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", win.float(), p["conv_w"].float())
-    xBC = F.silu(conv_out + p["conv_b"].float()).to(x.dtype)
+    def heads(p_, conv, s0, x_):
+        d_inner, H, G, N, P, _ = dm
+        B_ = x_.shape[0]
+        z, xBC, dt_raw = _split(dm, x_[:, 0] @ p_["in_proj"])
+        wt = torch.promote_types(conv.dtype, xBC.dtype)
+        win = torch.cat([conv.to(wt), xBC[:, None, :].to(wt)], dim=1)
+        conv_out = torch.einsum("bkc,kc->bc", win.float(),
+                                p_["conv_w"].float())
+        xBC = F.silu(conv_out + p_["conv_b"].float()).to(x_.dtype)
 
-    x_ssm = xBC[..., :d_inner].reshape(B_, H, P)
-    B_ssm = xBC[..., d_inner:d_inner + G * N].reshape(B_, G, N)
-    C_ssm = xBC[..., d_inner + G * N:].reshape(B_, G, N)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, H)
-    dA = torch.exp(dt * -torch.exp(p["A_log"]))
+        x_ssm = xBC[..., :d_inner].reshape(B_, H, P)
+        B_ssm = xBC[..., d_inner:d_inner + G * N].reshape(B_, G, N)
+        C_ssm = xBC[..., d_inner + G * N:].reshape(B_, G, N)
+        dt = F.softplus(dt_raw.float() + p_["dt_bias"])  # (B, H)
+        dA = torch.exp(dt * -torch.exp(p_["A_log"]))
 
-    Hg = H // G
-    xdt = x_ssm.float() * dt[..., None]
-    inc = torch.einsum("bgn,bghp->bghpn", B_ssm.float(),
-                       xdt.reshape(B_, G, Hg, P)).reshape(B_, H, P, N)
-    state = cache["state"] * dA[..., None, None] + inc
-    y = torch.einsum("bgn,bghpn->bghp", C_ssm.float(),
-                     state.reshape(B_, G, Hg, P, N)).reshape(B_, H, P)
-    y = y + x_ssm.float() * p["D"][None, :, None]
-    y = y.reshape(B_, 1, d_inner).to(x.dtype)
-    y = rmsnorm_gated(p["norm_scale"], y, z[:, None, :])
-    return y @ p["out_proj"], {"conv": win[:, 1:], "state": state}
+        Hg = H // G
+        xdt = x_ssm.float() * dt[..., None]
+        inc = torch.einsum("bgn,bghp->bghpn", B_ssm.float(),
+                           xdt.reshape(B_, G, Hg, P)).reshape(B_, H, P, N)
+        state = s0 * dA[..., None, None] + inc
+        y = torch.einsum("bgn,bghpn->bghp", C_ssm.float(),
+                         state.reshape(B_, G, Hg, P, N)).reshape(B_, H, P)
+        y = y + x_ssm.float() * p_["D"][None, :, None]
+        return (y.reshape(B_, 1, d_inner).to(x_.dtype), z[:, None, :],
+                state, win[:, 1:])
+
+    y, z, state, conv = sharding.smap(heads, p, cache["conv"],
+                                      cache["state"], x, mesh=mesh)
+    return (_out(cfg, p, y, z, ways, mesh),
+            _labelled(cfg, state, conv, ways, mesh))

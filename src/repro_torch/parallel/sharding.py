@@ -33,11 +33,15 @@ device several times).
   * ``Sharded`` holds one contiguous tensor per place: the whole tensor
     cut along at most one dim over ``model`` and one dim over other axes
     (the data axes: FSDP storage, expert parallelism, the batch; or a
-    pipeline's ``stage``), whole over the rest;
+    pipeline's ``stage``), whole over the rest; the ``model`` cut either
+    contiguous or by components (``Components``: a Mamba-2 leaf's packed
+    columns, each component cut on its own or held whole);
   * ``shard`` / ``place_like`` / ``gather`` / ``to_whole`` cut a tensor
     by its spec and put it back; ``place_serve`` cuts a parameter tree by
     ``param_specs(mode="serve")`` (sanitized, attention whole where the
-    KV heads do not divide the axis), ``place_train`` by
+    KV heads do not divide the axis, the Mamba-2 leaves by
+    ``mamba_spec``), ``wave_cache_specs`` places the wave path's caches,
+    ``place_train`` by
     ``param_specs(mode="train")`` (sanitized), ``place_batch`` a batch
     over the data axes;
   * ``smap`` runs a function on each place's parts;
@@ -92,6 +96,29 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
+
+
+#: A dim's consecutive components: (length, cut over ``model``) each.
+Comps = Tuple[Tuple[int, bool], ...]
+
+
+class Components(P):
+    """The port's own spec for a dim of packed components (a Mamba-2
+    leaf's [z | x B C | dt] columns), which a contiguous cut would split
+    off head boundaries: ``ndim`` dims, ``dim`` over ``model``, cut
+    component by component (``comps``) — shard j holds piece j of every
+    cut component and the whole of every other, concatenated in order.
+    Equal, as a tuple, to the plain spec that names ``model`` at
+    ``dim``."""
+
+    def __new__(cls, ndim: int, dim: int, comps: Comps):
+        self = super().__new__(cls, *(TP_AXIS if i == dim else None
+                                      for i in range(ndim)))
+        self.comps = tuple(comps)
+        return self
+
+    def __repr__(self) -> str:
+        return f"Components({tuple.__repr__(self)}, {self.comps})"
 
 
 # ---------------------------------------------------------------------------
@@ -454,16 +481,21 @@ class Sharded:
     axes ``rows[0]`` (the data axes — FSDP storage, expert parallelism,
     the batch — or a pipeline's stage axis), whole over every other
     axis.  Places holding the same piece on one device share one object.
-    On a (data=1, model=m) mesh it is one part per model shard."""
+    On a (data=1, model=m) mesh it is one part per model shard.
+    ``comps``: the ``model`` cut is by components (``Components``), not
+    contiguous; serving leaves only (never cut over other axes)."""
     parts: Tuple[torch.Tensor, ...]
     dim: Optional[int]
     mesh: Any
     rows: Optional[Tuple[Tuple[str, ...], int]] = None
+    comps: Optional[Comps] = None
 
     @property
     def shape(self) -> Tuple[int, ...]:
         s = list(self.parts[0].shape)
-        if self.dim is not None:
+        if self.comps is not None:
+            s[self.dim] = sum(n for n, _ in self.comps)
+        elif self.dim is not None:
             s[self.dim] *= axes_size(self.mesh, TP_AXIS)
         if self.rows is not None:
             s[self.rows[1]] *= axes_size(self.mesh, self.rows[0])
@@ -480,22 +512,27 @@ class Sharded:
 
     def with_parts(self, parts) -> "Sharded":
         """The same placement holding ``parts``."""
-        return Sharded(tuple(parts), self.dim, self.mesh, self.rows)
+        return Sharded(tuple(parts), self.dim, self.mesh, self.rows,
+                       self.comps)
 
     def _shifted(self, parts, dims: int) -> "Sharded":
         shift = (lambda d: None if d is None else d - dims)
         return Sharded(tuple(parts), shift(self.dim), self.mesh,
                        None if self.rows is None
-                       else (self.rows[0], shift(self.rows[1])))
+                       else (self.rows[0], shift(self.rows[1])),
+                       self.comps)
 
-    def __getitem__(self, i: int) -> "Sharded":
-        """Index the leading dim (a layer of stacked leaves) of every
-        part; it must not be a cut dim."""
-        if not isinstance(i, int) or 0 in (self.dim, self.rows
-                                           and self.rows[1]):
-            raise IndexError("a Sharded takes one int index on an uncut "
-                             "leading dim")
-        return self._shifted([p[i] for p in self.parts], 1)
+    def __getitem__(self, i) -> "Sharded":
+        """Index the leading dims (a layer of stacked leaves; a tuple of
+        ints indexes several) of every part; they must not be cut."""
+        idx = i if isinstance(i, tuple) else (i,)
+        cut = [d for d in (self.dim, self.rows and self.rows[1])
+               if d is not None]
+        if not idx or not all(isinstance(k, int) for k in idx) \
+                or any(d < len(idx) for d in cut):
+            raise IndexError("a Sharded takes int indices on uncut leading "
+                             "dims")
+        return self._shifted([p[idx] for p in self.parts], len(idx))
 
     def unbind(self) -> List["Sharded"]:
         """``__getitem__`` of every index of the leading dim, one
@@ -561,8 +598,28 @@ def _cuts(spec: Sequence, mesh):
     return dim, rows
 
 
-def _pieces(mesh, dim, rows, shape) -> Tuple[List[Tuple[int, int]],
-                                             Tuple[int, ...]]:
+def _spec_cuts(spec: Sequence, mesh):
+    """``_cuts`` of ``spec`` and its components (None unless a
+    ``Components`` spec cuts over ``model`` here)."""
+    dim, rows = _cuts(spec, mesh)
+    comps = getattr(spec, "comps", None) if dim is not None else None
+    if comps is not None and rows is not None:
+        raise NotImplementedError(f"spec {spec}: a component cut over "
+                                  f"model alone")
+    return dim, rows, comps
+
+
+def _local_lengths(comps: Comps, m: int) -> List[int]:
+    """Each component's length in one of m shards' parts."""
+    for n, cut in comps:
+        if cut and n % m:
+            raise ValueError(f"component of {n} does not divide into {m} "
+                             f"pieces")
+    return [n // m if cut else n for n, cut in comps]
+
+
+def _pieces(mesh, dim, rows, shape, comps=None
+            ) -> Tuple[List[Tuple[int, int]], Tuple[int, ...]]:
     """Each place's (model piece, row piece) and the local shape."""
     n = mesh.devices.size
     local = list(shape)
@@ -570,6 +627,12 @@ def _pieces(mesh, dim, rows, shape) -> Tuple[List[Tuple[int, int]],
         if d is None:
             continue
         k = axes_size(mesh, axes)
+        if d == dim and comps is not None:
+            if sum(c for c, _ in comps) != local[d]:
+                raise ValueError(f"components {comps} of dim {d} of "
+                                 f"{tuple(shape)}")
+            local[d] = sum(_local_lengths(comps, k))
+            continue
         if local[d] % k:
             raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
                              f"into {k} pieces")
@@ -579,35 +642,51 @@ def _pieces(mesh, dim, rows, shape) -> Tuple[List[Tuple[int, int]],
     return list(zip(mi, ri)), tuple(local)
 
 
-def _place(x: torch.Tensor, dim, rows, mesh) -> Sharded:
-    pieces, local = _pieces(mesh, dim, rows, x.shape)
+def _component_piece(x: torch.Tensor, dim: int, j: int, m: int,
+                     comps: Comps) -> torch.Tensor:
+    """Model shard j's part of ``x`` cut by ``comps`` along ``dim``: piece
+    j of each cut component, the whole of each other, in order."""
+    out, at = [], 0
+    for (n, cut), k in zip(comps, _local_lengths(comps, m)):
+        out.append(x.narrow(dim, at + (j * k if cut else 0), k))
+        at += n
+    return _cat(out, dim)
+
+
+def _place(x: torch.Tensor, dim, rows, mesh, comps=None) -> Sharded:
+    pieces, local = _pieces(mesh, dim, rows, x.shape, comps)
+    m = axes_size(mesh, TP_AXIS)
     made: Dict[tuple, torch.Tensor] = {}
     parts = []
     for (j, r), dev in zip(pieces, grid_devices(mesh)):
         key = (j, r, dev)
         if key not in made:
             p = x
-            if dim is not None:
+            if comps is not None:
+                p = _component_piece(p, dim, j, m, comps)
+            elif dim is not None:
                 p = p.narrow(dim, j * local[dim], local[dim])
             if rows is not None:
                 p = p.narrow(rows[1], r * local[rows[1]], local[rows[1]])
             made[key] = p.to(dev).contiguous() if p is not x else p.to(dev)
         parts.append(made[key])
-    return Sharded(tuple(parts), dim, mesh, rows)
+    return Sharded(tuple(parts), dim, mesh, rows, comps)
 
 
 def shard(x: torch.Tensor, spec: Sequence, mesh) -> Sharded:
     """Place ``x`` by ``spec``: cut into contiguous equal pieces along the
-    dim ``spec`` cuts over ``model`` and the dim it cuts over other axes,
-    whole elsewhere.  Placement, not a collective: nothing is counted."""
+    dim ``spec`` cuts over ``model`` (component by component for a
+    ``Components`` spec) and the dim it cuts over other axes, whole
+    elsewhere.  Placement, not a collective: nothing is counted."""
     if isinstance(x, Sharded):
         return x
-    return _place(x, *_cuts(spec, mesh), mesh)
+    dim, rows, comps = _spec_cuts(spec, mesh)
+    return _place(x, dim, rows, mesh, comps)
 
 
 def place_like(x: torch.Tensor, like: Sharded) -> Sharded:
     """``x`` placed as ``like`` is (its mesh and cuts)."""
-    return _place(x, like.dim, like.rows, like.mesh)
+    return _place(x, like.dim, like.rows, like.mesh, like.comps)
 
 
 def place_new(shape: Sequence[int], spec: Sequence, mesh,
@@ -616,15 +695,15 @@ def place_new(shape: Sequence[int], spec: Sequence, mesh,
     """A new sharded tensor of global ``shape`` laid out by ``spec``, each
     part made by ``make(local_shape, device)`` (no global tensor is
     built)."""
-    dim, rows = _cuts(spec, mesh)
-    pieces, local = _pieces(mesh, dim, rows, shape)
+    dim, rows, comps = _spec_cuts(spec, mesh)
+    pieces, local = _pieces(mesh, dim, rows, shape, comps)
     made: Dict[tuple, torch.Tensor] = {}
     parts = []
     for (j, r), dev in zip(pieces, grid_devices(mesh)):
         if (j, r, dev) not in made:
             made[j, r, dev] = make(local, dev)
         parts.append(made[j, r, dev])
-    return Sharded(tuple(parts), dim, mesh, rows)
+    return Sharded(tuple(parts), dim, mesh, rows, comps)
 
 
 def cut_dim(x) -> Optional[int]:
@@ -635,9 +714,16 @@ def cut_dim(x) -> Optional[int]:
 
 def gather(s: Sharded) -> torch.Tensor:
     """The whole tensor on place 0's device (``all_gather``s over the
-    axes it is cut along)."""
+    axes it is cut along; of a component cut, the cut components' bytes
+    as an all_gather moves them, assembled as ``to_whole`` does)."""
     if not isinstance(s, Sharded):
         return s
+    if s.comps is not None:
+        m = axes_size(s.mesh, TP_AXIS)
+        row = _nbytes(s.parts[0]) // s.parts[0].shape[s.dim]
+        _count(s.mesh, "all_gather", (m - 1) * row * sum(
+            n for n, cut in s.comps if cut))
+        return to_whole(s)
     if s.rows is not None:
         s = all_gather(s, axis=s.rows[0])
     if s.dim is not None:
@@ -660,11 +746,18 @@ def to_whole(s) -> torch.Tensor:
     as a checkpoint takes it."""
     if not isinstance(s, Sharded):
         return s
-    pieces, _ = _pieces(s.mesh, s.dim, s.rows, s.shape)
+    pieces, _ = _pieces(s.mesh, s.dim, s.rows, s.shape, s.comps)
     dev0 = s.parts[0].device
     held = {pc: s.parts[k].detach() for k, pc in reversed(
         list(enumerate(pieces)))}
     m = axes_size(s.mesh, TP_AXIS) if s.dim is not None else 1
+    if s.comps is not None:
+        split = [torch.split(held[j, 0].to(dev0),
+                             _local_lengths(s.comps, m), s.dim)
+                 for j in range(m)]
+        return _cat([_cat([sp[c] for sp in split], s.dim) if cut
+                     else split[0][c]
+                     for c, (_, cut) in enumerate(s.comps)], s.dim)
     r = axes_size(s.mesh, s.rows[0]) if s.rows else 1
     by_row = [_cat([held[j, i].to(dev0) for j in range(m)], s.dim)
               if m > 1 else held[0, i].to(dev0) for i in range(r)]
@@ -884,6 +977,9 @@ def all_gather(s: Sharded, dim: Optional[int] = None,
     passes through."""
     if not isinstance(s, Sharded):
         return s
+    if s.comps is not None:
+        raise NotImplementedError("all_gather of a component cut: read it "
+                                  "with gather")
     axes = _axes_tuple(axis)
     if dim is None:
         dim = s.dim if axes == (TP_AXIS,) else (
@@ -1026,15 +1122,104 @@ def serve_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
     """``param_specs(mode="serve")`` under ``mesh``'s axes, sanitized,
     with the attention leaves whole where ``attn_shard_size`` is 1: a
     shard computes whole heads, so the q/k/v columns cannot be cut
-    mid-head as GSPMD may cut them."""
+    mid-head as GSPMD may cut them.  The Mamba-2 leaves take
+    ``mamba_spec`` (head-aligned, by component), not the rule's
+    contiguous cut."""
     with use_axes(mesh):
         specs = sanitize_specs(param_specs(cfg, params_shape, mode="serve"),
                                params_shape)
-    if attn_shard_size(mesh, cfg.num_kv_heads) > 1:
-        return specs
-    return _map_with_path(
-        lambda path, spec: P(*([None] * len(spec)))
-        if path.rsplit("/", 1)[-1] in ATTN_LEAVES else spec, specs)
+    attn_whole = attn_shard_size(mesh, cfg.num_kv_heads) == 1
+
+    def fix(path, spec, leaf):
+        keys = path.split("/")
+        if "mamba" in keys:
+            return mamba_spec(cfg, mesh, keys[-1], len(leaf.shape))
+        if attn_whole and keys[-1] in ATTN_LEAVES:
+            return P(*([None] * len(spec)))
+        return spec
+
+    return _map_with_path(fix, specs, params_shape)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 leaves and the wave caches: the port's placement
+#
+# The rules above cut ``in_proj`` (d, [z | x B C | dt]) and the conv
+# leaves contiguously over ``model``, which GSPMD computes correctly
+# whatever the cut; a per-shard body cannot: at mamba2-1.3b's widths
+# shard 0 of 2 would hold all of z and 160 columns of x.  The port cuts
+# them head-aligned, by component (the Mamba-2 paper's TP recipe): z, x
+# and dt by the shard's heads, B and C (ngroups x state, one group in
+# both configs) whole on every shard.  The dense wave stripes are cut on
+# their KV heads, as the paged pool is, where the rule cuts the sequence
+# (GSPMD may; a per-shard body would need a cross-shard log-sum-exp).
+# ---------------------------------------------------------------------------
+
+def mamba_shard_size(mesh, cfg: ModelConfig) -> int:
+    """How many ways the Mamba-2 blocks are cut on their heads: the
+    ``model`` axis size when it is above 1 and divides the heads of a
+    one-group block (every shard's heads then share the whole B and C);
+    else 1 (the blocks whole on every shard)."""
+    if mesh is None or cfg.ssm is None:
+        return 1
+    m = AxisState.from_mesh(mesh).size(TP_AXIS)
+    ok = cfg.ssm.nheads(cfg.d_model) % m == 0 and cfg.ssm.ngroups == 1
+    return m if m > 1 and ok else 1
+
+
+def mamba_components(cfg: ModelConfig, leaf: str) -> Comps:
+    """The components of a Mamba-2 leaf's last dim: ``in_proj``'s [z | x
+    | B | C | dt], the conv channels' [x | B | C] (``conv_w``,
+    ``conv_b``, the ``conv`` window); z, x and dt cut by heads, B and C
+    whole."""
+    s = cfg.ssm
+    di, H = s.d_inner(cfg.d_model), s.nheads(cfg.d_model)
+    gn = s.ngroups * s.state_size
+    xbc = ((di, True), (gn, False), (gn, False))
+    return ((di, True),) + xbc + ((H, True),) if leaf == "in_proj" else xbc
+
+
+def mamba_spec(cfg: ModelConfig, mesh, leaf: str, ndim: int) -> P:
+    """A Mamba-2 leaf's serving spec (stacked leading dims whole): where
+    ``mamba_shard_size`` is 1 whole; else ``in_proj`` and the conv
+    leaves by ``mamba_components``, ``A_log`` / ``D`` / ``dt_bias`` and
+    ``norm_scale`` (contiguous over d_inner = H x P, head-major) on their
+    last dim, ``out_proj`` on its rows."""
+    m = mamba_shard_size(mesh, cfg)
+    lead = [None] * (ndim - 1)
+    if m == 1:
+        return P(*lead, None)
+    if leaf in ("in_proj", "conv_w", "conv_b"):
+        return Components(ndim, ndim - 1, mamba_components(cfg, leaf))
+    if leaf == "out_proj":
+        return P(*lead[:-1], TP_AXIS, None)
+    return P(*lead, TP_AXIS)
+
+
+def wave_cache_specs(cfg: ModelConfig, cache_shape, mesh) -> Any:
+    """Specs of the wave path's dense caches (``model.init_cache``) over
+    ``mesh``'s ``model`` axis: the K/V stripes (..., B, S, Hk, D) cut on
+    Hk where ``attn_shard_size`` is above 1 — the paged pool's cut, not
+    ``cache_specs``' sequence cut; the Mamba-2 ``state`` (..., B, H, P,
+    N) on its heads and the ``conv`` window (..., B, k - 1, channels) by
+    ``mamba_components`` where ``mamba_shard_size`` is; whole elsewhere.
+    The batch is not cut (one data shard)."""
+    attn = attn_shard_size(mesh, cfg.num_kv_heads) > 1
+    m = mamba_shard_size(mesh, cfg)
+
+    def rule(path, leaf):
+        nd, name = len(leaf.shape), path.rsplit("/", 1)[-1]
+        cut = None
+        if name in ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v") \
+                and attn:
+            cut = nd - 2
+        elif name == "state" and m > 1:
+            cut = nd - 3
+        elif name == "conv" and m > 1:
+            return Components(nd, nd - 1, mamba_components(cfg, name))
+        return P(*(TP_AXIS if i == cut else None for i in range(nd)))
+
+    return _map_with_path(rule, cache_shape)
 
 
 def place_serve(cfg: ModelConfig, params, mesh) -> Any:

@@ -59,20 +59,22 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 ``serving.sampler``): a request's token at position p depends on (seed,
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
-``mesh=`` (a (data=1, model=m) ``launch.mesh.Mesh``) serves the
-continuous path tensor-parallel, as the reference's single controller
+``mesh=`` (a (data=1, model=m) ``launch.mesh.Mesh``) serves both paths
+tensor-parallel, every family, as the reference's single controller
 per replica: the host-side scheduler (queue, BlockStore, tables,
-admission and preemption) runs once on this process; the weights are
-cut by ``sharding.place_serve`` (``param_specs(mode="serve")``), the pool
-on its KV heads (payload and scales together), and both paged attention
-paths run once per shard at the shard's head counts.  Logits, sampled
-tokens and every scheduler input live on shard 0's device.  Each engine
-places and runs under its own ``sharding.use_axes``: nothing leaks into
-the ambient axis state.
+admission and preemption; the waves) runs once on this process; the
+weights are cut by ``sharding.place_serve`` (``param_specs(mode="serve")``;
+the Mamba-2 leaves head-aligned, by component), the pool on its KV heads
+(payload and scales together), the wave path's stripes on their KV heads
+and its Mamba-2 states and windows on their heads
+(``model.init_cache(mesh=)``); the paged attention paths, the dense
+decode and the SSD scan run once per shard at the shard's head counts.
+Logits, sampled tokens and every scheduler input live on shard 0's
+device.  Each engine places and runs under its own
+``sharding.use_axes``: nothing leaks into the ambient axis state.
 
 The engine raises ``NotImplementedError`` for what the port does not
-serve: under a mesh ``mode="wave"``, the recurrent families and data
-axes above 1.
+serve: data axes above 1 under a mesh.
 """
 from __future__ import annotations
 
@@ -275,8 +277,7 @@ class ServingEngine:
         must already live there (with a ``mesh``: on its shard 0 device,
         whole or already placed, e.g. ``model.init_params(mesh=)``).
         Raises ``NotImplementedError`` for what the port does not serve
-        yet (under a mesh: waves, the recurrent families, data axes above
-        1).
+        yet (a mesh with data axes above 1).
 
         ``mesh``: a ``launch.mesh.Mesh`` with a ``model`` axis (see the
         module docstring); its shard 0 device is the engine's, and
@@ -338,7 +339,7 @@ class ServingEngine:
         if kv_dtype is not None:
             cfg = dc_replace(cfg, kv_dtype=kv_dtype)
         if mesh is not None:
-            self._check_mesh(cfg, mesh, mode, device)
+            self._check_mesh(mesh, device)
             device = sharding.model_devices(mesh)[0]
         self.mode = mode
         self.device = resolve_device(device)
@@ -390,18 +391,9 @@ class ServingEngine:
             self._init_continuous()
 
     @staticmethod
-    def _check_mesh(cfg: ModelConfig, mesh, mode: str,
-                    device: DeviceLike) -> None:
-        """What the port serves over a mesh: continuous batching of the
-        attention families, one data shard."""
-        if cfg.family not in CONTINUOUS_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} over a mesh is not ported (the "
-                f"paged pool covers {CONTINUOUS_FAMILIES})")
-        if mode != "continuous":
-            raise NotImplementedError(
-                "mode='wave' over a mesh is not ported (the wave path's "
-                "dense stripes are not sharded)")
+    def _check_mesh(mesh, device: DeviceLike) -> None:
+        """What the port serves over a mesh: both modes, every family,
+        one data shard."""
         if any(n > 1 for a, n in mesh.shape.items() if a != "model"):
             raise NotImplementedError(
                 f"mesh {mesh.shape}: data axes above 1 are not ported")
@@ -410,13 +402,17 @@ class ServingEngine:
             raise ValueError(f"device {device} is not the mesh's shard 0 "
                              f"device {dev0}")
 
-    def _model(self, fn, *args, **kwargs):
-        """A model call under this engine's axis state, over its mesh
-        when it has one."""
+    def _call(self, fn, *args, **kwargs):
+        """``fn(cfg, params, *args)``, a model call, under this engine's
+        axis state, over its mesh when it has one."""
         if self._mesh is not None:
             kwargs["mesh"] = self._mesh
         with sharding.use_axes(self._axes):
-            return fn(self.cfg, self.params, self._cache, *args, **kwargs)
+            return fn(self.cfg, self.params, *args, **kwargs)
+
+    def _model(self, fn, *args, **kwargs):
+        """``_call`` on the continuous path's pool."""
+        return self._call(fn, self._cache, *args, **kwargs)
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -1203,8 +1199,9 @@ class ServingEngine:
         return results
 
     def _run_wave(self, wave: List[Request]) -> None:
-        """Prefill one same-length wave into dense stripes, then decode it
-        in lockstep until every member hit its budget or EOS.  The token
+        """Prefill one same-length wave into dense caches (placed on the
+        mesh when there is one), then decode it in lockstep until every
+        member hit its budget or EOS.  The token
         at position p of request uid samples with the positional key of
         (seed, uid, p), as on the continuous path."""
         cfg, dev = self.cfg, self.device
@@ -1220,7 +1217,7 @@ class ServingEngine:
                 (B, cfg.encdec.encoder_seq_len, cfg.d_model),
                 dtype=torch.bfloat16, device=dev)
         t0 = time.perf_counter()
-        logits, cache = M.prefill(cfg, self.params, batch, self.max_len)
+        logits, cache = self._call(M.prefill, batch, self.max_len)
         synchronize(dev)
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_tokens += B * S
@@ -1254,8 +1251,8 @@ class ServingEngine:
             if done.all():
                 break
             # One position a wave: the wave's rows share their length.
-            logits, cache = M.decode_step(cfg, self.params, cache,
-                                          next_tok[:, None], pos[0])
+            logits, cache = self._call(M.decode_step, cache,
+                                       next_tok[:, None], pos[0])
             logits = logits[:, 0]
         synchronize(dev)
         self.stats.decode_s += time.perf_counter() - t0

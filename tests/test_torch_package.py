@@ -139,12 +139,20 @@ def test_unported_options_raise():
     params = M.init_params(cfg, 0, device="cpu")
     two = make_mesh((1, 2), ("data", "model"), "cpu")
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
-    for c, kw in ((cfg, dict(mesh=two, mode="wave")),
-                  (ssm, dict(mesh=two)),
-                  (cfg, dict(mesh=make_mesh((2, 2), ("data", "model"),
-                                            "cpu")))):
-        with pytest.raises(NotImplementedError):
+    # Data axes above 1 are not served, in either mode; speculation needs
+    # the continuous engine, with or without a mesh.
+    four = make_mesh((2, 2), ("data", "model"), "cpu")
+    for c, kw in ((cfg, dict(mesh=four)), (cfg, dict(mesh=four, mode="wave")),
+                  (ssm, dict(mesh=four))):
+        with pytest.raises(NotImplementedError, match="data axes"):
             ServingEngine(c, params, device="cpu", **kw)
+    for c, kw in ((cfg, dict(mesh=two, mode="wave")), (ssm, dict(mesh=two)),
+                  (ssm, dict())):
+        with pytest.raises(ValueError, match="continuous"):
+            ServingEngine(c, params, device="cpu", spec_decode="ngram", **kw)
+    # Waves under a (data=1, model=m) mesh serve every family.
+    assert ServingEngine(cfg, params, device="cpu", mesh=two,
+                         mode="wave").mode == "wave"
     # kv_dtype="f8" is served: an f8 pool, and f8 stripes in waves.
     f8 = ServingEngine(cfg, params, device="cpu", kv_dtype="f8")
     assert f8.mode == "continuous" and f8._cache["k"].dtype == \

@@ -251,7 +251,7 @@ def test_indivisible_heads_take_the_single_path(monkeypatch):
     q, kc, vc, lengths, tables, _ = paged_inputs(
         2, B=1, H=3, Hk=3, D=8, N=4, bs=8)
     calls = []
-    monkeypatch.setattr(decode_ops, "_sharded_paged_decode",
+    monkeypatch.setattr(decode_ops, "_sharded_decode",
                         lambda *a: calls.append(a))
     solo = decode_ops.decode_attention(q, kc, vc, lengths, tables)
     shard = decode_ops.decode_attention(q, kc, vc, lengths, tables,
