@@ -231,7 +231,22 @@ outside the repository.  Phases, each of which raises on failure:
      (every request ends, launches counted as above; ms per decode step,
      prefill tok/s and the share of requests equal to the meshless
      run's printed);
- 15. a ``{"kernels": [...]}`` line, the card line, and the last line
+ 15. the recurrent families' training over a (data, model) mesh naming
+     the card d x m times (``run_recurrent_mesh_training``), on the
+     seeded weights cast to fp32: mamba2-1.3b (48 blocks, 4 x 512
+     tokens) at (1, 2), (1, 4) and (2, 2), zamba2-7b (13 of its 81
+     layers, 2 x 512) and whisper-base (6 + 6 layers, 1500 stub frames,
+     its vocab cut on d_model over data; 4 x 256) at (1, 2) and (2, 2):
+     one AdamW step of ``make_train_step(mesh=)`` at each against the
+     meshless step with the same batch split by phase 13's limits (loss,
+     grad norm, every leaf's moment and update), the bytes each step
+     counts by kind equal to ``dryrun.train_collectives``, no kernel
+     launch; two controls at (1, 2) on mamba2-1.3b, whose second half
+     of heads is scaled x 8 throughout — the gated norm's mean taken per
+     shard, and the B / C gradient partials left unsummed over
+     ``model`` — each of which must fail the limits; ms a step and peak
+     memory by mesh;
+ 16. a ``{"kernels": [...]}`` line, the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2846,11 +2861,12 @@ def train_opt():
                            total_steps=TRAIN_STEPS)
 
 
-def mesh_step(torch, cfg, params, batch, mesh):
+def mesh_step(torch, cfg, params, batch, mesh, timed=True):
     """One AdamW step of ``make_train_step(mesh=)`` (meshless with None)
     from ``params``: (metrics, whole new weights and first moments by
-    path, ms of a second step from the same start (CUDA events), peak
-    memory of the first, bytes by kind of the first)."""
+    path, ms of a second step from the same start (CUDA events; None
+    unless ``timed``), peak memory of the first, bytes by kind of the
+    first)."""
     from repro_torch import tree as tree_lib
     from repro_torch.launch import steps
     from repro_torch.parallel import sharding
@@ -2872,6 +2888,8 @@ def mesh_step(torch, cfg, params, batch, mesh):
     moments = {k: sharding.to_whole(v) for k, v in tree_lib.flatten(o1.m)}
     metrics = {k: float(v) for k, v in m.items()}
     del new, o1
+    if not timed:
+        return metrics, whole, moments, None, peak, moved
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -3655,6 +3673,154 @@ def wave_entries(results):
     return out
 
 
+#: Phase 15: the recurrent families' training over a (data, model) mesh
+#: naming the card d x m times.  (config, layers kept (None: all), rows,
+#: positions, meshes): each config at full width, zamba2-7b at
+#: WAVE_DEPTH's 13 of its 81 layers (two groups of six and a tail of
+#: one; its fp32 copy, moments and results must fit beside each other);
+#: whisper-base behind 1500 stub frames, its 51865-token vocab cut on
+#: d_model over data (it does not divide model).  The meshes of one data
+#: size run together, so that one split_step reference is held at a time.
+RECURRENT_TRAIN = (
+    ("mamba2-1.3b", None, 4, 512, ((1, 2), (1, 4), (2, 2))),
+    ("zamba2-7b", WAVE_DEPTH["zamba2-7b"], 2, 512, ((1, 2), (2, 2))),
+    ("whisper-base", None, 4, 256, ((1, 2), (2, 2))))
+#: The gated-norm control's lever (as the wave tests' control): model shard
+#: 1 of 2's z and x columns scaled by this in every Mamba-2 block, so
+#: that a per-shard mean of the gated norm reads far from the whole
+#: d_inner's.  The sound steps run on the same weights.
+HEAD_SCALE = 8.0
+
+
+def scale_second_heads(torch, cfg, params):
+    """``params`` with every Mamba-2 block's z and x columns of its
+    second half of heads multiplied by HEAD_SCALE."""
+    d_inner = cfg.ssm.d_inner(cfg.d_model)
+    w = params["blocks"]["mamba"]["in_proj"]
+    scale = torch.ones(w.shape[-1], dtype=w.dtype, device=w.device)
+    for lo in (d_inner // 2, d_inner + d_inner // 2):
+        scale[lo:lo + d_inner // 2] = HEAD_SCALE
+    mamba = dict(params["blocks"]["mamba"], in_proj=w * scale)
+    return dict(params, blocks=dict(params["blocks"], mamba=mamba))
+
+
+@contextlib.contextmanager
+def per_shard_norm_mean():
+    """The first control: the gated norm's sum of squares over each
+    shard's own columns, times the shard count (its psum skipped)."""
+    from repro_torch.models import ssm
+    from repro_torch.parallel import sharding
+    whole = ssm._sum_squares
+
+    def own(g, mesh):
+        m = sharding.axes_size(mesh, sharding.TP_AXIS)
+        return sharding.smap(lambda t: t.square().sum(-1, keepdim=True) * m,
+                             g, mesh=mesh)
+    ssm._sum_squares = own
+    try:
+        yield
+    finally:
+        ssm._sum_squares = whole
+
+
+@contextlib.contextmanager
+def unsummed_components():
+    """The second control: the B and C columns' gradient partials (every
+    model shard holds them whole) not summed over ``model``."""
+    from repro_torch.parallel import sharding
+    summed = sharding.sum_components
+    sharding.sum_components = lambda s: s
+    try:
+        yield
+    finally:
+        sharding.sum_components = summed
+
+
+def stub_frames(torch, cfg, B):
+    """whisper's stub encoder input: B x 1500 seeded random frames."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return torch.randn(B, cfg.encdec.encoder_seq_len, cfg.d_model,
+                       device="cuda", generator=g)
+
+
+def controls(torch, cfg, params, batch, want, old, card):
+    """Phase 15's two controls at (1, 2) against the meshless step
+    ``want``: each must fail compare_step's limits."""
+    for what, control in (("gated-norm mean per shard", per_shard_norm_mean),
+                          ("B/C gradients unsummed over model",
+                           unsummed_components)):
+        torch.cuda.empty_cache()
+        with control():
+            ctrl = mesh_step(torch, cfg, params, batch, card_mesh(2),
+                             timed=False)
+        if not compare_step(torch, f"{cfg.name} (1, 2) control ({what}) vs "
+                            f"meshless", ctrl[:3], want, old, card,
+                            enforce=False)[0]:
+            raise AssertionError(f"the control ({what}) passed")
+
+
+def run_recurrent_mesh_training(torch, card):
+    """Phase 15: for each RECURRENT_TRAIN config, the seeded weights cast
+    to fp32 (random bf16 Mamba-2 stacks are chaotic), one AdamW step at
+    each mesh against the meshless step with the same batch split
+    (``split_step``; ``compare_step``'s limits), its bytes by kind equal
+    to ``dryrun.train_collectives``, no kernel launch; mamba2-1.3b's
+    second half of heads scaled (HEAD_SCALE) for the two controls at (1,
+    2), each of which must fail the limits; ms a step and peak memory by
+    mesh."""
+    from dataclasses import replace
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    for arch, depth, B, S, meshes in RECURRENT_TRAIN:
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = replace(cfg, num_layers=depth)
+        torch.cuda.empty_cache()
+        params = as_fp32(M.init_params(cfg, seed=0, device="cuda"))
+        if cfg.family == "ssm":
+            params = scale_second_heads(torch, cfg, params)
+        batch = train_batch(torch, cfg, B, S)
+        if cfg.family == "audio":
+            batch["frames"] = stub_frames(torch, cfg, B)
+        old = dict(tree_lib.flatten(params))
+        rows, split = [], {}
+        zero_launches()
+        for shape in meshes:
+            d, m = shape
+            if d not in split:
+                split.clear()
+                torch.cuda.empty_cache()
+                split[d] = split_step(torch, cfg, params, batch, d)[:3]
+            mesh = card_mesh(m, d=d)
+            got = mesh_step(torch, cfg, params, batch, mesh)
+            compare_step(torch, f"{cfg.name} fp32 {shape} vs meshless split "
+                         f"{d} way{'s' * (d > 1)}", got[:3], split[d], old,
+                         card)
+            check_bytes(f"train step {cfg.name} {shape}", got[5],
+                        dryrun.train_collectives(cfg, B, S, mesh, params),
+                        card)
+            rows.append((shape, got[3], got[4]))
+            del got
+            if cfg.family == "ssm" and shape == (1, 2):
+                controls(torch, cfg, params, batch, split[1], old, card)
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"{cfg.name}: a kernel launched on the "
+                                 f"grad path: {launches}")
+        print(f"train step {cfg.name} fp32 {cfg.num_layers} layers B={B} "
+              f"S={S} by mesh [{card}]: " + "; ".join(
+                  f"{shape} {ms:.1f} ms/step, peak {pk / 2**30:.2f} GiB"
+                  for shape, ms, pk in rows)
+              + " (one card holds every place: no speedup is expected)")
+        del params, old, split, batch
+        torch.cuda.empty_cache()
+    print(f"recurrent mesh training phase [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -3845,7 +4011,11 @@ def main() -> int:
     waves = {arch: run_wave_sharded(torch, arch, ways, gen, card)
              for arch, ways in WAVE_SHARDS}
 
-    # 15. Result lines.  The quantized bodies report their int8 times (fp8
+    # 15. The recurrent families' training over a (data, model) mesh on
+    # the one card.
+    run_recurrent_mesh_training(torch, card)
+
+    # 16. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)

@@ -18,8 +18,10 @@ analyses; the port has no compiler, so each record term maps as follows
     excluded), summed by a ``TorchDispatchMode`` over the same run —
     unfused op traffic, not XLA's fused ``bytes accessed``.
   * Per-device argument and output bytes (``memory_analysis``): exact,
-    from ``steps.shardings_for``'s specs; ``fits_one_card`` holds them
-    to one H100's 80 GB.  No temporaries: there is no compiled buffer
+    each placed piece counted where it lives (``port_specs``: the port's
+    placement — the Mamba-2 leaves and conv windows by component, their
+    B and C columns whole on every model shard); ``fits_one_card`` holds
+    them to one H100's 80 GB.  No temporaries: there is no compiled buffer
     plan (the card's peak is measured by ``chip_smoke.py``).
   * Collective wire bytes (train shapes): ``train_collectives``, an
     analytic count of the port's sharded step (``make_train_step(mesh=)``)
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import time
@@ -98,9 +101,11 @@ class OpBytes(TorchDispatchMode):
         return out
 
 
+@functools.lru_cache(maxsize=4)
 def measure(cfg, shape_name: str) -> Dict[str, float]:
     """Global FLOPs and op bytes of one meshless step of the cell on
-    ``meta`` tensors."""
+    ``meta`` tensors.  They do not depend on the mesh: a cell's single-
+    and multi-pod records share one count (``--mesh both``)."""
     step, args = steps_lib.step_and_args(cfg, shape_name)
     flops = FlopCounterMode(display=False)
     nbytes = OpBytes()
@@ -111,50 +116,104 @@ def measure(cfg, shape_name: str) -> Dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
-# Per-device argument and output bytes from the shardings
+# Per-device argument and output bytes of the port's placement
 # ---------------------------------------------------------------------------
 
-def _spec_bytes(tree, specs, sizes) -> float:
-    """Bytes one device holds of ``tree`` laid out by ``specs``."""
+def _specs_of(trees):
+    """A tuple of trees of ``NamedSharding`` as trees of their specs."""
+    return tuple(tree_lib.map_leaves(lambda ns: ns.spec, t) for t in trees)
+
+
+def _no_model(spec):
+    """``spec`` with its ``model`` entries dropped (whole over it)."""
+    return sharding.P(*(None if sharding.TP_AXIS in sharding._axes_tuple(a)
+                        else a for a in spec))
+
+
+def _cache_placement(cfg, cache, ref, mesh):
+    """A serving cache as the port places it: ``wave_cache_specs``' cut
+    over ``model`` (stripes on their KV heads, Mamba-2 states on their
+    heads, conv windows by components, B and C whole on every shard)
+    beside the reference's cut of the batch over the data axes (one
+    controller a data shard)."""
+    port = sharding.wave_cache_specs(cfg, cache, mesh)
+
+    def merge(path, p, r):
+        data = list(_no_model(r)) + [None] * (len(p) - len(r))
+        if isinstance(p, sharding.Components):
+            rows = [(a, i) for i, a in enumerate(data) if a is not None]
+            dim = tuple(p).index(sharding.TP_AXIS)
+            return sharding.Components(len(p), dim, p.comps,
+                                       rows[0] if rows else None)
+        return sharding.P(*(a if a is not None else b
+                            for a, b in zip(p, data)))
+
+    return sharding._map_with_path(merge, port, ref)
+
+
+def port_specs(cfg, shape_name: str, mesh):
+    """(argument trees, their specs, output trees, their specs) of one
+    step of the cell as the port places them on ``mesh``: a train step's
+    parameters and moments by ``sharding.train_placement`` (the Mamba-2
+    leaves by component, B and C whole on every model shard), a serving
+    step's parameters by ``sharding.serve_specs`` and caches by
+    ``_cache_placement``; batches, tokens and metrics as
+    ``steps.shardings_for`` places them, the serving logits whole over
+    ``model`` (the port gathers them)."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.training import optimizer as opt_lib
+    shape = SHAPES[shape_name]
+    ins = specs_lib.input_specs(cfg, shape_name)
+    in_sh, out_sh = steps_lib.shardings_for(cfg, shape_name, mesh)
+    in_sp, out_sp = _specs_of(in_sh), _specs_of(out_sh)
+    if shape.kind == "train":
+        pspec = sharding.train_placement(cfg, ins["params"], mesh)
+        ospec = opt_lib.AdamWState(step=sharding.P(), m=pspec, v=pspec)
+        metrics = {k: specs_lib.sds((), torch.float32)
+                   for k in ("grad_norm", "lr", "loss")}
+        return ((ins["params"], ins["opt_state"], ins["batch"]),
+                (pspec, ospec, in_sp[2]),
+                (ins["params"], ins["opt_state"], metrics),
+                (pspec, ospec, out_sp[2]))
+    pspec = sharding.serve_specs(cfg, ins["params"], mesh)
+    if shape.kind == "prefill":
+        cache = M.cache_specs(cfg, shape.global_batch, shape.seq_len)
+        logits = specs_lib.sds((shape.global_batch, cfg.vocab_size),
+                               torch.bfloat16)
+        cspec = _cache_placement(cfg, cache, out_sp[1], mesh)
+        return ((ins["params"], ins["batch"]), (pspec, in_sp[1]),
+                (logits, cache), (_no_model(out_sp[0]), cspec))
+    cache = ins["cache"]
+    logits = specs_lib.sds((shape.global_batch, 1, cfg.vocab_size),
+                           torch.bfloat16)
+    cspec = _cache_placement(cfg, cache, in_sp[1], mesh)
+    return ((ins["params"], cache, ins["tokens"], ins["position"]),
+            (pspec, cspec, in_sp[2], in_sp[3]),
+            (logits, cache), (_no_model(out_sp[0]), cspec))
+
+
+def placed_bytes(trees, specs, mesh) -> float:
+    """Bytes one place holds of ``trees`` placed by ``specs``: each
+    leaf's part (``sharding.local_shape``), component cuts included."""
     total = 0.0
-    for (path, leaf), (_, ns) in zip(tree_lib.flatten(tree),
-                                     tree_lib.flatten(specs)):
-        cut = 1
-        for axes in ns.spec:
-            for a in sharding._axes_tuple(axes):
-                cut *= sizes.get(a, 1)
-        total += leaf.numel() * leaf.element_size() / cut
+    for tree, spec_tree in zip(trees, specs):
+        for (_, leaf), (_, spec) in zip(tree_lib.flatten({"x": tree}),
+                                        tree_lib.flatten({"x": spec_tree})):
+            total += math.prod(sharding.local_shape(leaf.shape, spec,
+                                                    mesh)) \
+                * leaf.element_size()
     return total
 
 
 def device_bytes(cfg, shape_name: str, mesh) -> Dict[str, float]:
-    from repro_torch.launch import specs as specs_lib
-    shape = SHAPES[shape_name]
-    ins = specs_lib.input_specs(cfg, shape_name)
-    in_sh, out_sh = steps_lib.shardings_for(cfg, shape_name, mesh)
-    sizes = mesh.shape
-    if shape.kind == "train":
-        args = (ins["params"], ins["opt_state"], ins["batch"])
-        metrics = {k: specs_lib.sds((), torch.float32)
-                   for k in ("grad_norm", "lr", "loss")}
-        outs = (ins["params"], ins["opt_state"], metrics)
-    elif shape.kind == "prefill":
-        args = (ins["params"], ins["batch"])
-        outs = (specs_lib.sds((shape.global_batch, cfg.vocab_size),
-                              torch.bfloat16),
-                M.cache_specs(cfg, shape.global_batch, shape.seq_len))
-    else:
-        args = (ins["params"], ins["cache"], ins["tokens"], ins["position"])
-        outs = (specs_lib.sds((shape.global_batch, 1, cfg.vocab_size),
-                              torch.bfloat16), ins["cache"])
-
-    def tot(trees, shs):
-        return sum(_spec_bytes({"x": t}, {"x": s}, sizes)
-                   for t, s in zip(trees, shs))
-    out = {"argument_size_in_bytes": tot(args, in_sh),
-           "output_size_in_bytes": tot(outs, out_sh)}
-    if shape.kind != "train":  # the KV/state cache the step holds
-        out["cache_size_in_bytes"] = tot(outs[1:], out_sh[1:])
+    """Argument and output bytes one device holds (``port_specs``), and
+    a serving step's cache bytes."""
+    args, in_specs, outs, out_specs = port_specs(cfg, shape_name, mesh)
+    out = {"argument_size_in_bytes": placed_bytes(args, in_specs, mesh),
+           "output_size_in_bytes": placed_bytes(outs, out_specs, mesh)}
+    if SHAPES[shape_name].kind != "train":  # the cache the step holds
+        out["cache_size_in_bytes"] = placed_bytes(outs[1:], out_specs[1:],
+                                                  mesh)
     return out
 
 
@@ -250,10 +309,13 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
                       ) -> Dict[str, float]:
     """Global wire bytes, by kind, of one ``make_train_step(mesh=)`` step
     of ``batch`` x ``seq`` tokens on ``params`` (default: the config's
-    bf16 ``model.param_specs``) placed by ``sharding.train_specs`` on a
-    mesh of ``mesh``'s axes (its devices are not used: a meta mesh of
-    the production shape will do).  Kinds as ``Mesh.moved_bytes``
-    counts them."""
+    bf16 ``model.param_specs``) placed by ``sharding.train_placement`` on
+    a mesh of ``mesh``'s axes (its devices are not used: a meta mesh of
+    the production shape will do).  Kinds as ``Mesh.moved_bytes`` counts
+    them.  Each rematerialized block's gathers and psums run twice
+    forward (the forward and the recompute) and their transposes once;
+    a Mamba-2 block inside a rematerialized hybrid group three times
+    (the group's recompute runs it again before its own)."""
     params = M.param_specs(cfg) if params is None else params
     sizes = mesh.shape
     st = sharding.AxisState.from_mesh(mesh)
@@ -264,10 +326,11 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
     if batch % R:
         raise NotImplementedError(f"batch {batch} does not divide {dp}")
     B = batch // R
-    specs = sharding.train_specs(cfg, params, mesh)
+    specs = sharding.train_placement(cfg, params, mesh)
     w = _Wire(n)
     e = params["embed"].element_size()  # the activations' dtype
     d = cfg.d_model
+    fam = cfg.family
 
     def cuts(spec):
         """(model dim, rows, the axes the leaf is cut over)."""
@@ -276,31 +339,62 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
                                                 if dim is not None else set())
         return dim, rows, axes
 
-    # Gradient sums of pieces several places hold.
+    def part(leaf, spec) -> float:
+        """Bytes of one place's part."""
+        return float(math.prod(sharding.local_shape(leaf.shape, spec, mesh))
+                     * leaf.element_size())
+
+    # Gradient sums of pieces several places hold, and of the components
+    # every model shard holds whole.
     for (path, leaf), (_, spec) in zip(tree_lib.flatten(params),
                                        tree_lib.flatten(specs)):
-        axes = cuts(spec)[2]
+        dim, _, axes = cuts(spec)
         w.add("grad_sum", math.prod(s for a, s in sizes.items()
-                                    if a not in axes),
-              _nb(leaf) / math.prod(sizes[a] for a in axes))
+                                    if a not in axes), part(leaf, spec))
+        comps = getattr(spec, "comps", None) if dim is not None else None
+        if comps is not None:
+            local = sharding._local_lengths(comps, Mn)
+            held = sum(k for k, (_, c) in zip(local, comps) if not c)
+            w.add("grad_sum", Mn, part(leaf, spec) * held / sum(local))
 
-    def gather_data(leaf, spec, fwd, bwd):
-        dim, rows, _ = cuts(spec)
+    def gather_data(leaf, spec, fwd, bwd, lead=1):
+        _, rows, _ = cuts(spec)
         if rows is not None:
             g = math.prod(sizes[a] for a in rows[0])
-            w.add("all_gather", g, _nb(leaf) / (Mn if dim is not None
-                                                 else 1), fwd, bwd)
+            w.add("all_gather", g, part(leaf, spec) / lead * g, fwd, bwd)
 
-    if cfg.family not in M.ATTENTION_FAMILIES:
-        if Mn > 1:
-            raise NotImplementedError("model > 1 covers the attention "
-                                      "families")
-        for (_, leaf), (_, spec) in zip(tree_lib.flatten(params),
-                                        tree_lib.flatten(specs)):
-            gather_data(leaf, spec, 1, 1)
-        return dict(w.by_kind)
+    heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
 
-    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    def layer(tree, spec_tree, lead, fwd, bwd, keep=lambda keys: False):
+        """``_gather_layer``'s gathers of a block whose leaves ``tree``
+        stacks ``lead`` of (1: unstacked), ``fwd`` times forward and
+        ``bwd`` times backward in all."""
+        for (path, leaf), (_, spec) in zip(tree_lib.flatten(tree),
+                                           tree_lib.flatten(spec_tree)):
+            keys = path.split("/")
+            if not keep(keys):
+                gather_data(leaf, spec, fwd, bwd, lead)
+            if keys[0] in M.ATTN_KEYS and not heads_cut and \
+                    cuts(spec)[0] is not None:
+                w.add("all_gather", Mn, _nb(leaf) / lead, fwd, bwd)
+
+    def cut(spec):
+        return cuts(spec)[0] is not None
+
+    def psum(nbytes, fwd, bwd, spec=None):
+        """A psum over ``model`` of ``nbytes`` a place, where ``spec``
+        (row-parallel weight) is cut over it."""
+        if spec is None or cut(spec):
+            w.add("psum", Mn, nbytes, fwd, bwd)
+
+    def mamba(spec_tree, fwd, bwd):
+        """A Mamba-2 block's psums, where its heads are cut: the gated
+        norm's fp32 sum of squares and ``out_proj``'s partials."""
+        if isinstance(spec_tree["mamba"]["in_proj"], sharding.Components):
+            psum(B * S_pad * 4, fwd, bwd)
+            psum(act, fwd, bwd)
+
+    prefix = cfg.num_patches if fam == "vlm" else 0
     total = prefix + seq
     mult = layers.Q_CHUNK if total >= layers.CHUNKED_ATTN_THRESHOLD else 1
     S_pad = -(-total // mult) * mult
@@ -309,36 +403,61 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
     gather_data(params["embed"], specs["embed"], 1, 1)
     if cuts(specs["embed"])[0] == 0:
         w.add("psum", Mn, B * seq * d * e)
-    if cfg.family == "vlm":
+    if fam == "vlm":
         gather_data(params["patch_proj"], specs["patch_proj"], 1, 1)
-        if cuts(specs["patch_proj"])[0] is not None:
+        if cut(specs["patch_proj"]):
             w.add("all_gather", Mn, B * prefix * d * e)
+
+    def attn_psums(blk, fwd, bwd, rows=B * S_pad):
+        """An attention block's psums: ``wo``'s where the heads are cut,
+        the MLP's down projection's."""
+        if heads_cut:
+            psum(rows * d * e, fwd, bwd, blk["attn"]["wo"])
+        if "mlp" in blk:
+            psum(rows * d * e, fwd, bwd, blk["mlp"]["w_down"])
+
     # The layers: each gather and psum forward, again in the remat, and
     # its transpose once.
-    heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
-    manual = cfg.moe is not None and moe_lib.expert_parallel(
-        cfg, mesh, (B, S_pad))
-    L = cfg.num_layers
-    for (path, leaf), (_, spec) in zip(
-            tree_lib.flatten(params["blocks"]),
-            tree_lib.flatten(specs["blocks"])):
-        keys = path.split("/")
-        per = torch.empty(leaf.shape[1:], dtype=leaf.dtype, device="meta")
-        lspec = sharding.P(*tuple(spec)[1:])
-        if not (manual and keys[0] == "moe" and "shared" not in keys
-                and keys[-1] in ("w_gate", "w_up", "w_down")):
-            gather_data(per, lspec, 2 * L, L)
-        if keys[0] == "attn" and not heads_cut and \
-                cuts(lspec)[0] is not None:
-            w.add("all_gather", Mn, _nb(per), 2 * L, L)
-    blocks = specs["blocks"]
-    if heads_cut and cuts(blocks["attn"]["wo"])[0] is not None:
-        w.add("psum", Mn, act, 2 * L, L)
-    if "mlp" in blocks and cuts(blocks["mlp"]["w_down"])[0] is not None:
-        w.add("psum", Mn, act, 2 * L, L)
-    if cfg.moe is not None:
-        moe_collectives(w, cfg, mesh, B, S_pad, e, blocks["moe"], manual,
-                        2 * L, L)
+    if fam in M.ATTENTION_FAMILIES:
+        L = cfg.num_layers
+        manual = cfg.moe is not None and moe_lib.expert_parallel(
+            cfg, mesh, (B, S_pad))
+        blocks = specs["blocks"]
+        layer(params["blocks"], blocks, L, 2 * L, L, keep=lambda keys: (
+            manual and keys[0] == "moe" and "shared" not in keys
+            and keys[-1] in ("w_gate", "w_up", "w_down")))
+        attn_psums(blocks, 2 * L, L)
+        if cfg.moe is not None:
+            moe_collectives(w, cfg, mesh, B, S_pad, e, blocks["moe"], manual,
+                            2 * L, L)
+    elif fam == "ssm":
+        L = cfg.num_layers
+        layer(params["blocks"], specs["blocks"], L, 2 * L, L)
+        mamba(specs["blocks"], 2 * L, L)
+    elif fam == "hybrid":
+        groups, per, tail = M.hybrid_layout(cfg)
+        n_in = groups * per
+        layer(params["groups"], specs["groups"], n_in, 3 * n_in, n_in)
+        mamba(specs["groups"], 3 * n_in, n_in)
+        layer(params["shared_attn"], specs["shared_attn"], 1, 2 * groups,
+              groups)
+        attn_psums(specs["shared_attn"], 2 * groups, groups)
+        if tail:
+            layer(params["tail"], specs["tail"], tail, 2 * tail, tail)
+            mamba(specs["tail"], 2 * tail, tail)
+    elif fam == "audio":
+        E, L = cfg.encdec.num_encoder_layers, cfg.num_layers
+        F = cfg.encdec.encoder_seq_len
+        enc, dec = specs["enc_blocks"], specs["dec_blocks"]
+        layer(params["enc_blocks"], enc, E, 2 * E, E)
+        attn_psums(enc, 2 * E, E, rows=B * F)
+        layer(params["dec_blocks"], dec, L, 2 * L, L)
+        if heads_cut:
+            psum(act, 2 * L, L, dec["self_attn"]["wo"])
+            psum(act, 2 * L, L, dec["cross_attn"]["wo"])
+        psum(act, 2 * L, L, dec["mlp"]["w_down"])
+    else:
+        raise ValueError(fam)
     # Unembedding: the head's gather (a tied table was gathered above),
     # the vocab-parallel logits' all_gather.
     head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -368,8 +487,8 @@ BASIS = {
                             "Python, every block counted",
     "compile_s": "null: no compiler",
     "memory_analysis": "argument/output bytes per device (and a serving "
-                       "step's cache bytes) from shardings_for's specs; "
-                       "temp null: no buffer plan",
+                       "step's cache bytes) of the port's placement "
+                       "(port_specs); temp null: no buffer plan",
     "roofline": "core.roofline with the H100's constants (989 TFLOP/s "
                 "bf16, 3.35 TB/s HBM3, 450 GB/s NVLink a direction)",
 }
@@ -413,18 +532,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path,
     n_dev = mesh.devices.size
     t0 = time.time()
     try:
-        cost = measure(cfg, shape_name)
+        cost = dict(measure(cfg, shape_name))
         mem = device_bytes(cfg, shape_name, mesh)
         mem.update(temp_size_in_bytes=None, alias_size_in_bytes=None,
                    generated_code_size_in_bytes=None)
         coll_d, wire_g = None, None
-        basis = BASIS
-        if shape.kind == "train" and cfg.family not in \
-                M.ATTENTION_FAMILIES and mesh.shape.get("model", 1) > 1:
-            basis = dict(BASIS, wire_bytes_global=(
-                "null: the port trains the ssm, hybrid and audio "
-                "families over data alone (model = 1)"))
-        elif shape.kind == "train":
+        if shape.kind == "train":
             coll = train_collectives(cfg, shape.global_batch,
                                      shape.seq_len, mesh)
             coll_d = {k: {"wire_bytes_global": v}
@@ -458,7 +571,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path,
             fits_one_card=mem["argument_size_in_bytes"] <= CARD_BYTES,
             collectives=coll_d,
             roofline=terms.as_dict(),
-            basis=basis,
+            basis=BASIS,
         )
     except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
         rec.update(status="error", error=f"{type(e).__name__}: {e}",

@@ -8,7 +8,8 @@ the paged pool; ``prefill`` / ``decode_step`` with ``mesh=`` on the wave
 path's dense caches, every family), and the training loss over a placed
 (data, model) mesh
 (``loss_fn(mesh=)``: FSDP gathers a layer inside its rematerialized body,
-TP over ``model`` for the attention families):
+TP over ``model`` for every family, the Mamba-2 blocks cut on their
+heads):
 
   * dense — GQA decoder blocks (tinyllama, stablelm, phi3, granite);
   * moe — the same attention with an MoE FFN (``models.moe``; qwen2-moe,
@@ -841,14 +842,19 @@ def encode_audio(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     reference's layer scan needs them there (bf16 frames with fp32
     parameters change its carry's type and do not trace).  ``remat`` and
     ``use_kernel`` as in ``backbone``.  ``mesh``: frames and parameters
-    placed (serving), each shard attending with its own heads, the
-    ``wo`` and MLP partials summed; the output equal on every shard."""
+    placed — for serving (``place_serve``), or for training
+    (``place_train``: each block's leaves gathered as ``_gather_layer``
+    says inside its rematerialized body, which is recomputed whole) —
+    each shard attending with its own heads, the ``wo`` and MLP partials
+    summed; the output equal on every shard of a data shard."""
     dt = params["embed"].dtype
     h = sharding.smap(lambda f: f.to(dt) + layers.sinusoidal_positions(
         f.shape[1], cfg.d_model, f.device)[None], frames, mesh=mesh)
     lcfg = sharding.shard_cfg(cfg, mesh)
+    heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
 
     def body(x, blk):
+        blk = _gather_layer(cfg, blk, mesh, heads_cut)
         a = sharding.smap(
             lambda n, p_, x_: layers.attention(
                 lcfg, p_, layers.apply_norm(cfg, n, x_), None, causal=False,
@@ -858,7 +864,7 @@ def encode_audio(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                           mesh=mesh)
         return _ffn(cfg, blk, x, mesh=mesh)
 
-    h = _run_blocks(body, h, params["enc_blocks"], remat)
+    h = _run_blocks(body, h, params["enc_blocks"], remat, mesh is None)
     return _norm(cfg, params["enc_norm"], h, mesh)
 
 
@@ -908,11 +914,12 @@ def _maybe_remat(fn, remat: bool, early_stop: bool = True):
                                  early_stop=early_stop)
 
 
-def _run_blocks(body, h: torch.Tensor, stacked: Params,
-                remat: bool) -> torch.Tensor:
+def _run_blocks(body, h: torch.Tensor, stacked: Params, remat: bool,
+                early_stop: bool = True) -> torch.Tensor:
     """h through ``body(h, block)`` for each block of the ``stacked``
-    leaves, each block rematerialized when ``remat``."""
-    step = _maybe_remat(body, remat)
+    leaves, each block rematerialized when ``remat`` (``early_stop`` as
+    in ``_maybe_remat``)."""
+    step = _maybe_remat(body, remat, early_stop)
     for blk in _unstack(stacked):
         h = step(h, blk)
     return h
@@ -937,81 +944,89 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
     SSD kernel.  Returns (h, aux), aux the MoE load-balancing loss summed
     over layers (0 for the other families), a 0-d fp32 tensor.
 
-    mesh: the attention families over a placed mesh, one loop with the
-    meshless stack (h, positions and the result ``Sharded``): each
-    layer's leaves gathered as ``_gather_layer`` says inside its body,
-    attention with each shard's own heads, ``wo`` and the FFN as
-    ``_attn_post_aux(mesh=)``; a rematerialized layer is recomputed
-    whole (``early_stop=False``), its collectives with it."""
+    mesh: every family over a placed mesh (``sharding.place_train``), one
+    loop with the meshless stack (h, positions, ``encoder_out`` and the
+    result ``Sharded``): each block's leaves gathered as
+    ``_gather_layer`` says inside its body; attention with each shard's
+    own heads, ``wo`` and the FFN as ``_attn_post_aux(mesh=)``; a
+    Mamba-2 block on each shard's heads (``ssm.apply_mamba_block(mesh=)``:
+    the gated norm's sum of squares and ``out_proj``'s partials summed
+    over ``model``); zamba2's shared attention block gathered and run in
+    every group, so its gradient adds over the groups; whisper's decoder
+    attending over its own and the encoder's K/V with each shard's
+    heads.  A rematerialized block is recomputed whole
+    (``early_stop=False``), its collectives with it."""
     fam = cfg.family
+    heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
+    lcfg = sharding.shard_cfg(cfg, mesh)
+    early = mesh is None
+
+    def attn_layer(x, blk, experts_kept=False):
+        blk = _gather_layer(cfg, blk, mesh, heads_cut, experts_kept)
+        q, k, v = sharding.smap(
+            lambda b_, x_, pos: _attn_qkv(lcfg, b_, x_, pos),
+            blk, x, positions, mesh=mesh)
+        a = sharding.smap(lambda q_, k_, v_: layers.self_attend(
+            lcfg, q_, k_, v_, use_kernel=use_kernel), q, k, v, mesh=mesh)
+        return _attn_post_aux(cfg, blk, x, a, mesh=mesh)
+
+    def mamba(x, blk):
+        blk = _gather_layer(cfg, blk, mesh, heads_cut)
+        y = ssm_lib.apply_mamba_block(
+            cfg, blk["mamba"], _norm(cfg, blk["ln"], x, mesh),
+            use_kernel=use_kernel, mesh=mesh)[0]
+        return sharding.smap(torch.add, x, y, mesh=mesh)
+
+    def run(body, x, stacked):
+        return _run_blocks(body, x, stacked, remat, early)
+
+    aux = sharding.smap(lambda x: torch.zeros(
+        (), dtype=torch.float32, device=x.device), h, mesh=mesh)
     if fam in ATTENTION_FAMILIES:
-        heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
-        lcfg = sharding.shard_cfg(cfg, mesh)
-        experts_kept = moe_lib.expert_parallel(cfg, mesh, h)
-
-        def body(x, blk):
-            blk = _gather_layer(cfg, blk, mesh, heads_cut, experts_kept)
-            q, k, v = sharding.smap(
-                lambda b_, x_, pos: _attn_qkv(lcfg, b_, x_, pos),
-                blk, x, positions, mesh=mesh)
-            a = sharding.smap(lambda q_, k_, v_: layers.self_attend(
-                lcfg, q_, k_, v_, use_kernel=use_kernel), q, k, v, mesh=mesh)
-            return _attn_post_aux(cfg, blk, x, a, mesh=mesh)
-
-        step = _maybe_remat(body, remat, early_stop=mesh is None)
-        aux = sharding.smap(lambda x: torch.zeros(
-            (), dtype=torch.float32, device=x.device), h, mesh=mesh)
+        step = _maybe_remat(functools.partial(
+            attn_layer, experts_kept=moe_lib.expert_parallel(cfg, mesh, h)),
+            remat, early)
         for blk in _unstack(params["blocks"]):
             h, a = step(h, blk)
             if a is not None:
                 aux = sharding.smap(torch.add, aux, a, mesh=mesh)
-        return h, aux
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the placed backbone covers {ATTENTION_FAMILIES}")
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-
-    def mamba(x, blk):
-        return x + ssm_lib.apply_mamba_block(
-            cfg, blk["mamba"], layers.apply_norm(cfg, blk["ln"], x),
-            use_kernel=use_kernel)[0]
-
-    if fam == "ssm":
-        h = _run_blocks(mamba, h, params["blocks"], remat)
+    elif fam == "ssm":
+        h = run(mamba, h, params["blocks"])
     elif fam == "hybrid":
-        shared = params["shared_attn"]
-
         def group(x, grp):
-            x = _run_blocks(mamba, x, grp, remat)
-            x = x + layers.attention(
-                cfg, shared["attn"],
-                layers.apply_norm(cfg, shared["ln_attn"], x), positions,
-                use_kernel=use_kernel)
-            return _ffn(cfg, shared, x)
-        h = _run_blocks(group, h, params["groups"], remat)
+            return attn_layer(run(mamba, x, grp), params["shared_attn"])[0]
+        h = run(group, h, params["groups"])
         if "tail" in params:
-            h = _run_blocks(mamba, h, params["tail"], remat)
+            h = run(mamba, h, params["tail"])
     elif fam == "audio":
         if encoder_out is None:
             raise ValueError("the audio backbone needs encoder_out")
-        B, Fr = encoder_out.shape[:2]
-        hk, hd = cfg.num_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
+
+        def qkv(n, p_, x_):
+            xn = layers.apply_norm(cfg, n, x_)
+            return layers._project_qkv(lcfg, p_, xn, xn)
+
+        def cross_kv(e, p_):
+            return tuple((e @ p_[w]).reshape(*e.shape[:2],
+                                             lcfg.num_kv_heads, hd)
+                         for w in ("wk", "wv"))
 
         def body(x, blk):
-            x = x + layers.attention(
-                cfg, blk["self_attn"],
-                layers.apply_norm(cfg, blk["ln_self"], x), positions,
-                causal=True, use_rope=False, use_kernel=use_kernel)
-            ck = (encoder_out @ blk["cross_attn"]["wk"]).reshape(B, Fr, hk,
-                                                                 hd)
-            cv = (encoder_out @ blk["cross_attn"]["wv"]).reshape(B, Fr, hk,
-                                                                 hd)
-            x = x + layers.cross_attention(
-                cfg, blk["cross_attn"],
-                layers.apply_norm(cfg, blk["ln_cross"], x), ck, cv)
-            return x + layers.apply_mlp(
-                cfg, blk["mlp"], layers.apply_norm(cfg, blk["ln_mlp"], x))
-        h = _run_blocks(body, h, params["dec_blocks"], remat)
+            blk = _gather_layer(cfg, blk, mesh, heads_cut)
+            q, k, v = sharding.smap(qkv, blk["ln_self"], blk["self_attn"], x,
+                                    mesh=mesh)
+            a = sharding.smap(lambda q_, k_, v_, wo: layers.self_attend(
+                lcfg, q_, k_, v_, True, use_kernel) @ wo, q, k, v,
+                blk["self_attn"]["wo"], mesh=mesh)
+            x = sharding.smap(torch.add, x,
+                              _psum_rows(a, blk["self_attn"]["wo"]),
+                              mesh=mesh)
+            ck, cv = sharding.smap(cross_kv, encoder_out, blk["cross_attn"],
+                                   mesh=mesh)
+            return _ffn(cfg, blk, _cross_attend(cfg, blk, x, ck, cv, mesh),
+                        mesh=mesh)
+        h = run(body, h, params["dec_blocks"])
     else:
         raise ValueError(fam)
     return h, aux
@@ -1028,20 +1043,21 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     Kernels as ``kernel_route`` decides, once.  Returns (logits (B, S,
     vocab) in the parameters' dtype, aux loss).
 
-    mesh: ``params`` and ``batch`` placed on it (the dense, moe and vlm
-    families), tensor-parallel over ``model`` as the paged layer loop
-    is: the embedding cut on the vocab (a masked lookup a shard, then
-    ``psum``), q/k/v column-parallel with each shard's own heads where
+    mesh: ``params`` and ``batch`` placed on it (every family;
+    ``sharding.place_train`` / ``place_batch``), tensor-parallel over
+    ``model`` as the paged layer loop is: the embedding cut on the vocab
+    (a masked lookup a shard, then ``psum``) or, where the vocab does not
+    divide the axis, on d_model over the data axes only (gathered whole
+    first), q/k/v column-parallel with each shard's own heads where
     ``attn_shard_size`` allows, ``wo`` and ``w_down`` row-parallel, each
-    followed by a ``psum``; ``lm_head`` column-parallel, its logits
-    all-gathered.  Leaves cut over the data axes are all-gathered before
-    use, a layer's inside its rematerialized body, so the gathers run
-    again in the backward and their transposes are the gradients'
-    reduce-scatters; the attention is the plain one (no kernel).  Logits
-    and aux are then ``Sharded``, each data shard's rows."""
-    if mesh is not None and cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"the placed forward covers {ATTENTION_FAMILIES}")
+    followed by a ``psum``; the Mamba-2 blocks on each shard's heads
+    (``backbone``); whisper's encoder as ``encode_audio(mesh=)``;
+    ``lm_head`` column-parallel, its logits all-gathered.  Leaves cut
+    over the data axes are all-gathered before use, a layer's inside its
+    rematerialized body, so the gathers run again in the backward and
+    their transposes are the gradients' reduce-scatters; the attention
+    and the scan are the plain ones (no kernel).  Logits and aux are
+    then ``Sharded``, each data shard's rows."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     use_kernel = mesh is None and kernel_route(cfg, tokens.device)
@@ -1055,9 +1071,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
         prefix = batch["patch_embeds"].shape[1]
     elif cfg.family == "audio":
         encoder_out = encode_audio(cfg, params, batch["frames"], remat,
-                                   use_kernel)
-        h = h + layers.sinusoidal_positions(S, cfg.d_model,
-                                            tokens.device)[None]
+                                   use_kernel, mesh)
+        h = sharding.smap(lambda x: x + layers.sinusoidal_positions(
+            S, cfg.d_model, x.device)[None], h, mesh=mesh)
     mult = layers.Q_CHUNK if prefix + S >= layers.CHUNKED_ATTN_THRESHOLD \
         else 1
     h = sharding.smap(lambda x: _pad_to_multiple(x, mult)[0], h, mesh=mesh)
@@ -1078,31 +1094,18 @@ def loss_fn(cfg: ModelConfig, params: Params,
     logits, averaged over B * S, plus ``MOE_AUX_COEF`` times the MoE aux
     loss; the forward runs with ``remat``.
 
-    mesh: ``params`` and ``batch`` placed on it (``steps.shardings_for``:
+    mesh: ``params`` and ``batch`` placed on it (``sharding.place_train``:
     FSDP over the data axes x TP over ``model``; the batch cut over the
-    data axes) — each data shard computes its rows' mean loss (on its
-    model shard 0) and the loss is the mean of those means, a 0-d tensor
-    on place 0's device.  The attention families run
-    ``forward(mesh=)``; the others (``model`` = 1 only) gather every
-    leaf over the data axes once and run the meshless loss a data
-    shard."""
+    data axes) — ``forward(mesh=)``, every family; each data shard
+    computes its rows' mean loss (on its model shard 0) and the loss is
+    the mean of those means, a 0-d tensor on place 0's device."""
     if mesh is None:
         logits, aux = forward(cfg, params, batch, remat=True)
         return _xent(logits, batch["labels"]) + MOE_AUX_COEF * aux
-    tp_n = sharding.axes_size(mesh, sharding.TP_AXIS)
     firsts = [g[0] for g in sharding.groups(mesh, sharding.TP_AXIS)]
-    if cfg.family in ATTENTION_FAMILIES:
-        logits, aux = forward(cfg, params, batch, remat=True, mesh=mesh)
-        per = [_xent(logits.parts[k], batch["labels"].parts[k])
-               + MOE_AUX_COEF * aux.parts[k] for k in firsts]
-    elif tp_n > 1:
-        raise NotImplementedError(
-            f"training {cfg.family!r} over a model axis: only the "
-            f"attention families {ATTENTION_FAMILIES} run tensor-parallel")
-    else:
-        whole = gather_data(params)
-        per = [loss_fn(cfg, sharding.local(whole, k),
-                       sharding.local(batch, k)) for k in firsts]
+    logits, aux = forward(cfg, params, batch, remat=True, mesh=mesh)
+    per = [_xent(logits.parts[k], batch["labels"].parts[k])
+           + MOE_AUX_COEF * aux.parts[k] for k in firsts]
     dev0 = per[0].device
     return sum(x.to(dev0) for x in per) / len(per)
 
@@ -1132,21 +1135,26 @@ def gather_data(tree, keep: Callable[[Tuple[str, ...]], bool] = None):
     return walk(tree, ())
 
 
+#: A block's attention leaves (whisper's decoder has two sets).
+ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+
+
 def _gather_layer(cfg: ModelConfig, blk: Params, mesh, heads_cut: bool,
-                  experts_kept: bool) -> Params:
+                  experts_kept: bool = False) -> Params:
     """One layer's leaves ready for use: all-gathered over the data axes
-    (FSDP; not the experts on the manual MoE path), and the attention
-    leaves all-gathered over ``model`` where the heads are not cut (the
-    rule may cut their columns mid-head; every shard then computes every
-    head)."""
+    (FSDP; not the experts on the manual MoE path; a Mamba-2 leaf's
+    component cut stays), and the attention leaves all-gathered over
+    ``model`` where the heads are not cut (the rule may cut their columns
+    mid-head; every shard then computes every head)."""
     def keep(path):
         return experts_kept and "moe" in path and "shared" not in path \
             and path[-1] in ("w_gate", "w_up", "w_down")
     blk = gather_data(blk, keep)
     if heads_cut or sharding.axes_size(mesh, sharding.TP_AXIS) == 1:
         return blk
-    return dict(blk, attn={k: sharding.all_gather(v)
-                           for k, v in blk["attn"].items()})
+    return dict(blk, **{a: {k: sharding.all_gather(v)
+                            for k, v in blk[a].items()}
+                        for a in ATTN_KEYS if a in blk})
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],

@@ -35,15 +35,17 @@ device several times).
     (the data axes: FSDP storage, expert parallelism, the batch; or a
     pipeline's ``stage``), whole over the rest; the ``model`` cut either
     contiguous or by components (``Components``: a Mamba-2 leaf's packed
-    columns, each component cut on its own or held whole);
+    columns, each component cut on its own or held whole), beside a cut
+    over the data axes on another dim or not;
   * ``shard`` / ``place_like`` / ``gather`` / ``to_whole`` cut a tensor
     by its spec and put it back; ``place_serve`` cuts a parameter tree by
     ``param_specs(mode="serve")`` (sanitized, attention whole where the
     KV heads do not divide the axis, the Mamba-2 leaves by
     ``mamba_spec``), ``wave_cache_specs`` places the wave path's caches,
-    ``place_train`` by
-    ``param_specs(mode="train")`` (sanitized), ``place_batch`` a batch
-    over the data axes;
+    ``place_train`` by ``train_placement`` (``param_specs(mode="train")``
+    sanitized, the Mamba-2 leaves cut over ``model`` as ``mamba_spec``
+    cuts them beside the rule's cut over ``data``), ``place_batch`` a
+    batch over the data axes;
   * ``smap`` runs a function on each place's parts;
   * tensors move between places only through the collectives, each over
     an axis (a name or a tuple of names): ``psum`` (partials summed in
@@ -59,7 +61,9 @@ device several times).
     all_to_all's and ppermute's the reverse move;
   * a piece several places hold is one autograd leaf a place in the
     train step (``member_leaves``), its gradients summed explicitly
-    (``sum_replicas``, "grad_sum"), never silently by a shared object.
+    (``sum_replicas``, "grad_sum"), never silently by a shared object —
+    the components a ``Components`` cut holds whole on every model
+    shard included (``sum_components``).
 
 Without a mesh the same calls pass plain tensors through (``smap`` calls
 its function once, the collectives and ``gather`` return their argument,
@@ -107,13 +111,19 @@ class Components(P):
     leaf's [z | x B C | dt] columns), which a contiguous cut would split
     off head boundaries: ``ndim`` dims, ``dim`` over ``model``, cut
     component by component (``comps``) — shard j holds piece j of every
-    cut component and the whole of every other, concatenated in order.
-    Equal, as a tuple, to the plain spec that names ``model`` at
-    ``dim``."""
+    cut component and the whole of every other, concatenated in order —
+    and, with ``rows`` = (axes, dim), another dim cut contiguously over
+    the data axes (FSDP storage).  Equal, as a tuple, to the plain spec
+    that names ``model`` at ``dim`` (and ``axes`` at the rows' dim)."""
 
-    def __new__(cls, ndim: int, dim: int, comps: Comps):
-        self = super().__new__(cls, *(TP_AXIS if i == dim else None
-                                      for i in range(ndim)))
+    def __new__(cls, ndim: int, dim: int, comps: Comps, rows=None):
+        entries = [TP_AXIS if i == dim else None for i in range(ndim)]
+        if rows is not None:
+            if rows[1] == dim:
+                raise ValueError(f"Components: rows {rows} on the model "
+                                 f"dim {dim}")
+            entries[rows[1]] = rows[0]
+        self = super().__new__(cls, *entries)
         self.comps = tuple(comps)
         return self
 
@@ -483,7 +493,8 @@ class Sharded:
     axis.  Places holding the same piece on one device share one object.
     On a (data=1, model=m) mesh it is one part per model shard.
     ``comps``: the ``model`` cut is by components (``Components``), not
-    contiguous; serving leaves only (never cut over other axes)."""
+    contiguous (a Mamba-2 leaf; its ``rows`` cut, if any, on another
+    dim)."""
     parts: Tuple[torch.Tensor, ...]
     dim: Optional[int]
     mesh: Any
@@ -603,9 +614,6 @@ def _spec_cuts(spec: Sequence, mesh):
     ``Components`` spec cuts over ``model`` here)."""
     dim, rows = _cuts(spec, mesh)
     comps = getattr(spec, "comps", None) if dim is not None else None
-    if comps is not None and rows is not None:
-        raise NotImplementedError(f"spec {spec}: a component cut over "
-                                  f"model alone")
     return dim, rows, comps
 
 
@@ -718,14 +726,14 @@ def gather(s: Sharded) -> torch.Tensor:
     as an all_gather moves them, assembled as ``to_whole`` does)."""
     if not isinstance(s, Sharded):
         return s
+    if s.rows is not None:
+        s = all_gather(s, axis=s.rows[0])
     if s.comps is not None:
         m = axes_size(s.mesh, TP_AXIS)
         row = _nbytes(s.parts[0]) // s.parts[0].shape[s.dim]
         _count(s.mesh, "all_gather", (m - 1) * row * sum(
             n for n, cut in s.comps if cut))
         return to_whole(s)
-    if s.rows is not None:
-        s = all_gather(s, axis=s.rows[0])
     if s.dim is not None:
         s = all_gather(s)
     return s.parts[0]
@@ -751,16 +759,21 @@ def to_whole(s) -> torch.Tensor:
     held = {pc: s.parts[k].detach() for k, pc in reversed(
         list(enumerate(pieces)))}
     m = axes_size(s.mesh, TP_AXIS) if s.dim is not None else 1
-    if s.comps is not None:
-        split = [torch.split(held[j, 0].to(dev0),
-                             _local_lengths(s.comps, m), s.dim)
-                 for j in range(m)]
-        return _cat([_cat([sp[c] for sp in split], s.dim) if cut
-                     else split[0][c]
-                     for c, (_, cut) in enumerate(s.comps)], s.dim)
+
+    def across(i):  # row piece i, whole over ``model``
+        if s.comps is not None:
+            split = [torch.split(held[j, i].to(dev0),
+                                 _local_lengths(s.comps, m), s.dim)
+                     for j in range(m)]
+            return _cat([_cat([sp[c] for sp in split], s.dim) if cut
+                         else split[0][c]
+                         for c, (_, cut) in enumerate(s.comps)], s.dim)
+        if m > 1:
+            return _cat([held[j, i].to(dev0) for j in range(m)], s.dim)
+        return held[0, i].to(dev0)
+
     r = axes_size(s.mesh, s.rows[0]) if s.rows else 1
-    by_row = [_cat([held[j, i].to(dev0) for j in range(m)], s.dim)
-              if m > 1 else held[0, i].to(dev0) for i in range(r)]
+    by_row = [across(i) for i in range(r)]
     return _cat(by_row, s.rows[1]) if r > 1 else by_row[0]
 
 
@@ -947,11 +960,13 @@ def _groups_of(s: Sharded, axis):
 
 
 def _drop(s: Sharded, axis, parts) -> Sharded:
-    """``parts`` with ``s``'s cut over ``axis`` removed."""
+    """``parts`` with ``s``'s cut over ``axis`` removed (its components
+    kept while its ``model`` cut is)."""
     axes = set(_axes_tuple(axis))
     dim = None if TP_AXIS in axes else s.dim
     rows = s.rows if s.rows is None or not axes & set(s.rows[0]) else None
-    return Sharded(tuple(parts), dim, s.mesh, rows)
+    return Sharded(tuple(parts), dim, s.mesh, rows,
+                   s.comps if dim is not None else None)
 
 
 def psum(s: Sharded, axis=TP_AXIS) -> Sharded:
@@ -973,14 +988,15 @@ def all_gather(s: Sharded, dim: Optional[int] = None,
     """The members' parts over ``axis`` concatenated along ``dim``
     (default: the dim ``s`` is cut along over ``axis``), on every member:
     each receives the g - 1 parts it lacks.  The backward is the
-    reduce-scatter of the cotangents ("all_gather/bwd").  A plain tensor
-    passes through."""
+    reduce-scatter of the cotangents ("all_gather/bwd").  A component cut
+    gathers over the data axes only (its FSDP dim; the components stay
+    cut).  A plain tensor passes through."""
     if not isinstance(s, Sharded):
         return s
-    if s.comps is not None:
-        raise NotImplementedError("all_gather of a component cut: read it "
-                                  "with gather")
     axes = _axes_tuple(axis)
+    if s.comps is not None and TP_AXIS in axes:
+        raise NotImplementedError("all_gather of a component cut over "
+                                  "model: read it with gather")
     if dim is None:
         dim = s.dim if axes == (TP_AXIS,) else (
             s.rows[1] if s.rows and set(s.rows[0]) <= set(axes) else None)
@@ -1030,16 +1046,78 @@ def broadcast(x, mesh) -> Sharded:
 def sum_replicas(s: Sharded) -> Sharded:
     """Each piece's per-place gradients summed over the places that hold
     that piece (``Sharded.replica_groups``), the sum on every one of them
-    ("grad_sum": an all-reduce, 2 (g - 1) pieces' bytes a group).  The
-    train step's explicit sum for replicated leaves: each place's leaf
-    is its own autograd leaf, so none is summed silently."""
+    ("grad_sum": an all-reduce, 2 (g - 1) pieces' bytes a group), after
+    ``sum_components``.  The train step's explicit sum for replicated
+    leaves: each place's leaf is its own autograd leaf, so none is
+    summed silently."""
     if not isinstance(s, Sharded):
         return s
+    s = sum_components(s)
     axes = s.replicated_axes()
     if not axes:
         return s
     op = _Sum(s.mesh, groups(s.mesh, axes), "grad_sum")
     return s.with_parts(op.fwd(list(s.parts)))
+
+
+def sum_components(s: Sharded) -> Sharded:
+    """Of a ``Components`` cut, the components every model shard holds
+    whole (a Mamba-2 leaf's B and C columns): each shard's heads give
+    them a partial gradient, summed here over ``model`` and handed to
+    every member ("grad_sum", 2 (m - 1) times those columns' bytes a
+    group); the cut components are left as they are.  Anything else
+    passes through."""
+    if not isinstance(s, Sharded) or s.comps is None:
+        return s
+    grps = _groups_of(s, TP_AXIS)
+    whole = [c for c, (_, cut) in enumerate(s.comps) if not cut]
+    if grps is None or not whole:
+        return s
+    lens = _local_lengths(s.comps, len(grps[0]))
+    devs = grid_devices(s.mesh)
+    out = list(s.parts)
+    for g in grps:
+        split = [torch.split(s.parts[k], lens, s.dim) for k in g]
+        dev0 = s.parts[g[0]].device
+        sums = {}
+        for c in whole:
+            acc = split[0][c]
+            for sp in split[1:]:
+                acc = acc + sp[c].to(dev0)
+            _count(s.mesh, "grad_sum", 2 * (len(g) - 1) * _nbytes(acc))
+            sums[c] = acc
+        for i, k in enumerate(g):
+            out[k] = _cat([sums[c].to(devs[k]) if c in sums else split[i][c]
+                           for c in range(len(s.comps))], s.dim)
+    return s.with_parts(out)
+
+
+def elements(x) -> List[torch.Tensor]:
+    """Tensors holding each element of ``x`` once: its distinct pieces
+    (``pieces``), except that of a ``Components`` cut the components
+    every model shard holds whole are taken from model shard 0's pieces
+    only (a global norm's terms)."""
+    if not isinstance(x, Sharded) or x.comps is None:
+        return pieces(x)
+    mi = axis_index(x.mesh, TP_AXIS)
+    lens = _local_lengths(x.comps, axes_size(x.mesh, TP_AXIS))
+    out = []
+    for g in x.replica_groups():
+        p = x.parts[g[0]]
+        if mi[g[0]] == 0:
+            out.append(p)
+        else:
+            out += [t for t, (_, cut) in zip(torch.split(p, lens, x.dim),
+                                             x.comps) if cut]
+    return out
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one place's part of a tensor of ``shape`` placed by
+    ``spec`` on ``mesh`` (component cuts included)."""
+    dim, rows, comps = _spec_cuts(spec, mesh)
+    return _pieces(mesh, dim, rows, tuple(shape), comps)[1]
 
 
 def map_pieces(fn: Callable, *xs):
@@ -1250,10 +1328,42 @@ def place(tree, specs, mesh) -> Any:
     return _map_with_path(one, tree, specs)
 
 
+def train_placement(cfg: ModelConfig, params_shape, mesh) -> Any:
+    """The specs ``place_train`` cuts by: ``train_specs``, except the
+    Mamba-2 leaves, which take ``mamba_spec``'s head-aligned cut over
+    ``model`` (z, x and dt of ``in_proj`` and the conv leaves by heads, B
+    and C whole on every shard; ``A_log`` / ``D`` / ``dt_bias`` /
+    ``norm_scale`` on their heads; ``out_proj`` on its rows; whole where
+    ``mamba_shard_size`` is 1) beside the rule's cut over the data axes
+    (``in_proj``'s rows, ``out_proj``'s columns: FSDP storage), as
+    ``serve_specs`` departs from the serving rule.  ``train_specs`` (the
+    reference's, ``steps.shardings_for``'s) is left as it is."""
+    specs = train_specs(cfg, params_shape, mesh)
+
+    def fix(path, spec, leaf):
+        keys = path.split("/")
+        if "mamba" not in keys:
+            return spec
+        nd = len(leaf.shape)
+        data = [None if TP_AXIS in _axes_tuple(a) else a for a in spec]
+        data += [None] * (nd - len(data))
+        ms = mamba_spec(cfg, mesh, keys[-1], nd)
+        cut = [i for i, a in enumerate(ms) if a is not None]
+        if any(data[i] is not None for i in cut):
+            raise ValueError(f"{path}: {spec} and {ms} cut one dim")
+        if isinstance(ms, Components):
+            rows = [(a, i) for i, a in enumerate(data) if a is not None]
+            return Components(nd, cut[0], ms.comps,
+                              rows[0] if rows else None)
+        return P(*(a if a is not None else b for a, b in zip(ms, data)))
+
+    return _map_with_path(fix, specs, params_shape)
+
+
 def place_train(cfg: ModelConfig, params, mesh) -> Any:
-    """The parameter tree cut by ``train_specs``, leaf by leaf (the twin
-    of ``place_serve`` for the sharded train step)."""
-    return place(params, train_specs(cfg, params, mesh), mesh)
+    """The parameter tree cut by ``train_placement``, leaf by leaf (the
+    twin of ``place_serve`` for the sharded train step)."""
+    return place(params, train_placement(cfg, params, mesh), mesh)
 
 
 def place_batch(cfg: ModelConfig, batch, mesh) -> Any:

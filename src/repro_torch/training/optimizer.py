@@ -13,9 +13,10 @@ returns new tensors and leaves its arguments as they were.
 On placed trees (``parallel.sharding.Sharded`` leaves, the sharded train
 step's) the update is elementwise, so it runs piece by piece: once for
 each distinct piece (``sharding.map_pieces``), its result on every place
-that holds the piece.  The global norm sums each distinct piece's squares
-once — a cut leaf's pieces each once, a replicated leaf once, not once a
-place.
+that holds the piece.  The global norm sums each element's square once
+— a cut leaf's pieces each once, a replicated leaf once, not once a
+place, and a Mamba-2 leaf's B and C columns, which every model shard
+holds whole, once.
 """
 from __future__ import annotations
 
@@ -81,11 +82,13 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32; on a placed
-    tree each distinct piece once, summed on the first leaf's device."""
+    tree each element once (``sharding.elements``: each distinct piece,
+    the components a Mamba-2 leaf holds whole on every model shard from
+    one shard), summed on the first leaf's device."""
     dev = tree_lib.leaves(tree)[0].device
     return torch.sqrt(sum(p.float().square().sum().to(dev)
                           for g in tree_lib.leaves(tree)
-                          for p in sharding.pieces(g)))
+                          for p in sharding.elements(g)))
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params

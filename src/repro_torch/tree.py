@@ -19,19 +19,22 @@ def _is_namedtuple(x) -> bool:
 def flatten(tree) -> List[Tuple[str, Any]]:
     """[(path, leaf)] in the JAX package's leaf order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(x, path):
-        if isinstance(x, dict):
-            for k in sorted(x):
-                walk(x[k], path + (str(k),))
-        elif _is_namedtuple(x):
-            for k in x._fields:
-                walk(getattr(x, k), path + ("." + k,))
-        else:
-            out.append(("/".join(path), x))
-
-    walk(tree, ())
+    _flatten_into(tree, (), out)
     return out
+
+
+def _flatten_into(x, path, out) -> None:
+    # A module-level walk, not a closure: a recursive closure is a
+    # reference cycle that would hold ``out`` — every leaf — until the
+    # garbage collector runs (a train step's whole state on the card).
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _flatten_into(x[k], path + (str(k),), out)
+    elif _is_namedtuple(x):
+        for k in x._fields:
+            _flatten_into(getattr(x, k), path + ("." + k,), out)
+    else:
+        out.append(("/".join(path), x))
 
 
 def leaves(tree) -> List[Any]:
@@ -55,13 +58,14 @@ def unflatten(like, new_leaves) -> Any:
     """``like``'s structure holding ``new_leaves`` (in ``flatten`` order)."""
     it = iter(new_leaves)
     order = {path: next(it) for path, _ in flatten(like)}
+    return _rebuild(like, (), order)
 
-    def walk(x, path):
-        if isinstance(x, dict):
-            return {k: walk(x[k], path + (str(k),)) for k in x}
-        if _is_namedtuple(x):
-            return type(x)(*(walk(getattr(x, k), path + ("." + k,))
-                             for k in x._fields))
-        return order["/".join(path)]
 
-    return walk(like, ())
+def _rebuild(x, path, order):
+    # Module-level for the reason ``_flatten_into`` is.
+    if isinstance(x, dict):
+        return {k: _rebuild(x[k], path + (str(k),), order) for k in x}
+    if _is_namedtuple(x):
+        return type(x)(*(_rebuild(getattr(x, k), path + ("." + k,), order)
+                         for k in x._fields))
+    return order["/".join(path)]

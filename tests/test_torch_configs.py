@@ -31,6 +31,17 @@ PORTED = ("granite-3-8b", "internvl2-26b", "mamba2-1.3b", "phi3-medium-14b",
 DENSE = ("stablelm-1.6b", "phi3-medium-14b", "granite-3-8b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_registry():
     assert tuple(list_archs()) == PORTED == tuple(jax_archs())
 

@@ -51,6 +51,17 @@ STATS = ("preemptions", "cached_prompt_tokens", "prefix_hit_rate",
          "prefill_tokens", "admissions")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trace(name):
     """-> (engine kwargs, [(prompt, budget)])."""
     rng = np.random.default_rng({"mixed": 0, "shared": 1, "tight": 2}[name])

@@ -31,6 +31,17 @@ from repro_torch.kernels.flash_attention.ref import \
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, Sq, Sk, H, Hk, D, dtype, seed=0):
     rng = np.random.default_rng(seed)
     arrays = (rng.standard_normal((B, Sq, H, D)).astype(np.float32),

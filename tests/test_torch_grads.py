@@ -43,6 +43,17 @@ GRAD_TOL = 1e-4
 DECODE_TOL = 1e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_loss_and_grads(cfg, params, batch, remat=True):
     """loss_fn (or the forward with ``remat`` as given) and every leaf's
     gradient by autograd, in ``tree.flatten`` order."""

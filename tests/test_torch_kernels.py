@@ -47,6 +47,17 @@ TOL_REF = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_PALLAS = 2e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16_bits(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.view(torch.int16).numpy().view(np.uint16)

@@ -27,6 +27,17 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def configs():
     jcfg = dataclasses.replace(jax_config("tinyllama-1.1b").reduced(),

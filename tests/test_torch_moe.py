@@ -37,6 +37,17 @@ from torch_parity import (MAX_LEN, MIXED_KW, STATS, TOL,  # noqa: E402
 ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_capacity_matches_jax(arch):
     for cfg in (get_config(arch), get_config(arch).reduced()):

@@ -50,6 +50,17 @@ SHAPES = [(128, 256, 128, 6), (256, 128, 256, 16), (128, 384, 256, 4),
 SPARSITIES = (0.0, 0.3, 0.5, 0.6, 0.7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(a):
     a = np.ascontiguousarray(a)
     return a.view(np.uint8)

@@ -44,6 +44,17 @@ from torch_parity import pair
 AXIS_STATES = ((1, 2), (1, 4), (2, 4), (16, 16))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def cpu_mesh(m):
     return mesh_lib.make_mesh((1, m), ("data", "model"), "cpu")
 

@@ -41,6 +41,17 @@ STOCHASTIC = SamplerConfig(temperature=0.8, top_k=10)
 # -- the proposer ------------------------------------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _histories():
     rng = np.random.default_rng(0)
     out = [[], [7], [7, 7], [5, 6, 7, 9, 5, 6, 7], [1, 2, 8, 1, 2, 4, 1, 2]]

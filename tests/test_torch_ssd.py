@@ -48,6 +48,17 @@ TOL_PALLAS = {"float32": 1e-4, "bfloat16": 1e-1}
 REL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(BH, S, P, N, seed=2):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((BH, S, P)).astype(np.float32) * 0.1,

@@ -44,6 +44,17 @@ CHUNK = 8
 BLOCK_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scan_inputs(seed, b, S, H, P, G, N):
     rng = np.random.default_rng(seed)
     f = np.float32

@@ -10,7 +10,10 @@ rounded alike); the schedule to 1e-7 relative.  Two train steps of the
 reduced families (fp32 params through ``torch_parity.pair``) against
 JAX's ``make_train_step``: loss and grad norm within 1e-4 relative, each
 parameter leaf within 5e-3 of its largest update (measured at most
-1.2e-3, zamba2-7b).  Those steps use ``eps=1e-3``: at AdamW's first step
+1.2e-3, zamba2-7b); the ssm, hybrid and audio families' placed step
+(``make_train_step(mesh=)``) at (data, model) = (1, 2), (2, 2) and (2, 4)
+on meshes that name the CPU several times, against the same JAX steps
+by the same limits.  Those steps use ``eps=1e-3``: at AdamW's first step
 an element moves by sign(g) * lr, so an element whose gradient is at
 fp32 summation-noise level can flip sign between frameworks and move 2
 lr apart at the default eps (measured 7.5e-2 of the update, zamba2-7b);
@@ -38,10 +41,11 @@ from repro.training import optimizer as JO  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import workloads as TW  # noqa: E402
-from repro_torch.launch import steps as TS  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib, steps as TS  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training import data as data_lib  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
@@ -245,28 +249,62 @@ def test_checkpoints_read_across_packages(tmp_path, tiny_pair):
 # Train steps, restart, launcher
 # ---------------------------------------------------------------------------
 
+#: The placed step's (data, model) meshes held to JAX's steps for the
+#: recurrent families (``tests/test_torch_recurrent_train_sharding.py``
+#: holds the rest of it against the meshless port).
+RECURRENT_MESHES = ((1, 2), (2, 2), (2, 4))
+
+
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_two_train_steps_match_jax(arch):
     jcfg, jparams, tcfg, tparams = models_of(arch)
     jb, tb = batches(tcfg)
     oc = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
     jstep = JS.make_train_step(jcfg, JO.AdamWConfig(**oc))
-    tstep = TS.make_train_step(tcfg, TO.AdamWConfig(**oc))
-    jp, jo, tp, to = jparams, JO.init(jparams), tparams, TO.init(tparams)
+    jp, jo, jms = jparams, JO.init(jparams), []
     for _ in range(2):
         jp, jo, jm = jstep(jp, jo, jb)
-        tp, to, tm = tstep(tp, to, tb)
+        jms.append(jm)
+    meshes = [None]
+    if tcfg.family in ("ssm", "hybrid", "audio"):
+        meshes += [mesh_lib.make_mesh(s, ("data", "model"), "cpu")
+                   for s in RECURRENT_MESHES]
+    threads = torch.get_num_threads()
+    try:
+        for mesh in meshes:
+            # The placed steps' many small per-shard ops on one intra-op
+            # thread: the suite's workers share a few cores, where
+            # spinning thread pools slow each other severalfold.
+            torch.set_num_threads(threads if mesh is None else 1)
+            _steps_match(tcfg, tparams, tb, oc, mesh, jms, jp)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _steps_match(tcfg, tparams, tb, oc, mesh, jms, jp):
+    """The port's two steps (over ``mesh`` when given) against JAX's
+    metrics ``jms`` and final parameters ``jp``."""
+    tstep = TS.make_train_step(tcfg, TO.AdamWConfig(**oc), mesh=mesh)
+    tp, batch = tparams, tb
+    if mesh is not None:
+        tp = sharding.place_train(tcfg, tparams, mesh)
+        batch = sharding.place_batch(tcfg, tb, mesh)
+    to = TO.init(tp)
+    for jm in jms:
+        tp, to, tm = tstep(tp, to, batch)
         assert set(tm) == {"loss", "grad_norm", "lr"}
         for k in tm:
-            assert float(tm[k]) == pytest.approx(float(jm[k]), rel=1e-4), k
+            assert float(tm[k]) == pytest.approx(float(jm[k]),
+                                                 rel=1e-4), (mesh, k)
     assert int(to.step) == 2
     for (path, a), b, p0 in zip(tree.flatten(tp), jax.tree.leaves(jp),
                                 tree.leaves(tparams)):
         b = np.asarray(b)
         moved = float(np.abs(b - p0.numpy()).max())
         assert moved > 0, path
-        err = float(np.abs(a.numpy() - b).max())
-        assert err <= 5e-3 * moved, f"{path}: {err:.3g} of {moved:.3g}"
+        err = float(np.abs(sharding.to_whole(a).numpy() - b).max())
+        assert err <= 5e-3 * moved, \
+            f"{mesh} {path}: {err:.3g} of {moved:.3g}"
 
 
 def test_loss_decreases_tinyllama():

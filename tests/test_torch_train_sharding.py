@@ -16,9 +16,9 @@ on meshes that name the CPU several times (one device, several places):
     dispatch groups), at (1, 2) against the meshless port; the manual
     MoE path at (2, 2) and (2, 4) against JAX's ``apply_moe`` by the
     reference's own criterion (``tests/test_moe_manual.py``); ssm,
-    hybrid and audio at (2, 1) against the meshless port.  Tolerances
-    are ``tests/test_torch_train.py``'s: loss and grad norm within 1e-4
-    relative, each leaf within 5e-3 of its largest update;
+    hybrid and audio at (2, 1) and (1, 2) against the meshless port.
+    Tolerances are ``tests/test_torch_train.py``'s: loss and grad norm
+    within 1e-4 relative, each leaf within 5e-3 of its largest update;
   * replicated parts forced to be distinct objects: the explicit sum of
     their gradients holds the step, and without it the step is wrong;
   * bytes: at every mesh (the pod mesh and (2, 4) too) the bytes the
@@ -404,11 +404,12 @@ def test_moe_manual_path_matches_auto(shape):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b",
                                   "whisper-base"])
 def test_recurrent_and_audio_steps_match_meshless(arch, family):
+    """(2, 1) and (1, 2); the other meshes and the JAX step are
+    ``tests/test_torch_recurrent_train_sharding.py``'s."""
     (_, _, tcfg, tparams), _, tb, meshless = family(arch)
-    _close(_port_steps(tcfg, tparams, tb, cpu_mesh((2, 1))), meshless,
-           tparams)
-    with pytest.raises(NotImplementedError):
-        _port_steps(tcfg, tparams, tb, cpu_mesh((1, 2)))
+    for shape in ((2, 1), (1, 2)):
+        _close(_port_steps(tcfg, tparams, tb, cpu_mesh(shape)), meshless,
+               tparams)
 
 
 def _distinct(tree):

@@ -24,6 +24,17 @@ from torch_parity import (MAX_LEN, STATS, TOL, WAVE_STATS,  # noqa: E402
 ARCH = "internvl2-26b"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     return pair(ARCH)

@@ -41,6 +41,17 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs several
+    workers on a few cores, where spinning thread pools slow each other
+    severalfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(rng, shape, dtype):
     j = jnp.asarray(rng.standard_normal(shape).astype(np.float32),
                     JDT[dtype])
