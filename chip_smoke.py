@@ -51,7 +51,8 @@ outside the repository.  Phases, each of which raises on failure:
      half of them, 32 new tokens each at temperature 0.8) on a bf16, an
      int8, an fp8 and an f8 pool (180224 bytes a block), and in
      ``mode="wave"`` (dense stripes, the dense decode kernel) on bf16 and
-     f8 stripes; a bf16 / int8 / f8 trio at the same pool bytes with 16
+     f8 stripes, the trace's first WAVE_REQUESTS = 6 requests (one wave
+     each: cut from 12 for the whole script's time); a bf16 / int8 / f8 trio at the same pool bytes with 16
      lanes (blocks, block bytes, mean live lanes, preemptions, decode
      tok/s of each; the f8 pool twice the bf16 blocks); then under
      ``torch.profiler`` one continuation
@@ -116,7 +117,9 @@ outside the repository.  Phases, each of which raises on failure:
      internvl2-26b also serves 4 requests (two behind images) greedy
      with speculation off and on, checked as in phase 8;
  10. the recurrent families at full width, one at a time as in phase 9
-     (mamba2-1.3b ssm, zamba2-7b hybrid, whisper-base audio): init peak
+     (mamba2-1.3b ssm, zamba2-7b hybrid on RECURRENT_DEPTH's 45 of its 81
+     layers — seven groups of six and the tail of three, cut for the
+     whole script's time — and whisper-base audio): init peak
      memory beside the weights' bytes; the SSD kernel at the model's
      prefill shapes (8 rows x heads folded into rows, at every wave
      prompt length, 16-512 positions, fp32, chunk min(256, S)) against
@@ -162,10 +165,11 @@ outside the repository.  Phases, each of which raises on failure:
  12. tensor-parallel serving over a (data=1, model=m) mesh naming the
      one card m times (each shard its own contiguous weights, pool slice
      and kernel launches; no speedup is expected or claimed): full-width
-     tinyllama-1.1b at 2 and 4 shards, ``prefill_slots`` and
+     tinyllama-1.1b on 11 of its 22 layers (SHARD_LAYERS: the whole
+     script's time) at 2 and 4 shards, ``prefill_slots`` and
      ``decode_step`` logits against the meshless run's within the model
-     checks' limit on bf16 and int8 pools, K2 launched m x 22 times a
-     chunk and K1 m x 22 a decode step, the decode step's collectives
+     checks' limit on bf16 and int8 pools, K2 launched m x layers times a
+     chunk and K1 m x layers a decode step, the decode step's collectives
      moving exactly their psum / all_gather / broadcast bytes (no pool
      byte), and a control that hands shard 1 shard 0's query heads, which
      must fail the limit; K1 and K2 against their plain versions at the
@@ -177,7 +181,7 @@ outside the repository.  Phases, each of which raises on failure:
      printed); the 12-request trace greedy meshless and on a 1-way mesh
      (the same layer loop with and without shards; each twice), at 2 and
      at 4 shards on bf16 and int8 pools (every request ends, no block
-     stays live, launches m x 22 a step or chunk; ms per decode step of
+     stays live, launches m x layers a step or chunk; ms per decode step of
      each, and the share of requests equal to the meshless run's,
      printed: bf16 near-ties flip); then qwen2-moe-a2.7b and
      internvl2-26b at 2 shards: K1 and K2 at their per-shard heads (8
@@ -207,9 +211,11 @@ outside the repository.  Phases, each of which raises on failure:
      of scale, aux within 0.05) with its bytes equal to the count;
  14. waves over a (data=1, model=m) mesh naming the card m times, every
      family (``run_wave_sharded``; each config at full width, freed
-     before the next): tinyllama-1.1b at 2 and 4 shards, qwen2-moe-a2.7b
-     at 2, mamba2-1.3b at 2 and 4, zamba2-7b at 2 (13 of its 81 layers:
-     two groups of six and a tail of one) and whisper-base at 2.  The
+     before the next): tinyllama-1.1b at 2 and 4 shards (11 of its 22
+     layers), qwen2-moe-a2.7b at 2 (12 of 24), mamba2-1.3b at 2 and 4
+     (24 of 48; these three cut for the whole script's time), zamba2-7b
+     at 2 (13 of its 81 layers: two groups of six and a tail of one) and
+     whisper-base at 2.  The
      dense decode kernel at each per-shard head shape (16 over 2 and 8
      over 1 of 64; 8 over 8 of 128; 16 over 16 of 112; 4 over 4 of 64)
      on bf16 and f8 stripes and the SSD kernel at each per-shard row
@@ -246,8 +252,38 @@ outside the repository.  Phases, each of which raises on failure:
      shard, and the B / C gradient partials left unsummed over
      ``model`` — each of which must fail the limits; ms a step and peak
      memory by mesh;
- 16. a ``{"kernels": [...]}`` line, the card line, and the last line
-     ``{"ok": true, "device": {...}}``.
+ 16. serving over a (data, model) mesh with data axes above 1, naming
+     the card d x m times (``run_data_serving``; one controller, lanes
+     cut by their slot over data, each data place on its own replica of
+     the paged pool, whose written rows are gathered to the others):
+     full-width tinyllama-1.1b at (2, 1) and (2, 2) — K1 and K2 at one
+     place's shapes (4 lanes of 8; q (4, 32, 64) and (4, 16, 64)) against
+     their plain versions as in phase 3, and K1, K2 and K3 launched once
+     per data place on its lanes against one launch on all 8 (within
+     TOL; whether bit for bit printed); ``prefill_slots`` and
+     ``decode_step`` logits against the meshless run's within the model
+     checks' limit on bf16, int8 and f8 pools, every data replica of the
+     pool bit for bit the others after a chunk, K1 and K2 launched d x m
+     x 22 times a step or chunk, the bytes of each call equal to
+     ``dryrun.serve_collectives``; a lane on data place 1 reading a
+     shared prefix that place 0 wrote, within the limit, and beyond it
+     with the gather skipped (the control); the 12-request trace greedy
+     meshless and at each mesh on bf16 and int8 pools (every request
+     ends, no block stays live, K1 once a place a layer a step, K2 once
+     a layer for each place holding a chunk's lanes; ms a decode step and
+     the share of requests equal to the meshless run's printed);
+     internvl2-26b at (2, 1) on 12 of its 48 layers (weights' bytes and
+     init peak, the model check on a bf16 pool, 4 requests, two behind
+     images, peak memory); waves — tinyllama-1.1b and mamba2-1.3b at
+     (2, 2), whisper-base at (2, 1): K3 or K4 at one place's rows (2 of
+     a 4-row wave, the shard's heads) against the plain version,
+     ``prefill`` and two ``decode_step``s against meshless within phase
+     14's limits (the recurrent ones on the weights cast to fp32), K4
+     and K3 launched once a place a block or layer, a control handing
+     data place 1 place 0's stripes or states, which must fail the
+     limit, and 4 greedy requests meshless and over the mesh;
+ 17. each phase's seconds, a ``{"kernels": [...]}`` line, the card
+     line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -546,10 +582,11 @@ def split_lengths_check(torch, what, out, ref, lens) -> float:
                         ref[live])
 
 
-def check_decode(torch, cfg, gen, kv_dtype="bf16"):
+def check_decode(torch, cfg, gen, kv_dtype="bf16", lanes=slice(None)):
     """Kernel 1 (bf16 or f8 pool) or its SCLAD body (int8/fp8 pool) vs its
     plain version at the decode step's shapes, then on lengths that
-    straddle the split boundaries; bitwise equal launch to launch."""
+    straddle the split boundaries; bitwise equal launch to launch.
+    ``lanes``: the lanes of the 8 taken (one data place's)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.flash_decode import (
         SPLIT, paged_flash_decode)
@@ -571,6 +608,8 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
     tbl[1, 0] = tbl[2, 0]    # a block shared by two lanes
     live = torch.ones(B, dtype=torch.bool, device=dev)
     live[4] = False
+    q, lens, tbl, live = (x[lanes].contiguous()
+                          for x in (q, lens, tbl, live))
 
     out = paged_flash_decode(q, kp, vp, lens, tbl, kv_scales=scales)
     torch.cuda.synchronize()
@@ -586,6 +625,7 @@ def check_decode(torch, cfg, gen, kv_dtype="bf16"):
                          dtype=torch.int32, device=dev)
     tbl2 = (1 + torch.randperm(N - 1, generator=gen, device=dev)[:B * T]) \
         .reshape(B, T).int()
+    lens2, tbl2 = lens2[lanes].contiguous(), tbl2[lanes].contiguous()
     out2 = paged_flash_decode(q, kp, vp, lens2, tbl2, kv_scales=scales)
     torch.cuda.synchronize()
     ref2 = paged_decode_ref(q, kp, vp, lens2, tbl2, kv_scales=scales)
@@ -637,7 +677,8 @@ SPEC_K = 4         # drafts per verify pass: P = SPEC_K + 1 rows per lane
 VERIFY = "verify"  # check_prefill's case of the speculative verify pass
 
 
-def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
+def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None,
+                  lanes=slice(None)):
     """Kernel 2 (bf16 or f8 pool) or its SCLAD body (int8/fp8 pool) vs its
     plain version at the prefill chunk's shapes with ``heads`` = (H, Hk,
     D): a first chunk, a first chunk behind a 16-position patch prefix
@@ -650,7 +691,8 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     the last row of lane 0 carries F8_PLANTED in kv head 0, so the written
     pool holds values past 448 cast as this PyTorch build casts them.
     ``cases`` picks some of them (default: all but the 256-position prefix
-    and the verify pass)."""
+    and the verify pass); ``lanes`` the lanes of the 8 taken (one data
+    place's)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_prefill.flash_prefill import \
         paged_flash_prefill
@@ -711,6 +753,10 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
             tbl[b, -(-int(st[b] + n_real[b]) // BS):] = 0
         if start is not None:
             tbl[0, 0] = tbl[6, 0]  # a shared, read-only context block
+        q, kn, vn, lens, real, n_real, st, tbl = (
+            x[lanes].contiguous() for x in (q, kn, vn, lens, real, n_real,
+                                            st, tbl))
+        start = None if start is None else st
 
         def call(fn, p):
             sc = None if len(p) == 2 else (p[2], p[3])
@@ -750,7 +796,8 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
             kd = torch.cat([dense_copy(torch, kp, ks, tbl, q.dtype), kd], 1)
             vd = torch.cat([dense_copy(torch, vp, vs, tbl, q.dtype), vd], 1)
             cmask = (torch.arange(ctx, device=dev)[None] < st[:, None])
-            mask = torch.cat([cmask[:, None].expand(B, S, ctx), mask], -1)
+            mask = torch.cat([cmask[:, None].expand(len(st), S, ctx), mask],
+                             -1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kd, vd))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
@@ -770,7 +817,7 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
         # and the prompt tokens are one causal run after the context.
         pairs = sum(int(n_real[b]) * int(st[b])
                     + int(n_real[b]) * (int(n_real[b]) + 1) // 2
-                    for b in range(B))
+                    for b in range(len(st)))
         ops = 4 * H * D * pairs
         bound_ms, bound_by = bound(nbytes, ops)
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
@@ -779,7 +826,8 @@ def check_prefill(torch, heads, gen, kv_dtype="bf16", cases=None):
     return results
 
 
-def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16"):
+def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16",
+                       lanes=slice(None)):
     """Kernel 3 (dense stripes, the wave path's decode) vs its plain
     version: 8 rows of (S, Hk, D) bf16 (or, ``kv_dtype="f8"``, the bf16
     values cast to float8_e4m3fn) stripes at ``heads`` (H, Hk, D)
@@ -788,7 +836,7 @@ def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16"):
     boundaries; bitwise equal launch to launch.  At a D that is not a
     multiple of 32 (zamba2-7b's 112) a control: the plain output with
     its columns past the last multiple of 32 zeroed must fail the
-    check."""
+    check.  ``lanes``: the rows of the 8 taken (one data place's)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode.flash_decode import (
         SPLIT, flash_decode)
@@ -801,6 +849,7 @@ def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16"):
     vc = torch.randn(B, S, Hk, D, generator=gen, device=dev).bfloat16().to(sd)
     lens = torch.tensor([1, 17, 600, 1024, 0, 333, 64, 5],
                         dtype=torch.int32, device=dev)
+    q, kc, vc, lens = (x[lanes].contiguous() for x in (q, kc, vc, lens))
     live = lens > 0
     out = flash_decode(q, kc, vc, lens)
     torch.cuda.synchronize()
@@ -811,7 +860,7 @@ def check_dense_decode(torch, heads, gen, S=MAX_LEN, kv_dtype="bf16"):
     same_launches(torch, what, out, lambda: flash_decode(q, kc, vc, lens))
     lens2 = torch.tensor([SPLIT - 1, SPLIT, SPLIT + 1, S, S + 300,
                           2 * SPLIT - 1, 2 * SPLIT + 1, 0],
-                         dtype=torch.int32, device=dev)
+                         dtype=torch.int32, device=dev)[lanes].contiguous()
     out2 = flash_decode(q, kc, vc, lens2)
     torch.cuda.synchronize()
     err = max(err, split_lengths_check(torch, what, out2,
@@ -1111,7 +1160,7 @@ def first_chunk(torch, cfg, seed):
 
 
 def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False,
-                 mesh=None):
+                 mesh=None, log=None, after_chunk=None):
     """Full-width logits of a first chunk, a continuation's last position
     and a decode step, on a ``kv_dtype`` pool with ``attn_kernel=mode``
     (a vlm first chunk behind random patch embeddings, and its
@@ -1119,7 +1168,9 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False,
     of lane 0's first prompt tokens at the trash block for the decode
     step.  With a ``mesh`` (``params`` placed on it) the pool and every
     step are sharded, and the mesh's byte counters are cleared just
-    before the decode step."""
+    before the decode step; with a ``log`` list they are read into it and
+    cleared after each of the three calls.  ``after_chunk(cache)`` runs
+    after the first chunk."""
     from dataclasses import replace
     from repro_torch.models import model as M
     dev = "cuda"
@@ -1139,16 +1190,28 @@ def model_logits(torch, cfg, params, kv_dtype, mode, wrong=False,
     if wrong:
         dtbl[0, prefix // BS] = 0
     c = replace(cfg, attn_kernel=mode, kv_dtype=kv_dtype)
+    def read():
+        if log is not None:
+            log.append(dict(mesh.moved_bytes))
+            mesh.moved_bytes.clear()
+
     cache = M.init_paged_cache(c, N, BS, device=dev, mesh=mesh)
+    if mesh is not None:
+        mesh.moved_bytes.clear()
     a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl,
                                patch_embeds=patches, mesh=mesh)
+    read()
+    if after_chunk is not None:
+        after_chunk(cache)
     b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl,
                                start=prefix + lens, all_logits=True,
                                mesh=mesh)
+    read()
     if mesh is not None:
         mesh.moved_bytes.clear()
     d, cache = M.decode_step(c, params, cache, tok1, lens + l2,
                              block_tables=dtbl, mesh=mesh)
+    read()
     torch.cuda.synchronize()
     return a.float(), b[:, -1].float(), d[:, 0].float()
 
@@ -1439,9 +1502,15 @@ def check_model(torch, cfg, params, card,
                        on["bf16"], QUANT_GATE[kv_dtype], card, quant_gate)
 
 
+#: Phase 5's wave runs serve the trace's first 6 requests: a wave each
+#: (waves group prompts by length), 192 decode steps, not 384.
+WAVE_REQUESTS = 6
+
+
 def trace(cfg, n=12):
-    """The 12-request trace: 16-600 prompt tokens, a shared 64-token
-    system prefix on every other request."""
+    """The 12-request trace (its first ``n``: the generator draws them
+    in order): 16-600 prompt tokens, a shared 64-token system prefix on
+    every other request."""
     import numpy as np
     rng = np.random.default_rng(0)
     system = rng.integers(1, cfg.vocab_size, size=64)
@@ -1860,11 +1929,16 @@ SSD_ROWS, SSD_REL_FP32 = 8, 1e-5
 #: chunk, one chunk, two), and whisper-base's short transcripts.
 RECURRENT_LENS = (16, 64, 128, 256, 512)
 AUDIO_LENS = (4, 16, 32, 64)
+#: Phase 10's depth cut: zamba2-7b on 45 of its 81 layers (seven groups of
+#: six and the tail of three, every width full), for the script's time.
+RECURRENT_DEPTH = {"zamba2-7b": 45}
 
 
-def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS):
-    """Kernel 4 at ``cfg``'s prefill shapes: SSD_ROWS rows x H heads
-    folded into rows (H / ``ways``: one shard's heads), at every wave
+def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS,
+                    rows=SSD_ROWS):
+    """Kernel 4 at ``cfg``'s prefill shapes: ``rows`` (SSD_ROWS; one data
+    place's) x H heads folded into rows (H / ``ways``: one shard's
+    heads), at every wave
     prompt length (``lens``), fp32
     (what the model hands it: the exact fp32 body), chunk
     min(``ssm.chunk_size``, S) as the model calls it; against the plain
@@ -1876,7 +1950,7 @@ def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS):
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     s = cfg.ssm
     H = s.nheads(cfg.d_model) // ways
-    BH, P, N = SSD_ROWS * H, s.head_dim, s.state_size
+    BH, P, N = rows * H, s.head_dim, s.state_size
     results = {}
     for S in lens:
         chunk = min(s.chunk_size, S)
@@ -1884,7 +1958,7 @@ def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS):
         y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
         y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
         torch.cuda.synchronize()
-        what = f"ssd_scan ({cfg.name} prefill, {SSD_ROWS} x {H}, {S}, fp32)"
+        what = f"ssd_scan ({cfg.name} prefill, {rows} x {H}, {S}, fp32)"
         err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
                   assert_close(torch, what + " state", st, st_ref, SSD_TOL,
                                SSD_TOL))
@@ -1906,7 +1980,7 @@ def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS):
         nbytes, ops = ssd_work(BH, S, P, N, chunk, 4)
         bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
         bf16_bound = bound(ssd_work(BH, S, P, N, chunk, 2)[0], ops)
-        print(f"kernel ssd_scan[{cfg.name} prefill, {SSD_ROWS} x {H} rows, "
+        print(f"kernel ssd_scan[{cfg.name} prefill, {rows} x {H} rows, "
               f"{S} positions, chunk {chunk}] "
               f"[{card}]: max|err| {err:.3g}, per-head relative {rel:.3g} "
               f"(limit {SSD_REL_FP32:g}; control {control:.3g}); fp32 body "
@@ -2038,9 +2112,12 @@ def run_recurrent(torch, arch, gen, card):
     audio cache's stripes, cross K/V included, checked f8).  Returns
     (kernel results, the engine run's launches, the f8 run's or None)."""
     import numpy as np
+    from dataclasses import replace
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     cfg = get_config(arch)
+    if arch in RECURRENT_DEPTH:
+        cfg = replace(cfg, num_layers=RECURRENT_DEPTH[arch])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2469,6 +2546,12 @@ def card_mesh(m, d=1):
     return make_mesh((d, m), ("data", "model"), "cuda")
 
 
+def mesh_name(mesh):
+    """"m-way mesh" for (1, m); "(d, m) mesh" with data axes above 1."""
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    return f"{m}-way mesh" if d == 1 else f"({d}, {m}) mesh"
+
+
 def decode_collective_bytes(cfg, m, nb=4):
     """Bytes model_logits' sharded decode step (nb lanes, T-entry tables)
     must move, pool-free: the embedding's psum and two psums a layer
@@ -2589,10 +2672,12 @@ def run_mesh_trace(torch, cfg, params, card, mesh=None, reqs=None,
     ``kv_dtype`` pool, meshless or over ``mesh`` (``params`` placed
     there), launch counts set to 0 before and read after: every request
     ends with ``max_new`` tokens, pool invariants hold, no block stays
-    live, K1 launches m x layers a decode step and K2 m x layers a chunk.
-    Returns (outputs, ms per decode step, launches)."""
+    live, K1 launches once a place a layer a decode step (every place
+    holds lanes) and K2 once a layer a chunk for each place holding
+    some of the chunk's lanes (``places_with_rows``: every place on a
+    (1, m) mesh).  Returns (outputs, ms per decode step, launches)."""
     from repro_torch.serving.engine import ServingEngine
-    m = 1 if mesh is None else len(mesh.axis_devices())
+    m = 1 if mesh is None else mesh.devices.size
     reqs = trace(cfg) if reqs is None else reqs
     images = [None] * len(reqs) if images is None else images
     eng = ServingEngine(cfg, params, max_batch=B, max_len=MAX_LEN, eos_id=-1,
@@ -2605,20 +2690,22 @@ def run_mesh_trace(torch, cfg, params, card, mesh=None, reqs=None,
     torch.cuda.reset_peak_memory_stats()
     uids = [eng.submit(p, max_new_tokens=max_new, patch_embeds=pe)
             for p, pe in zip(reqs, images)]
-    out = eng.run()
+    with places_with_rows(mesh, B) as calls:
+        out = eng.run()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     s, L = eng.stats, cfg.num_layers
-    what = (f"engine {cfg.name} ({'no mesh' if mesh is None else f'{m}-way mesh'}"
-            f", {kv_dtype}, greedy{what})")
+    where = "no mesh" if mesh is None else mesh_name(mesh)
+    what = f"engine {cfg.name} ({where}, {kv_dtype}, greedy{what})"
     for u in uids:
         if len(out[u]) != max_new:
             raise AssertionError(f"{what}: request {u} returned {out[u]}")
     eng._alloc.check_invariants()
     if eng.live_blocks:
         raise AssertionError(f"{what}: {eng.live_blocks} blocks live")
+    chunks = s.prefill_chunks if mesh is None else sum(calls)
     want = {"paged_flash_decode": m * L * s.decode_steps,
-            "paged_flash_prefill": m * L * s.prefill_chunks,
+            "paged_flash_prefill": L * chunks,
             "flash_decode": 0, "ssd_scan": 0}
     if launches != want or s.decode_steps == 0:
         raise AssertionError(f"{what}: launches {launches}, want {want}")
@@ -2629,6 +2716,34 @@ def run_mesh_trace(torch, cfg, params, card, mesh=None, reqs=None,
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
           f"{launches}")
     return [out[u] for u in uids], ms, launches
+
+
+@contextlib.contextmanager
+def places_with_rows(mesh, width):
+    """A list that gets, for each ``prefill_slots`` call over ``mesh``
+    while the block runs, the places that must run it, counted from the
+    lane slots the engine hands it (its ``lanes`` argument) and not from
+    the port's split: a data index holds the slots s with s // (width /
+    d) equal to it, and each of its m model places runs when it holds
+    one; every place runs every call where d does not divide ``width``
+    (the engine's ``max_batch``).  Empty without a mesh."""
+    from repro_torch.models import model as M
+    calls = []
+    prefill_slots = M.prefill_slots
+
+    def spy(*args, **kwargs):
+        if mesh is not None:
+            d, m = mesh.shape["data"], mesh.shape["model"]
+            slots = kwargs["lanes"].slots
+            calls.append(d * m if width % d else
+                         m * len({s // (width // d) for s in slots}))
+        return prefill_slots(*args, **kwargs)
+
+    M.prefill_slots = spy
+    try:
+        yield calls
+    finally:
+        M.prefill_slots = prefill_slots
 
 
 def per_shard_kernels(torch, cfg, m, gen, card, kv_dtype="bf16",
@@ -2672,15 +2787,21 @@ def sharded_entries(cfg, m, heads, dec, pre, kv_dtype, row, launches):
              max(r["err"] for r in pre.values()))]
 
 
+#: Phase 12's tinyllama-1.1b depth: 11 of its 22 layers (every width
+#: full), to hold the whole script's time.
+SHARD_LAYERS = 11
+
+
 def run_sharded(torch, gen, card):
-    """The tensor-parallel phase: full-width tinyllama-1.1b at 2 and 4
-    shards, then qwen2-moe-a2.7b and internvl2-26b at 2, each mesh naming
-    the one card.  Returns the kernels line's entries
-    (``sharded_entries``)."""
+    """The tensor-parallel phase: full-width tinyllama-1.1b on
+    SHARD_LAYERS layers at 2 and 4 shards, then qwen2-moe-a2.7b and
+    internvl2-26b at 2, each mesh naming the one card.  Returns the
+    kernels line's entries (``sharded_entries``)."""
+    from dataclasses import replace
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding
-    cfg = get_config(ARCH)
+    cfg = replace(get_config(ARCH), num_layers=SHARD_LAYERS)
     params = M.init_params(cfg, seed=0, device="cuda")
     want = {kd: model_logits(torch, cfg, params, kd, "on")
             for kd in ("bf16", "int8")}
@@ -3243,13 +3364,15 @@ def run_mesh_training(torch, gen, card):
     print(f"mesh training phase [{card}]: {time.perf_counter() - t0:.1f} s")
 
 
-#: Phase 15: waves over a model axis.  (config, shard counts); zamba2-7b
-#: at WAVE_DEPTH's 13 of its 81 layers (two groups of six and a tail of
-#: one), every width full.
+#: Phase 14: waves over a model axis.  (config, shard counts), every width
+#: full, on WAVE_DEPTH's layers: zamba2-7b 13 of its 81 (two groups of
+#: six and a tail of one); tinyllama-1.1b 11 of 22, qwen2-moe-a2.7b 12 of
+#: 24 and mamba2-1.3b 24 of 48, to hold the whole script's time.
 WAVE_SHARDS = (("tinyllama-1.1b", (2, 4)), ("qwen2-moe-a2.7b", (2,)),
                ("mamba2-1.3b", (2, 4)), ("zamba2-7b", (2,)),
                ("whisper-base", (2,)))
-WAVE_DEPTH = {"zamba2-7b": 13}
+WAVE_DEPTH = {"zamba2-7b": 13, "tinyllama-1.1b": 11, "qwen2-moe-a2.7b": 12,
+              "mamba2-1.3b": 24}
 #: Sharded vs meshless logits, a share of the meshless logits' range: the
 #: attention families on their bf16 weights (phase 12's limit), the
 #: recurrent ones on the weights cast to fp32 (phase 10's: random bf16
@@ -3274,11 +3397,12 @@ def wave_cfg(arch):
 def wave_steps(torch, cfg, params, mesh=None, control=False):
     """A wave's prefill (4 rows of WAVE_S tokens, 64 by default; whisper
     behind zero frames) and two decode steps, kernels on, over ``mesh``
-    (``params`` placed there).  ``control``: after the prefill shard 1's
-    parts of every stripe and Mamba-2 state take shard 0's (shard 1
-    reads shard 0's heads).  The mesh's byte counters are cleared before
-    the last decode step.  Returns (logits, prefill launches, decode
-    launches)."""
+    (``params`` placed there).  ``control``: after the prefill place 1's
+    parts of every stripe and Mamba-2 state take place 0's (model shard
+    1 reads shard 0's heads); ``control="data"`` the first place of data
+    index 1 takes them (data place 1 reads place 0's rows).  The mesh's
+    byte counters are cleared before the last decode step.  Returns
+    (logits, prefill launches, decode launches)."""
     from dataclasses import replace
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding
@@ -3305,11 +3429,13 @@ def wave_steps(torch, cfg, params, mesh=None, control=False):
             w.launches = 0
         if control:
             from repro_torch.models import kv_quant
+            to = 1 if control is True else mesh.shape["model"]
             for path, x in M.tree_lib.flatten(cache):
                 if path.rsplit("/", 1)[-1] in ("k", "v", "attn_k", "attn_v",
                                                "cross_k", "cross_v",
                                                "state"):
-                    kv_quant.raw(x.parts[1]).copy_(kv_quant.raw(x.parts[0]))
+                    kv_quant.raw(x.parts[to]).copy_(
+                        kv_quant.raw(x.parts[0]))
         out = [first.float()]
         for i in range(2):
             if mesh is not None and i == 1:
@@ -3473,7 +3599,7 @@ def wave_engine(torch, cfg, params, card, mesh=None):
     step, prefill tok/s, launches)."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
-    m = 1 if mesh is None else len(mesh.axis_devices())
+    m = 1 if mesh is None else mesh.devices.size
     rng = np.random.default_rng(5)
     reqs = [rng.integers(1, cfg.vocab_size, size=n)
             for n in WAVE_REQ_LENS.get(cfg.family, (64, 64, 512, 512))]
@@ -3489,8 +3615,9 @@ def wave_engine(torch, cfg, params, card, mesh=None):
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     s = eng.stats
-    name = (f"engine {cfg.name} (wave, {cfg.kv_dtype} stripes, "
-            f"{'no mesh' if mesh is None else f'{m} shards'}, greedy)")
+    where = "no mesh" if mesh is None else mesh_name(mesh)
+    name = f"engine {cfg.name} (wave, {cfg.kv_dtype} stripes, {where}, " \
+        f"greedy)"
     for u in uids:
         if len(out[u]) != 8:
             raise AssertionError(f"{name}: request {u} returned {out[u]}")
@@ -3821,6 +3948,432 @@ def run_recurrent_mesh_training(torch, card):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: serving over a (data, model) mesh with data axes above 1
+# ---------------------------------------------------------------------------
+
+#: The paged meshes (data, model), each naming the card d x m times.
+DATA_MESHES = ((2, 1), (2, 2))
+#: The model checks' pools, and the 12-request trace's.
+DATA_POOLS = ("bf16", "int8", "f8")
+DATA_TRACE_POOLS = ("bf16", "int8")
+#: internvl2-26b at (2, 1) on 12 of its 48 layers (every width full).
+DATA_VLM_DEPTH = 12
+#: Waves over a (data, model) mesh: (config, (data, model)); the
+#: recurrent ones on the weights cast to fp32, as in phase 14.
+DATA_WAVES = (("tinyllama-1.1b", (2, 2)), ("mamba2-1.3b", (2, 2)),
+              ("whisper-base", (2, 1)))
+#: One data place's lanes of the kernel checks' 8 at d = 2 (place 1's
+#: four: a dead lane among them), and of a 4-row wave (two).
+PLACE_LANES, PLACE_WAVE_ROWS = slice(4, 8), slice(2, 4)
+
+
+def split_vs_one(torch, heads, gen):
+    """K1, K2 (a continuation) and K3 launched once per data place on its
+    lanes (the 8 lanes cut 4 / 4) against one launch on all 8: each
+    place's output within TOL of the matching rows, and the written pool
+    bit for bit.  Returns {kernel: whether the outputs are bit for bit}
+    (printed)."""
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        flash_decode, paged_flash_decode)
+    from repro_torch.kernels.flash_prefill.flash_prefill import \
+        paged_flash_prefill
+    dev, (H, Hk, D) = "cuda", heads
+    N = B * T + 1
+    halves = (slice(0, B // 2), slice(B // 2, B))
+    kp, _ = make_pool(torch, gen, N, Hk, D, "bf16")
+    vp, _ = make_pool(torch, gen, N, Hk, D, "bf16")
+    tbl = (1 + torch.randperm(N - 1, generator=gen, device=dev)[:B * T]) \
+        .reshape(B, T).int()
+    lens = torch.tensor([1, 17, 600, 1024, 700, 333, 64, 5],
+                        dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
+    same = {}
+
+    def compare(name, whole, parts):
+        got = torch.cat(parts)
+        assert_close(torch, f"{name} per data place vs one launch", got,
+                      whole)
+        same[name] = same_bits(torch, got, whole)
+
+    compare("K1", paged_flash_decode(q, kp, vp, lens, tbl),
+            [paged_flash_decode(q[h].contiguous(), kp, vp,
+                                lens[h].contiguous(), tbl[h].contiguous())
+             for h in halves])
+    st = torch.tensor([64, 5, 16, 300, 31, 600, 64, 1], dtype=torch.int32,
+                      device=dev)
+    cl = torch.tensor([128, 1, 77, 16, 128, 3, 100, 50], dtype=torch.int32,
+                      device=dev)
+    qc = torch.randn(B, CHUNK, H, D, generator=gen, device=dev).bfloat16()
+    kn, vn = (torch.randn(B, CHUNK, Hk, D, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    pools = [[kp.clone(), vp.clone()] for _ in range(2)]
+    whole = paged_flash_prefill(qc, kn, vn, *pools[0], cl, tbl, start=st)[0]
+    parts = [paged_flash_prefill(
+        qc[h].contiguous(), kn[h].contiguous(), vn[h].contiguous(),
+        *pools[1], cl[h].contiguous(), tbl[h].contiguous(),
+        start=st[h].contiguous())[0] for h in halves]
+    real = torch.arange(CHUNK, device=dev)[None] >= (CHUNK - cl)[:, None]
+    compare("K2", whole[real], [p[real[h]] for p, h in zip(parts, halves)])
+    if not all(same_bits(torch, a, b) for a, b in zip(*pools)):
+        raise AssertionError("K2 per data place: the written pool differs "
+                             "from one launch's")
+    kc, vc = (torch.randn(B, MAX_LEN, Hk, D, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    compare("K3", flash_decode(q, kc, vc, lens),
+            [flash_decode(q[h].contiguous(), kc[h], vc[h],
+                          lens[h].contiguous()) for h in halves])
+    torch.cuda.synchronize()
+    return same
+
+
+def data_kernels(torch, cfg, gen, card):
+    """K1 and K2 on a bf16 pool at tinyllama-1.1b's per-place shapes of
+    DATA_MESHES (data place 1's 4 lanes of 8, every head at (2, 1), one
+    model shard's at (2, 2)) against their plain versions as in phase 3,
+    and ``split_vs_one`` at each.  Returns {(d, m): (heads, K1 result,
+    K2 results)}."""
+    from dataclasses import replace
+    from repro_torch.parallel import sharding
+    out = {}
+    for d, m in DATA_MESHES:
+        a = sharding.attn_shard_size(card_mesh(m, d=d), cfg.num_kv_heads)
+        heads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
+        dec = check_decode(torch, replace(cfg, num_heads=heads[0],
+                                          num_kv_heads=heads[1]), gen,
+                           lanes=PLACE_LANES)
+        pre = check_prefill(torch, heads, gen, cases=("first",
+                                                      "continuation"),
+                            lanes=PLACE_LANES)
+        same = split_vs_one(torch, heads, gen)
+        print(f"kernels {cfg.name} at {(d, m)}, one place's 4 lanes, heads "
+              f"{heads} [{card}]: per data place vs one launch on all 8 "
+              f"lanes, bit for bit: {same}")
+        for name, r in [(f"paged_flash_decode[q (4, {heads[0]}, "
+                         f"{heads[2]})]", dec)] + [
+                (f"paged_flash_prefill[{k}, 4 lanes, heads {heads}]", v)
+                for k, v in pre.items()]:
+            print(f"kernel {name} [{card}]: max|err| {r['err']:.3g}; kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']}){rates(r)}")
+        out[d, m] = heads, dec, pre
+    return out
+
+
+def replicas_equal(torch, cache, mesh, what):
+    """Every data replica of every pool leaf bit for bit the others' (the
+    trash block, each replica's own sink, aside)."""
+    from repro_torch.models import kv_quant
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    for k, x in cache.items():
+        for j in range(m):
+            ref = kv_quant.raw(x.parts[j])[:, 1:]
+            for i in range(1, d):
+                if not torch.equal(kv_quant.raw(x.parts[i * m + j])[:, 1:],
+                                   ref):
+                    raise AssertionError(f"{what}: {k} replica {i} of model "
+                                         f"shard {j} differs")
+
+
+def data_logits(torch, cfg, placed, kv_dtype, mesh, want, card):
+    """model_logits over ``mesh`` held to the meshless ``want`` within
+    check_model's limit: after the first chunk every data replica of the
+    pool equal to the others bit for bit; K2 launched d x m x layers
+    times a chunk and K1 d x m x layers a decode step (4 lanes: every
+    place holds some); the bytes of each call equal
+    ``dryrun.serve_collectives``.  Returns the worst share."""
+    from dataclasses import replace
+    from repro_torch.launch import dryrun
+    n, L = mesh.devices.size, cfg.num_layers
+    name = f"{cfg.name} {kv_dtype} pool, {mesh_name(mesh)} vs none"
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    log = []
+    got = model_logits(torch, cfg, placed, kv_dtype, "on", mesh=mesh,
+                       log=log, after_chunk=lambda c: replicas_equal(
+                           torch, c, mesh, f"{name}, after a chunk"))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if launches != {"paged_flash_decode": n * L,
+                    "paged_flash_prefill": 2 * n * L,
+                    "flash_decode": 0, "ssd_scan": 0}:
+        raise AssertionError(f"{name}: launches {launches}")
+    c = replace(cfg, kv_dtype=kv_dtype)
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    lens, l2 = (64, 40, 9, 1), (16, 3, 16, 1)
+    kw = dict(table_width=T, act=2, token_bytes=8)
+    count = [dryrun.serve_collectives(c, mesh, 4, chunk=64, written=sum(
+                 lens) + 4 * prefix, **kw),
+             dryrun.serve_collectives(c, mesh, 4, chunk=16, written=sum(l2),
+                                      first=False, all_logits=True, **kw),
+             dryrun.serve_collectives(c, mesh, 4, written=4, active=False,
+                                      **kw)]
+    print(f"bytes between places {name} [{card}]: first chunk, "
+          f"continuation, decode step {log}")
+    if log != count:
+        raise AssertionError(f"{name}: moved {log}, count {count}")
+    return compare_logits(torch, name, got, want, 0.05, card)
+
+
+def prefix_read(torch, cfg, params, mesh=None, gather=True):
+    """Lane 0 (data place 0 of 2 over 8 lanes) prefills 64 tokens into
+    blocks 1-4; lanes 1 (place 0) and 4 (place 1) then continue 16
+    tokens each from those blocks.  Returns lane 4's last-position
+    logits; ``gather=False`` skips copying place 0's written rows to the
+    other replicas."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    dev, c = "cuda", replace(cfg, attn_kernel="on")
+    rng = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64), generator=rng,
+                         device=dev)
+    tbl = torch.zeros(2, T, dtype=torch.int32, device=dev)
+    tbl[:, :4] = torch.arange(1, 5, dtype=torch.int32, device=dev)
+    tbl[0, 4], tbl[1, 4] = 5, 6
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    cache = M.init_paged_cache(c, 7, BS, device=dev, mesh=mesh)
+    keep = sharding.gather_writes
+    if not gather:
+        sharding.gather_writes = lambda *a: None
+    try:
+        M.prefill_slots(c, params, cache, toks[:1], i32(64), tbl[:1],
+                        mesh=mesh, lanes=sharding.Lanes((0,), B))
+        out, _ = M.prefill_slots(c, params, cache, toks[:, :16], i32(16, 16),
+                                 tbl, start=i32(64, 64), mesh=mesh,
+                                 lanes=sharding.Lanes((1, 4), B))
+    finally:
+        sharding.gather_writes = keep
+    torch.cuda.synchronize()
+    return out[1:].float()
+
+
+def gather_control(torch, cfg, params, placed, mesh, card):
+    """prefix_read over ``mesh`` within 5% of the meshless logits' range;
+    with the gather of written rows skipped (lane 4 on data place 1 reads
+    place 0's prefix blocks as its replica's zeros) beyond it."""
+    want = prefix_read(torch, cfg, params)
+    name = f"{cfg.name} shared prefix read across data places, " \
+        f"{mesh_name(mesh)} vs none"
+    compare_logits(torch, name, [prefix_read(torch, cfg, placed, mesh)],
+                   [want], 0.05, card, names=("lane 4",))
+    bad = compare_logits(torch, name + " control (gather skipped)",
+                         [prefix_read(torch, cfg, placed, mesh, False)],
+                         [want], 0.05, card, enforce=False,
+                         names=("lane 4",))
+    if bad <= 0.05:
+        raise AssertionError(f"{name}: the check cannot see a replica "
+                             f"missing another place's writes")
+
+
+def run_data_paged(torch, gen, card):
+    """Phase 16's paged part: full-width tinyllama-1.1b at DATA_MESHES —
+    ``data_kernels``; ``data_logits`` on bf16, int8 and f8 pools against
+    the meshless run; ``gather_control``; the 12-request trace greedy on
+    bf16 and int8 pools meshless and at each mesh (``run_mesh_trace``:
+    every request ends, no block stays live, K1 once a place a layer a
+    decode step, K2 once a layer for each place holding some of a
+    chunk's lanes; ms a decode step and the share of requests equal to
+    the meshless run printed).  Then internvl2-26b at (2, 1) on
+    DATA_VLM_DEPTH layers: the weights' bytes and init peak, the model
+    check on a bf16 pool, 4 requests (two behind images).  Returns its
+    kernels-line entries."""
+    from dataclasses import replace
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    cfg = get_config(ARCH)
+    kernels = data_kernels(torch, cfg, gen, card)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    want = {kd: model_logits(torch, cfg, params, kd, "on")
+            for kd in DATA_POOLS}
+    runs = {(1, 1, kd): run_mesh_trace(torch, cfg, params, card, kv_dtype=kd)
+            for kd in DATA_TRACE_POOLS}
+    worst = {}
+    for d, m in DATA_MESHES:
+        mesh = card_mesh(m, d=d)
+        placed = sharding.place_serve(cfg, params, mesh)
+        for kd in DATA_POOLS:
+            worst[d, m, kd] = data_logits(torch, cfg, placed, kd, mesh,
+                                          want[kd], card)
+        gather_control(torch, cfg, params, placed, mesh, card)
+        for kd in DATA_TRACE_POOLS:
+            runs[d, m, kd] = run_mesh_trace(torch, cfg, placed, card, mesh,
+                                            kv_dtype=kd)
+        del placed
+    for (d, m, kd), run in runs.items():
+        if d > 1:
+            same = sum(a == b for a, b in zip(runs[1, 1, kd][0], run[0])) \
+                / len(run[0])
+            print(f"engine {ARCH} {kd}, {(d, m)} vs no mesh, greedy "
+                  f"[{card}]: {same:.2f} of requests token for token equal "
+                  f"(printed: bf16 near-ties flip)")
+    print(f"engine {ARCH} ms per decode step [{card}]: " + ", ".join(
+        f"{'no mesh' if d == 1 else (d, m)} {kd} {r[1]:.2f}"
+        for (d, m, kd), r in runs.items()))
+    print(f"model check {ARCH} over data axes [{card}]: worst share of the "
+          f"range " + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()))
+    del params
+    torch.cuda.empty_cache()
+
+    entries = []
+    src = {"decode": ("src/repro_torch/csrc/paged_decode.cu",
+                      "src/repro/kernels/flash_decode/flash_decode.py:183"),
+           "prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                       "src/repro/kernels/flash_prefill/flash_prefill.py"
+                       ":231")}
+    for d, m in DATA_MESHES:
+        heads, dec, pre = kernels[d, m]
+        launches = runs[d, m, "bf16"][2]
+        tag = f"{ARCH}, {(d, m)} place, 4 lanes, heads {heads}"
+        entries += [kernel_entry(f"paged_flash_decode[{tag}]",
+                                 *src["decode"],
+                                 launches["paged_flash_decode"], dec),
+                    kernel_entry(f"paged_flash_prefill[{tag}]",
+                                 *src["prefill"],
+                                 launches["paged_flash_prefill"],
+                                 pre["continuation"],
+                                 err=max(r["err"] for r in pre.values()))]
+
+    vcfg = replace(get_config(VLM_ARCH), num_layers=DATA_VLM_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vparams = M.init_params(vcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    print(f"params {vcfg.name}, {DATA_VLM_DEPTH} layers [{card}]: "
+          f"{held / 2**30:.2f} GiB, init peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB")
+    vwant = model_logits(torch, vcfg, vparams, "bf16", "on")
+    mesh = card_mesh(1, d=2)
+    placed = sharding.place_serve(vcfg, vparams, mesh)
+    data_logits(torch, vcfg, placed, "bf16", mesh, vwant, card)
+    torch.cuda.reset_peak_memory_stats()
+    run = run_mesh_trace(torch, vcfg, placed, card, mesh,
+                         reqs=trace(vcfg, 4), images=images(vcfg, 4),
+                         max_new=16)
+    print(f"engine {vcfg.name} {DATA_VLM_DEPTH} layers (2, 1) [{card}]: "
+          f"{run[1]:.2f} ms a decode step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights "
+          f"{held / 2**30:.2f} GiB, one copy for both data places)")
+    del vparams, placed
+    torch.cuda.empty_cache()
+    return entries
+
+
+def run_data_waves(torch, arch, shape, gen, card):
+    """Phase 16's waves for one config at full width over a (data, model)
+    mesh: K3 and K4 at one place's shapes (2 rows of the wave's 4, the
+    shard's heads) against their plain versions; ``wave_steps`` over the
+    mesh against meshless within WAVE_SHARE (the recurrent families on
+    the weights cast to fp32), K4 once a place a Mamba-2 block in the
+    prefill and K3 once a place an attention layer a decode step; a
+    control handing data place 1 place 0's stripes and states, which
+    must fail the limit; 4 greedy requests meshless and over the mesh
+    (``wave_engine``).  Returns its kernels-line entries."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    from repro_torch.configs.base import get_config
+    d, m = shape
+    cfg = get_config(arch)
+    mesh = card_mesh(m, d=d)
+    attn, ssm = recurrent_layers(cfg)
+    res = {}
+    if attn:
+        a = sharding.attn_shard_size(mesh, cfg.num_kv_heads)
+        heads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
+        res["flash_decode", heads] = check_dense_decode(
+            torch, heads, gen, lanes=PLACE_WAVE_ROWS)
+    if ssm:
+        ways = sharding.mamba_shard_size(mesh, cfg)
+        res["ssd_scan", cfg.ssm.nheads(cfg.d_model) // ways] = \
+            check_ssd_model(torch, cfg, gen, card, ways=ways,
+                            lens=WAVE_SSD_LENS, rows=2)[max(WAVE_SSD_LENS)]
+    params = M.init_params(cfg, seed=0, device="cuda")
+    recurrent = cfg.family in ("ssm", "hybrid", "audio")
+    p = as_fp32(params) if recurrent else params
+    want = wave_steps(torch, cfg, p, None)[0]
+    placed = sharding.place_serve(cfg, p, mesh)
+    got, pre, dec = wave_steps(torch, cfg, placed, mesh)
+    n = mesh.devices.size
+    name = f"{cfg.name} wave, {shape} vs none"
+    zero = {"paged_flash_decode": 0, "paged_flash_prefill": 0}
+    if pre != {**zero, "flash_decode": 0, "ssd_scan": n * ssm} or \
+            dec != {**zero, "flash_decode": 2 * n * attn, "ssd_scan": 0}:
+        raise AssertionError(f"{name}: launches prefill {pre}, decode {dec}")
+    print(f"waves {name} [{card}]: K4 {pre['ssd_scan']} launches in the "
+          f"prefill ({n} places x {ssm} blocks), K3 {dec['flash_decode']} "
+          f"in two decode steps ({n} places x {attn} layers x 2); bytes "
+          f"of the last step {dict(mesh.moved_bytes)}")
+    share = WAVE_SHARE[cfg.family]
+    compare_logits(torch, name, got, want, share, card,
+                   names=("prefill", "decode 1", "decode 2"))
+    bad = wave_steps(torch, cfg, placed, mesh, control="data")[0]
+    ctl = max((x - y).abs().max().item() / (y.max() - y.min()).item()
+              for x, y in zip(bad, want))
+    print(f"model check {name} control (data place 1 handed place 0's "
+          f"{'states' if ssm else 'stripes'}) [{card}]: worst max|diff| "
+          f"{ctl:.4g} of the range (must exceed {share})")
+    if ctl <= share:
+        raise AssertionError(f"{name}: the check cannot see a data place "
+                             f"reading another's rows")
+    del placed, p
+    torch.cuda.empty_cache()
+    solo = wave_engine(torch, cfg, params, card)
+    run = wave_engine(torch, cfg, sharding.place_serve(cfg, params, mesh),
+                      card, mesh)
+    same = sum(a == b for a, b in zip(solo[0], run[0])) / len(run[0])
+    print(f"engine {cfg.name} wave, {shape} vs none, greedy [{card}]: "
+          f"{same:.2f} of requests token for token equal; ms a decode step "
+          f"{solo[1]:.2f} / {run[1]:.2f}, prefill tok/s {solo[2]:.1f} / "
+          f"{run[2]:.1f}")
+    del params
+    torch.cuda.empty_cache()
+    entries = []
+    for (kernel, what), r in res.items():
+        if kernel == "flash_decode":
+            entries.append(kernel_entry(
+                f"flash_decode[{cfg.name}, {shape} place, 2 rows, heads "
+                f"{what}]", "src/repro_torch/csrc/dense_decode.cu",
+                "src/repro/kernels/flash_decode/flash_decode.py:78",
+                run[3]["flash_decode"], r))
+        else:
+            entries.append(kernel_entry(
+                f"ssd_scan[{cfg.name}, {shape} place, 2 x {what} rows, "
+                f"{max(WAVE_SSD_LENS)}]", "src/repro_torch/csrc/ssd_scan.cu",
+                "src/repro/kernels/ssd_scan/ssd_scan.py:66",
+                run[3]["ssd_scan"], r))
+    return entries
+
+
+def run_data_serving(torch, gen, card):
+    """Phase 16: serving over (data, model) meshes naming the card d x m
+    times — ``run_data_paged``, then ``run_data_waves`` for each of
+    DATA_WAVES.  Returns the kernels-line entries."""
+    entries = run_data_paged(torch, gen, card)
+    for arch, shape in DATA_WAVES:
+        entries += run_data_waves(torch, arch, shape, gen, card)
+    return entries
+
+
+#: Each phase's seconds, in the order the phases ran.
+PHASE_SECONDS = {}
+_LAST_MARK = [time.perf_counter()]
+
+
+def mark(phase):
+    """Record and print the seconds since the previous mark as ``phase``'s
+    (the first mark counts from the script's start)."""
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = now - _LAST_MARK[0]
+    _LAST_MARK[0] = now
+    print(f"phase {phase}: {PHASE_SECONDS[phase]:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, r, err=None):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=r["err"] if err is None
@@ -3845,6 +4398,7 @@ def main() -> int:
           f"{torch.version.cuda}); nvidia-smi: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mark("1. device report")
 
     # 2. Build, and what ptxas reports: registers (fewest-most over the
     # template instances) and spill bytes.
@@ -3868,6 +4422,7 @@ def main() -> int:
           f"{'+-448' if kv_quant.f8_saturates('cuda') else 'NaN'} / "
           f"{'+-448' if kv_quant.f8_saturates('cpu') else 'NaN'}; the "
           f"prefill kernel's f8 scatter follows the card's")
+    mark("2. build")
 
     # 3. Kernel checks.
     cfg = get_config(ARCH)
@@ -3924,6 +4479,7 @@ def main() -> int:
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}){rates(r) if 'ops' in r else ''}")
+    mark("3. kernel checks")
 
     # 6. The last three kernels at full width, beside the other checks.
     sclad = check_sclad(torch, cfg)
@@ -3939,6 +4495,7 @@ def main() -> int:
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
               f"{rates(r) if 'ops' in r else ''}")
+    mark("6. the last three kernels")
 
     # 4. Model checks, full width.
     t0 = time.perf_counter()
@@ -3946,6 +4503,7 @@ def main() -> int:
     print(f"params: {M.param_count(cfg) / 1e9:.3f} B bf16 in "
           f"{time.perf_counter() - t0:.1f} s")
     check_model(torch, cfg, params, card)
+    mark("4. model checks")
 
     # 5. The main path, one run per pool encoding and mode, then the
     # same-bytes trio and a profile of the bf16 engine's decode step.
@@ -3954,7 +4512,8 @@ def main() -> int:
                            ("fp8", "auto"), ("f8", "auto"), ("bf16", "wave"),
                            ("f8", "wave")):
         launches[kv_dtype, mode], eng = run_engine(
-            torch, cfg, params, card, kv_dtype=kv_dtype, mode=mode)
+            torch, cfg, params, card, kv_dtype=kv_dtype, mode=mode,
+            reqs=trace(cfg, WAVE_REQUESTS) if mode == "wave" else None)
         if (kv_dtype, mode) == ("bf16", "auto"):
             bf16_engine = eng
         if (kv_dtype, mode) == ("f8", "auto") and \
@@ -3964,9 +4523,11 @@ def main() -> int:
     run_same_bytes_pair(torch, cfg, params, card)
     profile_prefill(torch, bf16_engine, cfg, card)
     profile_decode(torch, bf16_engine, cfg, card)
+    mark("5. engine runs")
 
     # 7. The last three kernels' entry points.
     slice3 = run_slice3_entry_points(torch, cfg, gen, card)
+    mark("7. entry points")
 
     # 8. Speculative decoding and the async front end: the prefill kernel
     # at the verify pass's shape on every pool, the verify pass against
@@ -3986,36 +4547,48 @@ def main() -> int:
     spec = {kd: run_spec(torch, cfg, params, card, kv_dtype=kd)
             for kd in ("bf16", "int8", "f8")}
     run_launcher(torch, card)
+    mark("8. speculation and the async front end")
 
     # 9. The other attention families at full width, one at a time.
     del params, bf16_engine, eng
     family = {arch: run_family(torch, arch, card)
               for arch in (MOE_ARCH, VLM_ARCH) + DENSE_ARCHS}
+    mark("9. the other attention families")
 
     # 10. The recurrent families at full width, one at a time.
     recurrent = {arch: run_recurrent(torch, arch, gen, card)
                  for arch in (SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH)}
+    mark("10. the recurrent families")
 
     # 11. Training on one card.
     k5_fwd, k5_fwd_launches, _ = run_training(torch, gen, card)
+    mark("11. training")
 
     # 12. Tensor-parallel serving over a model axis of 2 and 4 shards on
     # the one card.
     sharded = run_sharded(torch, gen, card)
+    mark("12. tensor-parallel serving")
 
     # 13. Training over a (data, model) mesh on the one card.
     run_mesh_training(torch, gen, card)
+    mark("13. training over a mesh")
 
     # 14. Waves over a model axis of 2 and 4 shards on the one card, every
     # family.
     waves = {arch: run_wave_sharded(torch, arch, ways, gen, card)
              for arch, ways in WAVE_SHARDS}
+    mark("14. waves over a model axis")
 
     # 15. The recurrent families' training over a (data, model) mesh on
     # the one card.
     run_recurrent_mesh_training(torch, card)
+    mark("15. recurrent training over a mesh")
 
-    # 16. Result lines.  The quantized bodies report their int8 times (fp8
+    # 16. Serving over a (data, model) mesh on the one card.
+    data = run_data_serving(torch, gen, card)
+    mark("16. serving over a (data, model) mesh")
+
+    # 17. Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)
@@ -4140,6 +4713,7 @@ def main() -> int:
     for name, kernel, quant, n, r, err in sharded:
         kernels.append(kernel_entry(name, *lines[kernel, quant], n, r, err))
     kernels += wave_entries(waves)
+    kernels += data
     kernels.append(kernel_entry(
         f"flash_attention[forward, B={TRAIN_B}]",
         "src/repro_torch/csrc/flash_attention.cu",
@@ -4154,6 +4728,9 @@ def main() -> int:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{k['name']}: {key} is {v}")
+    print(f"phase seconds [{card}]: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; total {sum(PHASE_SECONDS.values()):.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

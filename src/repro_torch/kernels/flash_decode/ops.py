@@ -19,9 +19,12 @@ and, as ``kernel=``, the SCLD matmul of ``SCLDLinear``.
 A paged pool or dense stripes placed over a mesh (a
 ``parallel.sharding.Sharded``: ``model.init_paged_cache(mesh=)``,
 ``model.init_cache(mesh=)`` or ``sharding.shard``) are read once per
-shard (``_sharded_decode``): each shard calls this same single-device
-entry on its contiguous Hk/m slice and H/m query heads, so on the card
-each shard launches the kernel at its own head counts.
+place (``_sharded_decode``): each place calls this same single-device
+entry on its contiguous Hk/m slice and H/m query heads — and, over data
+axes above 1, on its own lanes' rows (its pool replica, or its rows of
+the stripes) — so on the card each place with lanes launches the kernel
+at its own head and row counts; a place without lanes launches
+nothing.
 """
 from __future__ import annotations
 
@@ -111,12 +114,12 @@ def _sharded_decode(q, k_cache, v_cache, lengths, block_tables, kernel,
     changes no arithmetic: shard i reads its contiguous Hk/m slice with
     the matching contiguous H/m query heads (head h attends kv head
     h // rep, and contiguous cuts keep rep per shard).  Tables and
-    lengths are broadcast, so every shard walks the same table or
-    positions; no cache byte moves.  A cache whole on every shard gives
-    each shard every head.  A plain q is placed by ``paged_attn_specs``
-    and the output gathered back on the head axis; a ``Sharded`` q (the
-    model's path) gets the per-shard outputs.  f8 stripes go to each
-    shard's launch as they are (kind 3).
+    lengths are placed as q is: every model shard of a data index walks
+    its lanes' tables or positions; no cache byte moves.  A cache whole
+    on every shard gives each shard every head.  A plain q is placed by
+    ``paged_attn_specs`` and the output gathered back on the head axis; a
+    ``Sharded`` q (the model's path) gets the per-shard outputs.  f8
+    stripes go to each shard's launch as they are (kind 3).
     """
     mesh, cut = k_cache.mesh, k_cache.dim is not None
     qs = sharding.shard(q, sharding.paged_attn_specs()["q_decode"] if cut

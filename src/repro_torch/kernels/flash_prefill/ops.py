@@ -5,8 +5,10 @@ serving engine's prefill chunks) calls once per layer.  The
 ``attn_kernel`` knob (``kernels.flash_decode.ops.resolve_kernel``) picks
 the CUDA kernel or the plain PyTorch version, as on the decode side.
 Pools placed over a mesh (``parallel.sharding.Sharded``) run the call
-once per shard (``_sharded_paged_prefill``), each shard on its own
-contiguous head slice of the pools, which it writes in place.
+once per place (``_sharded_paged_prefill``), each on its own contiguous
+head slice of its pool replica, which it writes in place, and on its
+lanes' rows (over data axes above 1; a place without lanes launches
+nothing).
 """
 from __future__ import annotations
 
@@ -69,10 +71,13 @@ def _sharded_paged_prefill(q, k_new, v_new, k_pool, v_pool, lengths,
     The pools are inputs and outputs (the scatter is fused in): each
     shard writes the chunk's K/V of its own Hk/m heads into its own pool
     slice, in place, so the shards' pools together are the single-device
-    write and no pool byte moves.  The output is (B, S, H*D) head-major,
-    so the shards' outputs concatenate on the last axis in head order.
-    Tables, lengths and start are broadcast.  Plain q / k_new / v_new
-    are placed by ``paged_attn_specs`` and the output gathered; a
+    write and no pool byte moves here (over data axes above 1 each data
+    place writes its lanes' rows into its replica; the model then copies
+    them to the others, ``sharding.gather_writes``).  The output is (B,
+    S, H*D) head-major, so the shards' outputs concatenate on the last
+    axis in head order.  Tables, lengths and start are placed as q is.
+    Plain q / k_new / v_new are placed by ``paged_attn_specs`` and the
+    output gathered; a
     ``Sharded`` q (the model's path) gets the per-shard outputs.
     """
     mesh, cut = k_pool.mesh, k_pool.dim is not None

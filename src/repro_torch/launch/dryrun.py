@@ -32,8 +32,11 @@ analyses; the port has no compiler, so each record term maps as follows
     it equal, kind by kind, to the bytes the port's own step counts on
     small meshes (``Mesh.moved_bytes``), which is what makes it
     trustworthy at 256 devices, where one controller would take ~256
-    times a meshless step.  Serving shapes: null (the port serves over
-    ``model`` alone; the production mesh has ``data`` 16).
+    times a meshless step.  Serving shapes: null; ``serve_collectives``
+    counts one paged ``decode_step`` or ``prefill_slots`` chunk over a
+    (data, model) mesh, row j serving lane j (lanes over data, the
+    pool's written rows gathered), which the tests hold equal to the
+    bytes those calls count.
 
 Results are written as JSON under ``experiments/dryrun_torch/``.
 
@@ -492,6 +495,90 @@ BASIS = {
     "roofline": "core.roofline with the H100's constants (989 TFLOP/s "
                 "bf16, 3.35 TB/s HBM3, 450 GB/s NVLink a direction)",
 }
+
+
+def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
+                      table_width: int, written: int, act: int = 2,
+                      token_bytes: int = 4, first: bool = True,
+                      all_logits: bool = False, active: bool = True
+                      ) -> Dict[str, int]:
+    """Bytes, by kind as ``Mesh.moved_bytes`` counts them, that one paged
+    call of an attention family without experts moves between the places
+    of ``mesh`` (a (data, model) mesh; every cut the sanitized rules keep
+    divides): a ``decode_step`` of ``rows`` rows (``chunk`` None) or a
+    ``prefill_slots`` chunk of ``rows`` rows of ``chunk`` tokens, row j
+    serving lane j of ``rows``.
+
+      * the scheduler inputs, each data index's rows to each of its
+        places ("scatter", place 0's own not counted), or, where ``rows``
+        does not divide the data axes, every row to every
+        place ("broadcast"): decode — tokens (``token_bytes``), positions
+        (int32), ``table_width`` int32 table entries and, with
+        ``active``, the live-lane mask (bool); a chunk — tokens, lengths
+        and (unless ``first``) starts (int32), table entries, the
+        positions (int64) and real-key mask (bool) of its prefix + chunk
+        columns, and a vlm first chunk's patch embeddings (bf16);
+      * over ``model``, in ``act``-byte activations: the embedding (a
+        psum of the masked lookups where the vocab divides the axis, else
+        an all_gather of d_model columns), a vlm first chunk's patch
+        projection (all_gather), per layer the psums of ``wo`` (heads
+        cut) and of the MLP's down projection (hidden dim cut), the
+        logits (all_gather of the vocab, or a psum where it does not
+        divide) — a psum 2 (m - 1) times its bytes a data index, an
+        all_gather m - 1 times;
+      * the logits of every data index but place 0's to place 0
+        ("row_gather");
+      * the ``written`` live pool rows (trash block excluded), every
+        layer's K and V (and SCLAD scales) of each model shard's heads,
+        to the m places of each other data index ("pool_gather").
+    """
+    st = sharding.AxisState.from_mesh(mesh)
+    m = st.size(sharding.TP_AXIS)
+    d = sharding.data_size(mesh)
+    cut = d > 1 and rows % d == 0
+    held = rows // d if cut else rows
+    R = d * held
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    vlm_first = cfg.family == "vlm" and chunk is not None and first
+    prefix = cfg.num_patches if vlm_first else 0
+    toks = 1 if chunk is None else chunk
+    S = prefix + toks
+    if chunk is None:
+        row_in = token_bytes + 4 + 4 * table_width + (1 if active else 0)
+    else:
+        row_in = (toks * token_bytes + 4 + (0 if first else 4)
+                  + 4 * table_width + S * (8 + 1) + prefix * D * 2)
+    out: Dict[str, int] = defaultdict(int)
+    if cut:
+        out["scatter"] = (m * rows - held) * row_in
+    else:
+        out["broadcast"] = (d * m - 1) * rows * row_in
+    a = sharding.attn_shard_size(mesh, cfg.num_kv_heads)
+    if m > 1:
+        emb = R * toks * D * act
+        if V % m == 0:
+            out["psum"] += 2 * (m - 1) * emb
+        else:
+            out["all_gather"] += (m - 1) * emb
+        if prefix and D % m == 0:
+            out["all_gather"] += (m - 1) * R * prefix * D * act
+        per_layer = (a > 1) + (cfg.d_ff % m == 0)
+        out["psum"] += 2 * (m - 1) * L * per_layer * R * S * D * act
+        logit_rows = R * (toks if all_logits else 1)
+        if V % m == 0:
+            out["all_gather"] += (m - 1) * logit_rows * V * act
+        else:
+            out["psum"] += 2 * (m - 1) * logit_rows * V * act
+    if cut:
+        out["row_gather"] = (rows - held) * (
+            toks if all_logits else 1) * V * act
+        hk = cfg.num_kv_heads // a
+        quant = cfg.kv_dtype in ("int8", "fp8")
+        elem = 1 if quant or cfg.kv_dtype == "f8" else 2
+        row = 2 * hk * cfg.head_dim * elem + (2 * hk * 4 if quant else 0)
+        out["pool_gather"] = (d - 1) * m * written * L * row
+    return {k: v for k, v in out.items() if v or k in (
+        "scatter", "broadcast", "row_gather", "pool_gather")}
 
 
 def _cfg_for(arch: str, reduced: bool, kv_dtype: str):

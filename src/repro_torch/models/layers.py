@@ -341,6 +341,23 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return out, k_cache, v_cache
 
 
+#: The pool's trash block: dead lanes write there, no live lane reads it,
+#: and the block store (``serving.paged``) never hands it out.
+TRASH_BLOCK = 0
+
+
+def pool_slots(block_tables: torch.Tensor, pos: torch.Tensor, bs: int):
+    """(block, offset), int64, of cache positions ``pos`` ((B,) or (B, S),
+    row r through row r of ``block_tables``) in a pool of ``bs``-row
+    blocks; a position past the table lands in its last entry."""
+    pos = pos.long()
+    rows = torch.arange(pos.shape[0], device=pos.device).view(
+        -1, *[1] * (pos.dim() - 1))
+    blk = block_tables.long()[
+        rows, torch.clamp(pos // bs, max=block_tables.shape[1] - 1)]
+    return blk, pos % bs
+
+
 def _decode_store(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                   position: torch.Tensor, block_tables, kv_scales,
@@ -360,10 +377,7 @@ def _decode_store(cfg: ModelConfig, p: Params, x: torch.Tensor,
         kv_quant.put(k_cache, (rows, pos.long()), k[:, 0])
         kv_quant.put(v_cache, (rows, pos.long()), v[:, 0])
     else:
-        bs, T = k_cache.shape[1], block_tables.shape[1]
-        blk = block_tables[rows, torch.clamp(pos // bs, max=T - 1).long()] \
-            .long()
-        off = (pos % bs).long()
+        blk, off = pool_slots(block_tables, pos, k_cache.shape[1])
         if kv_scales is not None:
             k_scale, v_scale = kv_scales
             kq, ks1 = kv_quant.quantize(k[:, 0], cfg.kv_dtype)

@@ -2,10 +2,11 @@
 training loss, paged prefill chunks and decode (the attention families),
 and the wave path's dense-cache prefill and decode (all six).
 
-Port of ``repro.models.model``, tensor-parallel serving over a ``model``
-mesh axis included (``prefill_slots`` / ``decode_step`` with ``mesh=`` on
-the paged pool; ``prefill`` / ``decode_step`` with ``mesh=`` on the wave
-path's dense caches, every family), and the training loss over a placed
+Port of ``repro.models.model``, serving over a (data, model) mesh
+included (``prefill_slots`` / ``decode_step`` with ``mesh=`` on the paged
+pool; ``prefill`` / ``decode_step`` with ``mesh=`` on the wave path's
+dense caches, every family; tensor-parallel over ``model``, each data
+place running its own lanes' rows), and the training loss over a placed
 (data, model) mesh
 (``loss_fn(mesh=)``: FSDP gathers a layer inside its rematerialized body,
 TP over ``model`` for every family, the Mamba-2 blocks cut on their
@@ -306,8 +307,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``sharding.Sharded`` placed by ``sharding.wave_cache_specs``: the
     stripes cut on their KV heads, the Mamba-2 states on their heads and
     the conv windows by components, where the heads divide the axis,
-    else whole on every shard.  Each shard's part is made on its device;
-    no whole cache is built."""
+    else whole on every shard; every leaf cut on its batch dim over data
+    axes that divide ``batch``.  Each part is made on its device; no
+    whole cache is built."""
     if mesh is not None:
         meta = init_cache(cfg, batch, max_len, "meta", conv_dtype)
         specs = sharding.wave_cache_specs(cfg, meta, mesh)
@@ -396,8 +398,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     sanitized: payload and scale leaves cut together on the KV-head axis
     over ``model`` (each shard dequantizes its own heads), or whole on
     every shard where Hk does not divide the axis — the same gate as
-    ``sharding.attn_shard_size``, so placement and dispatch agree.  Each
-    shard's part is made on its device; no whole pool is built."""
+    ``sharding.attn_shard_size``, so placement and dispatch agree.  Over
+    the data axes the pool is whole (any table may point anywhere in it):
+    each data index holds its own replica, which its lanes read and
+    write, kept equal to the others by ``sharding.gather_writes``.  Each
+    part is made on its device; no whole pool is built."""
     check_paged(cfg, "init_paged_cache")
     leaves = _pool_leaves(cfg, num_blocks, block_size)
     if mesh is None:
@@ -411,8 +416,52 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             sharding.cache_specs(cfg, meta, None, 1, paged=True), meta)
     return {k: sharding.place_new(
         shape, specs[k], mesh,
-        lambda sh, d, dt=dt, fill=fill: _filled(sh, dt, fill, d))
+        lambda sh, d, dt=dt, fill=fill: _filled(sh, dt, fill, d),
+        data_replicas=True)
         for k, (shape, dt, fill) in leaves.items()}
+
+
+def _gather_pool_writes(cache: Params, split, fn, *xs) -> None:
+    """The pool rows each data place wrote in this call copied to the
+    other data replicas (``sharding.gather_writes``): ``fn`` gives one
+    data index's (block, offset) of its live writes from its model shard
+    0's parts of the call's placed scheduler inputs ``xs``."""
+    if split is None:
+        return
+    firsts = split.firsts()
+    written = [fn(*(None if x is None else x.parts[firsts[i]] for x in xs))
+               if split.rows[i] else None for i in range(len(split.rows))]
+    sharding.gather_writes(list(cache.values()), split, written)
+
+
+def _live(blk: torch.Tensor, off: torch.Tensor, keep: torch.Tensor):
+    """(block, offset) of the kept writes, the trash block's left out."""
+    keep = keep & (blk != layers.TRASH_BLOCK)
+    return blk[keep], off[keep]
+
+
+def _chunk_writes(S: int, prefix: int, bs: int):
+    """The pool rows a prefill chunk of S = prefix + P columns writes, as
+    the K2 scatter computes them (``flash_prefill.ref
+    .scatter_new_kv_ref``): row r at positions start + i, i < prefix +
+    length, through its table."""
+    def fn(tables, start, lengths):
+        dev = tables.device
+        st = torch.zeros(tables.shape[0], dtype=torch.long, device=dev) \
+            if start is None else start.long()
+        dest = st[:, None] + torch.arange(S, device=dev)[None]
+        keep = torch.arange(S, device=dev)[None] < prefix + lengths[:, None]
+        return _live(*layers.pool_slots(tables, dest, bs), keep)
+    return fn
+
+
+def _decode_writes(bs: int):
+    """The pool row a decode step writes a row: its position through its
+    table (``layers.pool_slots``, as ``layers._decode_store`` stores)."""
+    def fn(tables, pos):
+        blk, off = layers.pool_slots(tables, pos, bs)
+        return _live(blk, off, torch.ones_like(blk, dtype=torch.bool))
+    return fn
 
 
 def _layer_scales(cache: Params, layer: int):
@@ -557,6 +606,9 @@ def _embed(embed, tokens: torch.Tensor, mesh=None):
         mi = sharding.axis_index(mesh, sharding.TP_AXIS)
         parts = []
         for i, e, t in zip(mi, embed.parts, tokens.parts):
+            if t is None:  # a place without lanes
+                parts.append(None)
+                continue
             t = t.long() - i * V
             ok = (t >= 0) & (t < V)
             parts.append(e[t.clamp(0, V - 1)].masked_fill(~ok[..., None], 0))
@@ -566,14 +618,16 @@ def _embed(embed, tokens: torch.Tensor, mesh=None):
         dim=None if sharding.cut_dim(embed) is None else len(tokens.shape)))
 
 
-def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None):
+def unembed(cfg: ModelConfig, params: Params, h: torch.Tensor, mesh=None,
+            split=None):
     """Final norm and the vocab projection.  Over a ``mesh`` (h equal on
-    every shard) a column-parallel ``lm_head`` (or tied table cut on the
-    vocab) gathers the logits; one cut on d_model sums the shards'
-    partial products (``psum``).  The logits come back on shard 0's
-    device."""
+    every model shard of a data index) a column-parallel ``lm_head`` (or
+    tied table cut on the vocab) gathers the logits; one cut on d_model
+    sums the shards' partial products (``psum``).  The logits come back
+    on place 0's device, in batch order: the rows of each data index
+    gathered there where ``split`` (``sharding.split_rows``) cuts them."""
     out = _unembed_placed(cfg, params, h, mesh)
-    return out if mesh is None else out.parts[0]
+    return out if mesh is None else sharding.gather_rows(out, split)
 
 
 def _unembed_placed(cfg: ModelConfig, params: Params, h, mesh=None):
@@ -591,7 +645,7 @@ def _unembed_placed(cfg: ModelConfig, params: Params, h, mesh=None):
         n = w.parts[0].shape[1 if tied else 0]
         mi = sharding.axis_index(mesh, sharding.TP_AXIS)
         return sharding.psum(sharding.Sharded(tuple(
-            product(x[..., i * n:(i + 1) * n], w_)
+            None if x is None else product(x[..., i * n:(i + 1) * n], w_)
             for i, x, w_ in zip(mi, hn.parts, w.parts)), None, mesh))
     return sharding.all_gather(sharding.smap(
         product, hn, w, mesh=mesh,
@@ -604,7 +658,7 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
                   start: Optional[torch.Tensor] = None,
                   patch_embeds: Optional[torch.Tensor] = None,
                   all_logits: bool = False,
-                  mesh=None) -> Tuple[torch.Tensor, Params]:
+                  mesh=None, lanes=None) -> Tuple[torch.Tensor, Params]:
     """Prefill one left-padded prompt CHUNK per row into the paged pool.
 
     tokens: (Bn, P) int, each row's chunk LEFT-padded to P; lengths:
@@ -645,7 +699,16 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
     (phi3-medium-14b's 10 kv heads at 4 ways, the reduced tinyllama's 2)
     attention and the pool stay whole on every shard and only the FFN is
     cut: explicit per-shard heads cannot split mid-head as GSPMD may.
-    Every other argument and the logits live on shard 0's device.
+    Every other argument and the logits live on place 0's device.
+
+    Over data axes above 1 each data place takes the rows of its lanes
+    (``sharding.split_rows``: ``lanes`` a ``sharding.Lanes`` naming each
+    row's lane, by default row j is lane j of Bn; every place takes every
+    row where the lanes' width does not divide the data axes) and runs
+    them on its replica of the pool, K2 once a (data, model) place with
+    rows; a place without rows runs nothing.  The rows each place wrote
+    then reach the other replicas (``sharding.gather_writes``), and the
+    logits come back in row order.
     """
     check_paged(cfg, "prefill_slots")
     Bn, P = tokens.shape
@@ -672,7 +735,8 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
                 kernel=cfg.attn_kernel,
                 kv_dtype=cfg.kv_dtype
                 if kv_quant.is_quantized(cfg.kv_dtype) else None)
-    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    split = sharding.split_rows(mesh, lanes, Bn)
+    bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     if prefix:
         h = _prepend_patches(params["patch_proj"], bc(patch_embeds), h,
@@ -691,10 +755,14 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
             q, k, v, cache["k"][layer], cache["v"][layer], lengths, tables,
             kv_scales=_layer_scales(cache, layer), mesh=mesh, **attn)[0]
         h = _attn_post(cfg, blk, h, a, moe_valid=real_key, mesh=mesh)
+    _gather_pool_writes(cache, split,
+                        _chunk_writes(prefix + P, prefix,
+                                      cache["k"].shape[2]),
+                        tables, attn["start"], lengths)
     # Left padding aligns every row's last REAL token at index S - 1.
     h = sharding.smap(lambda x: x[:, prefix:] if all_logits else x[:, -1],
                       h, mesh=mesh)
-    return unembed(cfg, params, h, mesh), cache
+    return unembed(cfg, params, h, mesh, split), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -723,7 +791,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     shard writes and reads its own stripe heads (the dense decode kernel
     once a shard), and updates its own Mamba-2 heads' states and windows
     (``ssm.apply_mamba_decode(mesh=)``); whisper's cross-attention reads
-    each shard's cross K/V heads, its ``wo`` partials summed.
+    each shard's cross K/V heads, its ``wo`` partials summed.  Over data
+    axes above 1 each data place steps its own lanes' rows (row j is
+    lane j of B, ``prefill_slots`` says which data place runs it): on its
+    pool replica, K1 once a (data, model) place, its live writes then
+    gathered to the other replicas; or on its rows of the dense caches
+    (``init_cache(mesh=)`` cuts them on the batch alike), K3 once a
+    place and each place's Mamba-2 states and windows.
     """
     fam = cfg.family
     if block_tables is not None:
@@ -731,7 +805,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     prefix = cfg.num_patches if fam == "vlm" else 0
     pos = (torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
            + prefix).expand(tokens.shape[0])
-    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    split = sharding.split_rows(mesh, None, tokens.shape[0])
+    bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     pos, tables = bc(pos.contiguous()), bc(block_tables)
     valid = bc(None if active is None else active[:, None])
@@ -743,6 +818,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
             h = _attn_decode(cfg, blk, h, cache["k"][layer],
                              cache["v"][layer], pos, tables, scales, valid,
                              mesh)
+        if block_tables is not None:
+            _gather_pool_writes(cache, split,
+                                _decode_writes(cache["k"].shape[2]), tables,
+                                pos)
     elif fam == "ssm":
         for layer in range(cfg.num_layers):
             h = _mamba_decode(cfg, layer_params(params, layer), cache,
@@ -777,7 +856,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
             h = _ffn(cfg, blk, h, mesh=mesh)
     else:
         raise ValueError(fam)
-    return unembed(cfg, params, h, mesh), cache
+    return unembed(cfg, params, h, mesh, split), cache
 
 
 def _attn_decode(cfg: ModelConfig, blk: Params, h, k_cache, v_cache, pos,
@@ -1178,18 +1257,25 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     row-parallel, then ``psum`` (the MoE as ``moe.apply_moe(mesh=)``,
     every row routing); each Mamba-2 block on the shard's heads
     (``ssm.apply_mamba_block(mesh=)``, the SSD kernel once a shard);
-    whisper's encoder likewise, its cross K/V cut on their heads.  The
-    batch and the logits live on shard 0's device."""
+    whisper's encoder likewise, its cross K/V cut on their heads.  Over
+    data axes above 1 that divide B each data place runs its rows (row j
+    of B to data index j // (B / d): the tokens, patch embeddings and
+    frames cut alike) into its rows of the caches (``init_cache(mesh=)``
+    cuts them on the batch), K4 once a (data, model) place on its b / d x
+    H / m folded rows; else every data place runs every row.  The batch
+    and the logits live on place 0's device."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     fam = cfg.family
     dev = tokens.device
-    bc = functools.partial(sharding.broadcast, mesh=mesh)
+    split = sharding.split_rows(mesh, None, B)
+    bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     if fam == "vlm":
         h = _prepend_patches(params["patch_proj"],
                              bc(batch["patch_embeds"]), h, mesh)
-    positions = bc(torch.arange(h.shape[1], device=dev))
+    positions = sharding.broadcast(torch.arange(h.shape[1], device=dev),
+                                   mesh)
     cache = init_cache(cfg, B, max_len, device=dev, conv_dtype=h.dtype,
                        mesh=mesh)
     ssd_kernel = resolve_kernel(cfg.attn_kernel, dev) \
@@ -1239,7 +1325,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
                               mesh=mesh)
             ck, cv = sharding.smap(
                 lambda e, p_: tuple((e @ p_[w]).reshape(
-                    B, -1, lcfg.num_kv_heads, cfg.head_dim)
+                    e.shape[0], -1, lcfg.num_kv_heads, cfg.head_dim)
                     for w in ("wk", "wv")),
                 enc, blk["cross_attn"], mesh=mesh, dim=heads)
             h = _ffn(cfg, blk, _cross_attend(cfg, blk, h, ck, cv, mesh),
@@ -1256,4 +1342,4 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             store("k", (layer, slice(None), slice(S)), k)
             store("v", (layer, slice(None), slice(S)), v)
     return unembed(cfg, params, sharding.smap(lambda x: x[:, -1], h,
-                                              mesh=mesh), mesh), cache
+                                              mesh=mesh), mesh, split), cache

@@ -28,7 +28,10 @@ gated RMSNorm normalises over the whole d_inner, so its sum of squares
 is a ``psum`` of the shards' (``_sum_squares``), and ``out_proj``'s
 row-parallel partials are ``psum``med.  The collectives are the
 autograd-aware ones.  Where the heads do not divide the axis the block
-is whole on every shard and nothing is summed.
+is whole on every shard and nothing is summed.  Over data axes above 1
+(serving) each place runs its own rows of the batch on its model
+shard's heads — the scan once a place on its b / d x H / m folded rows —
+and the sums stay over ``model`` only.
 """
 from __future__ import annotations
 
@@ -275,8 +278,9 @@ def apply_mamba_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     channels) in x's dtype}).  The scan takes the kernel route with
     ``use_kernel``, else the plain one (module docstring); the kernel
     starts from a zero state, so ``initial_state`` on that route
-    raises.  ``mesh``: p, x (equal on every shard) and ``initial_state``
-    placed on it, the results too (module docstring)."""
+    raises.  ``mesh``: p, x (equal on every model shard) and
+    ``initial_state`` placed on it, the results too (module
+    docstring)."""
     ways = _ways(p, mesh)
     dm = dims(cfg, ways)
     k = cfg.ssm.conv_kernel

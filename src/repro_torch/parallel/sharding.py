@@ -1,6 +1,7 @@
 """Sharding rules, and the placement and collectives of one controller
-driving every place of a mesh: tensor-parallel serving over ``model``,
-training over (``pod``, ``data``, ``model``).
+driving every place of a mesh: serving over (``data``, ``model``) —
+tensor-parallel over ``model``, lanes over the data axes — and training
+over (``pod``, ``data``, ``model``).
 
 Port of ``repro.parallel.sharding``.  The rules part is a copy: the
 parameter, cache and batch specs in both modes, ``sanitize_specs``, the
@@ -46,7 +47,13 @@ device several times).
     sanitized, the Mamba-2 leaves cut over ``model`` as ``mamba_spec``
     cuts them beside the rule's cut over ``data``), ``place_batch`` a
     batch over the data axes;
-  * ``smap`` runs a function on each place's parts;
+  * ``smap`` runs a function on each place's parts (a place without
+    lanes, whose parts ``scatter`` left None, runs nothing);
+  * serving over the data axes (the last section): ``split_rows`` cuts a
+    batch by the lanes its rows serve, ``scatter`` hands each place its
+    rows, ``gather_rows`` brings results back in batch order and
+    ``gather_writes`` copies the pool rows each place wrote to the other
+    data replicas;
   * tensors move between places only through the collectives, each over
     an axis (a name or a tuple of names): ``psum`` (partials summed in
     member order), ``all_gather`` (concatenation), ``all_to_all``,
@@ -502,8 +509,14 @@ class Sharded:
     comps: Optional[Comps] = None
 
     @property
+    def _ref(self) -> torch.Tensor:
+        """The first part a place holds (a place without lanes holds
+        None)."""
+        return next(p for p in self.parts if p is not None)
+
+    @property
     def shape(self) -> Tuple[int, ...]:
-        s = list(self.parts[0].shape)
+        s = list(self._ref.shape)
         if self.comps is not None:
             s[self.dim] = sum(n for n, _ in self.comps)
         elif self.dim is not None:
@@ -514,12 +527,12 @@ class Sharded:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0].dtype
+        return self._ref.dtype
 
     @property
     def device(self) -> torch.device:
         """Place 0's device."""
-        return self.parts[0].device
+        return self.mesh.devices.flat[0]
 
     def with_parts(self, parts) -> "Sharded":
         """The same placement holding ``parts``."""
@@ -698,19 +711,24 @@ def place_like(x: torch.Tensor, like: Sharded) -> Sharded:
 
 
 def place_new(shape: Sequence[int], spec: Sequence, mesh,
-              make: Callable[[Tuple[int, ...], torch.device], torch.Tensor]
-              ) -> Sharded:
+              make: Callable[[Tuple[int, ...], torch.device], torch.Tensor],
+              data_replicas: bool = False) -> Sharded:
     """A new sharded tensor of global ``shape`` laid out by ``spec``, each
     part made by ``make(local_shape, device)`` (no global tensor is
-    built)."""
+    built).  ``data_replicas``: every data index holds its own part even
+    where ``spec`` leaves the data axes whole (the paged pool, which each
+    data place writes and ``gather_writes`` keeps equal), rather than one
+    part a device."""
     dim, rows, comps = _spec_cuts(spec, mesh)
     pieces, local = _pieces(mesh, dim, rows, shape, comps)
+    di = axis_index(mesh, AxisState.from_mesh(mesh).dp) if data_replicas \
+        else [0] * mesh.devices.size
     made: Dict[tuple, torch.Tensor] = {}
     parts = []
-    for (j, r), dev in zip(pieces, grid_devices(mesh)):
-        if (j, r, dev) not in made:
-            made[j, r, dev] = make(local, dev)
-        parts.append(made[j, r, dev])
+    for (j, r), i, dev in zip(pieces, di, grid_devices(mesh)):
+        if (j, r, i, dev) not in made:
+            made[j, r, i, dev] = make(local, dev)
+        parts.append(made[j, r, i, dev])
     return Sharded(tuple(parts), dim, mesh, rows, comps)
 
 
@@ -816,8 +834,10 @@ class _Collective(torch.autograd.Function):
 
 def _run(op, parts) -> Tuple[torch.Tensor, ...]:
     """``op`` through autograd where a part needs a gradient, else
-    directly (the serving path: outputs then shared per device)."""
-    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+    directly (the serving path: outputs then shared per device, a place
+    without lanes (``scatter``) None in and out)."""
+    if torch.is_grad_enabled() and any(p is not None and p.requires_grad
+                                       for p in parts):
         return _Collective.apply(op, *parts)
     return tuple(op.fwd(list(parts)))
 
@@ -843,6 +863,8 @@ class _Sum(_Op):
     def _sum(self, xs, kind):
         out = [None] * len(xs)
         for g in self.grps:
+            if xs[g[0]] is None:  # a data index without lanes
+                continue
             dev0 = xs[g[0]].device
             acc = xs[g[0]]
             for k in g[1:]:
@@ -870,6 +892,8 @@ class _Gather(_Op):
     def fwd(self, xs):
         out = [None] * len(xs)
         for g in self.grps:
+            if xs[g[0]] is None:  # a data index without lanes
+                continue
             dev0 = xs[g[0]].device
             full = _cat([xs[k].to(dev0) for k in g], self.dim)
             _count(self.mesh, self.kind, (len(g) - 1) * _nbytes(full))
@@ -1164,19 +1188,30 @@ def local(tree, i: int):
     return tree
 
 
+def _absent(args, i: int) -> bool:
+    """Whether place i holds no rows of the batch: a ``Sharded`` argument
+    whose part there is None (``scatter`` gives a data place without
+    lanes none)."""
+    return any(isinstance(a, Sharded) and a.parts[i] is None for a in args)
+
+
 def smap(fn: Callable, *args, mesh, dim=None):
     """``fn`` on each place's view of ``args`` (``local``), in place
     order: a ``Sharded`` of the results cut along ``dim`` over ``model``
     (None: whole), or a tuple of them when ``fn`` returns a tuple
-    (``dim`` then one for all, or a tuple of one each).  Without a mesh:
-    ``fn(*args)``."""
+    (``dim`` then one for all, or a tuple of one each).  A place without
+    rows (``_absent``) runs nothing and its results are None.  Without a
+    mesh: ``fn(*args)``."""
     if mesh is None:
         return fn(*args)
-    outs = [fn(*local(list(args), i)) for i in range(mesh.devices.size)]
-    if isinstance(outs[0], tuple):
-        n = len(outs[0])
+    outs = [None if _absent(args, i) else fn(*local(list(args), i))
+            for i in range(mesh.devices.size)]
+    ref = next(o for o in outs if o is not None)
+    if isinstance(ref, tuple):
+        n = len(ref)
         dims = dim if isinstance(dim, tuple) else (dim,) * n
-        return tuple(Sharded(tuple(o[j] for o in outs), dims[j], mesh)
+        return tuple(Sharded(tuple(None if o is None else o[j]
+                                   for o in outs), dims[j], mesh)
                      for j in range(n))
     return Sharded(tuple(outs), dim, mesh)
 
@@ -1196,13 +1231,28 @@ def member_leaves(tree):
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
+def check_serve_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` where the port cannot serve ``cfg``
+    over ``mesh``: an MoE config over data axes above 1, whose experts
+    the rule cuts over ``data`` (expert parallelism)."""
+    if cfg.moe is not None and data_size(mesh) > 1:
+        raise NotImplementedError(
+            f"serving {cfg.name} over data axes {mesh.shape}: expert "
+            f"parallelism (the experts over data, apply_moe_manual under "
+            f"the serving mask) is not ported yet")
+
+
 def serve_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
     """``param_specs(mode="serve")`` under ``mesh``'s axes, sanitized,
     with the attention leaves whole where ``attn_shard_size`` is 1: a
     shard computes whole heads, so the q/k/v columns cannot be cut
     mid-head as GSPMD may cut them.  The Mamba-2 leaves take
     ``mamba_spec`` (head-aligned, by component), not the rule's
-    contiguous cut."""
+    contiguous cut.  Every leaf is whole over the data axes (the
+    weights resident on every data place); an MoE config under data
+    axes above 1, whose experts the rule cuts over ``data`` (expert
+    parallelism), raises ``NotImplementedError`` (``check_serve_mesh``)."""
+    check_serve_mesh(cfg, mesh)
     with use_axes(mesh):
         specs = sanitize_specs(param_specs(cfg, params_shape, mode="serve"),
                                params_shape)
@@ -1274,28 +1324,38 @@ def mamba_spec(cfg: ModelConfig, mesh, leaf: str, ndim: int) -> P:
     return P(*lead, TP_AXIS)
 
 
+#: The wave caches' leaves holding K/V stripes (..., B, S, Hk, D).
+STRIPE_LEAVES = ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v")
+
+
 def wave_cache_specs(cfg: ModelConfig, cache_shape, mesh) -> Any:
     """Specs of the wave path's dense caches (``model.init_cache``) over
-    ``mesh``'s ``model`` axis: the K/V stripes (..., B, S, Hk, D) cut on
+    ``mesh``: over ``model`` the K/V stripes (..., B, S, Hk, D) cut on
     Hk where ``attn_shard_size`` is above 1 — the paged pool's cut, not
     ``cache_specs``' sequence cut; the Mamba-2 ``state`` (..., B, H, P,
     N) on its heads and the ``conv`` window (..., B, k - 1, channels) by
     ``mamba_components`` where ``mamba_shard_size`` is; whole elsewhere.
-    The batch is not cut (one data shard)."""
+    Over the data axes, every leaf cut on its batch dim B where they
+    divide it (``cache_specs``' ``dpa``; ``split_rows`` cuts the rows
+    alike), else whole."""
     attn = attn_shard_size(mesh, cfg.num_kv_heads) > 1
     m = mamba_shard_size(mesh, cfg)
+    d = data_size(mesh)
+    dp = AxisState.from_mesh(mesh).dp
 
     def rule(path, leaf):
         nd, name = len(leaf.shape), path.rsplit("/", 1)[-1]
+        bdim = nd - 3 if name == "conv" else nd - 4
+        rows = (dp, bdim) if d > 1 and leaf.shape[bdim] % d == 0 else None
         cut = None
-        if name in ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v") \
-                and attn:
+        if name in STRIPE_LEAVES and attn:
             cut = nd - 2
         elif name == "state" and m > 1:
             cut = nd - 3
         elif name == "conv" and m > 1:
-            return Components(nd, nd - 1, mamba_components(cfg, name))
-        return P(*(TP_AXIS if i == cut else None for i in range(nd)))
+            return Components(nd, nd - 1, mamba_components(cfg, name), rows)
+        return P(*(TP_AXIS if i == cut else rows[0] if rows and i == rows[1]
+                   else None for i in range(nd)))
 
     return _map_with_path(rule, cache_shape)
 
@@ -1388,3 +1448,173 @@ def shard_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
         return cfg
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // a,
                                num_kv_heads=cfg.num_kv_heads // a)
+
+
+# ---------------------------------------------------------------------------
+# Serving over the data axes: lanes cut by their slot, the paged pool
+# replicated with each place's writes gathered
+#
+# The reference places serving activations batch-first over the data axes
+# (``cache_specs``' ``dpa``, ``constrain_tokens``) when the batch divides
+# them, else keeps them whole (``sanitize_specs``); weights and the paged
+# pool are whole over data.  The port cuts a batch by the lanes its rows
+# serve: lane s of ``width`` belongs to data index s // (width / d), so a
+# lane stays on one data place from its first chunk to its last decode
+# step.  Each (data, model) place computes its own lanes on its model
+# shard's heads; a place with no lanes in a call runs nothing (its parts
+# are None).  Every data place holds its own replica of the pool, which
+# its K1 reads and its K2 or decode store writes; ``gather_writes`` copies
+# the rows each place wrote to the other replicas of its model shard, so
+# a lane may read a block another data place wrote (a shared prefix, a
+# recompute after preemption).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Lanes:
+    """The lanes a batch's rows serve: row j is lane ``slots[j]`` of
+    ``width`` (an engine's slots, or a wave's rows)."""
+    slots: Tuple[int, ...]
+    width: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowSplit:
+    """Which rows of an ``n``-row batch each data index of ``mesh``
+    holds, in batch order: ``rows[i]`` those of data index i (empty: that
+    data index runs nothing)."""
+    mesh: Any
+    rows: Tuple[Tuple[int, ...], ...]
+    n: int
+
+    def data_index(self) -> Tuple[int, ...]:
+        """Each place's index over the data axes."""
+        return axis_index(self.mesh, AxisState.from_mesh(self.mesh).dp)
+
+    def firsts(self) -> Dict[int, int]:
+        """Data index -> its model shard 0's place."""
+        mi = axis_index(self.mesh, TP_AXIS)
+        out: Dict[int, int] = {}
+        for k, i in enumerate(self.data_index()):
+            if mi[k] == 0:
+                out.setdefault(i, k)
+        return out
+
+
+def data_size(mesh) -> int:
+    """The product of ``mesh``'s data axes (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    return axes_size(mesh, AxisState.from_mesh(mesh).dp)
+
+
+def split_rows(mesh, lanes: Optional[Lanes], n: int) -> Optional[RowSplit]:
+    """The data axes' cut of an ``n``-row batch whose rows serve
+    ``lanes`` (default: row j is lane j of n): lane s to data index
+    s // (width / d).  None — every data place holds every row, as
+    ``sanitize_specs`` keeps a batch whole — without a mesh, with one
+    data index, or where the lanes' width does not divide the data
+    axes."""
+    d = data_size(mesh)
+    if d == 1:
+        return None
+    lanes = lanes or Lanes(tuple(range(n)), n)
+    if len(lanes.slots) != n:
+        raise ValueError(f"{len(lanes.slots)} lanes for {n} rows")
+    if lanes.width % d:
+        return None
+    per = lanes.width // d
+    return RowSplit(mesh, tuple(
+        tuple(j for j, s in enumerate(lanes.slots) if s // per == i)
+        for i in range(d)), n)
+
+
+def scatter(x, mesh, split: Optional[RowSplit]) -> Sharded:
+    """Place 0's batch-first scheduler input on every place: each place
+    its data index's rows (``split``; None where it holds none), counted
+    as the bytes every place but place 0 receives ("scatter").  Without a
+    split: ``broadcast``.  None and a ``Sharded`` pass through."""
+    if split is None or x is None or isinstance(x, Sharded):
+        return broadcast(x, mesh)
+    made: Dict[tuple, torch.Tensor] = {}
+    parts, moved = [], 0
+    for k, (i, dev) in enumerate(zip(split.data_index(),
+                                     grid_devices(mesh))):
+        rows = split.rows[i]
+        if not rows:
+            parts.append(None)
+            continue
+        if (i, dev) not in made:
+            idx = torch.tensor(rows, dtype=torch.long, device=x.device)
+            made[i, dev] = x.index_select(0, idx).to(dev)
+        parts.append(made[i, dev])
+        moved += _nbytes(made[i, dev]) if k else 0
+    _count(mesh, "scatter", moved)
+    return Sharded(tuple(parts), None, mesh)
+
+
+def gather_rows(s: Sharded, split: Optional[RowSplit]) -> torch.Tensor:
+    """A batch-first result back in batch order on place 0's device, each
+    data index's rows from its model shard 0 (the logits, whole over
+    ``model``): the bytes of every data index but place 0's counted
+    ("row_gather").  Without a split: place 0's part."""
+    if split is None:
+        return s.parts[0]
+    dev0 = grid_devices(s.mesh)[0]
+    ref = next(p for p in s.parts if p is not None)
+    out = torch.empty((split.n,) + tuple(ref.shape[1:]), dtype=ref.dtype,
+                      device=dev0)
+    moved = 0
+    for i, k in sorted(split.firsts().items()):
+        rows = split.rows[i]
+        if not rows:
+            continue
+        p = s.parts[k]
+        out[torch.tensor(rows, dtype=torch.long, device=dev0)] = p.to(dev0)
+        moved += _nbytes(p) if k else 0
+    _count(s.mesh, "row_gather", moved)
+    return out
+
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its uint8 view when it holds float8 (indexing float8
+    tensors is not on every PyTorch build's every device)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def gather_writes(leaves: Sequence[Sharded], split: RowSplit,
+                  written: Sequence[Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]]]) -> None:
+    """After a call that wrote pool rows, copy them to the other data
+    replicas: ``written[i]`` the (block, offset) index tensors of the
+    rows data index i's places wrote (None: none), ``leaves`` the pool's
+    payload and scale leaves (L, N, bs, ...), whose parts are one replica
+    a data index (``place_new(data_replicas=True)``).  Every place
+    receives, from each other data index, that index's rows of its own
+    model shard's piece (all layers): the bytes counted a receiving place
+    ("pool_gather").  No two data places write one live row in a call
+    (copy-on-write owns a written block); the trash block is left out of
+    ``written`` — each replica's own sink."""
+    mesh = split.mesh
+    di, mi = split.data_index(), axis_index(mesh, TP_AXIS)
+    src_of = {}
+    for k in reversed(range(mesh.devices.size)):
+        src_of[di[k], mi[k]] = k
+    moved = 0
+    for leaf in leaves:
+        done = set()
+        for k, dst in enumerate(leaf.parts):
+            for i, idx in enumerate(written):
+                if idx is None or i == di[k]:
+                    continue
+                src = leaf.parts[src_of[i, mi[k]]]
+                row = math.prod(src.shape[3:]) * src.element_size()
+                moved += src.shape[0] * idx[0].numel() * row
+                if (id(dst), i) in done:
+                    continue
+                done.add((id(dst), i))
+                blk, off = (t.to(src.device) for t in idx)
+                rows = _bytes_of(src)[:, blk, off].to(dst.device)
+                _bytes_of(dst)[:, blk.to(dst.device), off.to(dst.device)] = \
+                    rows
+    _count(mesh, "pool_gather", moved)

@@ -59,22 +59,34 @@ keys) is updated in place.  Sampling keys are POSITIONAL (see
 ``serving.sampler``): a request's token at position p depends on (seed,
 uid, p) only, so outputs do not depend on co-tenants or preemption.
 
-``mesh=`` (a (data=1, model=m) ``launch.mesh.Mesh``) serves both paths
-tensor-parallel, every family, as the reference's single controller
-per replica: the host-side scheduler (queue, BlockStore, tables,
-admission and preemption; the waves) runs once on this process; the
-weights are cut by ``sharding.place_serve`` (``param_specs(mode="serve")``;
-the Mamba-2 leaves head-aligned, by component), the pool on its KV heads
-(payload and scales together), the wave path's stripes on their KV heads
-and its Mamba-2 states and windows on their heads
-(``model.init_cache(mesh=)``); the paged attention paths, the dense
-decode and the SSD scan run once per shard at the shard's head counts.
-Logits, sampled tokens and every scheduler input live on shard 0's
-device.  Each engine places and runs under its own
-``sharding.use_axes``: nothing leaks into the ambient axis state.
+``mesh=`` (a (data=d, model=m) ``launch.mesh.Mesh``) serves both paths
+over the mesh, as the reference's single controller per replica: the
+host-side scheduler (queue, BlockStore, tables, admission and
+preemption; the waves) runs once on this process and the mesh only
+widens the device work.  Over ``model``: the weights cut by
+``sharding.place_serve`` (``param_specs(mode="serve")``; the Mamba-2
+leaves head-aligned, by component), the pool on its KV heads (payload
+and scales together), the wave path's stripes on their KV heads and its
+Mamba-2 states and windows on their heads (``model.init_cache(mesh=)``).
+Over the data axes: the weights whole on every data place; the lanes
+cut by their slot (lane i to data index i // (max_batch / d): its
+prefill chunks, verify passes, decode rows, sampled tokens and
+positions, its image), the wave rows alike (row j of a B-row wave to
+j // (B / d)) with the stripes and Mamba-2 caches cut on their batch;
+every data place keeps a replica of the pool, and the rows each place
+writes are gathered to the others (``sharding.gather_writes``), so a
+lane may read a prefix block another place wrote.  Where d does not
+divide the lanes, every data place runs every lane (no value changes).
+The paged attention paths, the dense decode and the SSD scan run once
+per (data, model) place with lanes, at the shard's head counts on the
+place's rows.  Logits, sampled tokens and every scheduler input live on
+place 0's device; ``EngineStats`` do not depend on the mesh.  Each
+engine places and runs under its own ``sharding.use_axes``: nothing
+leaks into the ambient axis state.
 
 The engine raises ``NotImplementedError`` for what the port does not
-serve: data axes above 1 under a mesh.
+serve: the moe family over data axes above 1 (expert parallelism;
+``sharding.check_serve_mesh``).
 """
 from __future__ import annotations
 
@@ -277,11 +289,11 @@ class ServingEngine:
         must already live there (with a ``mesh``: on its shard 0 device,
         whole or already placed, e.g. ``model.init_params(mesh=)``).
         Raises ``NotImplementedError`` for what the port does not serve
-        yet (a mesh with data axes above 1).
+        yet (an MoE config under data axes above 1).
 
-        ``mesh``: a ``launch.mesh.Mesh`` with a ``model`` axis (see the
-        module docstring); its shard 0 device is the engine's, and
-        ``device`` must name it or be None.
+        ``mesh``: a ``launch.mesh.Mesh`` with ``data`` and ``model`` axes
+        (see the module docstring); its place 0 device is the engine's,
+        and ``device`` must name it or be None.
 
         ``spec_decode="ngram"`` / ``spec_k`` (continuous mode only):
         speculative decoding.  Emitted tokens equal ``spec_decode="off"``
@@ -339,7 +351,7 @@ class ServingEngine:
         if kv_dtype is not None:
             cfg = dc_replace(cfg, kv_dtype=kv_dtype)
         if mesh is not None:
-            self._check_mesh(mesh, device)
+            self._check_mesh(cfg, mesh, device)
             device = sharding.model_devices(mesh)[0]
         self.mode = mode
         self.device = resolve_device(device)
@@ -391,12 +403,11 @@ class ServingEngine:
             self._init_continuous()
 
     @staticmethod
-    def _check_mesh(mesh, device: DeviceLike) -> None:
-        """What the port serves over a mesh: both modes, every family,
-        one data shard."""
-        if any(n > 1 for a, n in mesh.shape.items() if a != "model"):
-            raise NotImplementedError(
-                f"mesh {mesh.shape}: data axes above 1 are not ported")
+    def _check_mesh(cfg: ModelConfig, mesh, device: DeviceLike) -> None:
+        """What the port serves over a mesh (``sharding.check_serve_mesh``:
+        every family but moe over data axes above 1), on the mesh's shard
+        0 device."""
+        sharding.check_serve_mesh(cfg, mesh)
         dev0 = sharding.model_devices(mesh)[0]
         if device is not None and resolve_device(device) != dev0:
             raise ValueError(f"device {device} is not the mesh's shard 0 "
@@ -413,6 +424,15 @@ class ServingEngine:
     def _model(self, fn, *args, **kwargs):
         """``_call`` on the continuous path's pool."""
         return self._call(fn, self._cache, *args, **kwargs)
+
+    def _lanes(self, lanes: List[int]) -> Dict[str, sharding.Lanes]:
+        """Over a mesh, the ``lanes`` keyword of a model call whose rows
+        serve ``lanes`` of the engine's ``max_batch`` (the data axes' cut
+        of its rows); nothing without one."""
+        if self._mesh is None:
+            return {}
+        return {"lanes": sharding.Lanes(tuple(int(i) for i in lanes),
+                                        self.max_batch)}
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -766,7 +786,7 @@ class ServingEngine:
         tables = torch.from_numpy(self._alloc.block_table()[lanes]).to(dev)
         logits_all, self._cache = self._model(
             M.prefill_slots, tok_d, len_d, tables, start=start_d,
-            all_logits=True)
+            all_logits=True, **self._lanes(lanes))
         pad = P - len_d
         # Column c holds the token at position (start - pfx) + (c - pad);
         # what decode emits after it samples column c's logits with the
@@ -894,14 +914,13 @@ class ServingEngine:
             self._cache = M.init_paged_cache(cfg, self.num_blocks + 1, bs,
                                              device=dev, mesh=self._mesh)
         # Device bytes per pool block, all layers, K+V, over every leaf
-        # (axis 1 is blocks for payload and scale leaves alike) and every
-        # shard's part: a SCLAD pool's figure is its payload plus its fp32
-        # scales; a pool whole on every shard counts once a device.
+        # (axis 1 is blocks for payload and scale leaves alike) and each
+        # distinct piece once: a SCLAD pool's figure is its payload plus
+        # its fp32 scales; the data replicas, or a pool whole on every
+        # shard, count once (the figure does not depend on the mesh).
         self.kv_block_bytes = sum(
             x[:, 0].numel() * x.element_size()
-            for leaf in self._cache.values()
-            for x in (leaf.distinct_parts()
-                      if isinstance(leaf, sharding.Sharded) else (leaf,)))
+            for leaf in self._cache.values() for x in sharding.pieces(leaf))
         ldtype = self.params["embed"].dtype
         self._logits = torch.zeros((B, cfg.vocab_size), dtype=ldtype,
                                    device=dev)
@@ -1134,7 +1153,7 @@ class ServingEngine:
             M.prefill_slots, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(lengths).to(dev), tables,
             start=None if first else torch.from_numpy(starts).to(dev),
-            patch_embeds=patches)
+            patch_embeds=patches, **self._lanes([s.lane for s in cohort]))
 
         done_rows, done = [], []
         for j, (s, take) in enumerate(zip(cohort, takes)):

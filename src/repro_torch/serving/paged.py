@@ -52,8 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-#: Block id reserved as the write sink for dead lanes; never allocated.
-TRASH_BLOCK = 0
+from repro_torch.models.layers import TRASH_BLOCK
 
 
 class OutOfBlocks(RuntimeError):

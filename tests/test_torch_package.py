@@ -139,13 +139,16 @@ def test_unported_options_raise():
     params = M.init_params(cfg, 0, device="cpu")
     two = make_mesh((1, 2), ("data", "model"), "cpu")
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
-    # Data axes above 1 are not served, in either mode; speculation needs
-    # the continuous engine, with or without a mesh.
+    # Data axes above 1 are served, in either mode, for every family but
+    # moe (expert parallelism is not ported); speculation needs the
+    # continuous engine, with or without a mesh.
     four = make_mesh((2, 2), ("data", "model"), "cpu")
-    for c, kw in ((cfg, dict(mesh=four)), (cfg, dict(mesh=four, mode="wave")),
-                  (ssm, dict(mesh=four))):
-        with pytest.raises(NotImplementedError, match="data axes"):
-            ServingEngine(c, params, device="cpu", **kw)
+    moe = get_config("qwen2-moe-a2.7b").reduced()
+    for kw in (dict(mesh=four), dict(mesh=four, mode="wave")):
+        with pytest.raises(NotImplementedError, match="expert parallelism"):
+            ServingEngine(moe, M.param_specs(moe), device="cpu", **kw)
+    assert ServingEngine(cfg, params, device="cpu",
+                         mesh=four).mode == "continuous"
     for c, kw in ((cfg, dict(mesh=two, mode="wave")), (ssm, dict(mesh=two)),
                   (ssm, dict())):
         with pytest.raises(ValueError, match="continuous"):

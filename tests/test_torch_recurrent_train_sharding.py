@@ -216,10 +216,10 @@ def test_cleared_refusals_and_the_ones_that_stay():
         tsh.place_batch(cfg, tb, mesh)
     with pytest.raises(NotImplementedError):
         TM.check_paged(cfg, "prefill_slots")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, TM.init_params(cfg, 0, device="cpu"), mesh=mesh,
-                      device="cpu", mode="wave")
     moe_cfg = get_config("qwen2-moe-a2.7b").reduced()
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        ServingEngine(moe_cfg, TM.param_specs(moe_cfg), mesh=mesh,
+                      device="cpu", mode="wave")
     p = TM.init_params(moe_cfg, 0, device="cpu")["blocks"]["moe"]
     layer = {k: v[0] for k, v in p.items() if k != "shared"}
     m2 = cpu_mesh((1, 2))

@@ -529,10 +529,13 @@ def test_wave_engine_leaks_no_axis_state():
 
 
 def test_data_axes_and_wave_speculation_still_raise():
-    _, _, cfg, params = models("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="data axes"):
-        ServingEngine(cfg, params, device="cpu",
+    """What stays refused: the moe family over data axes above 1 (expert
+    parallelism) and speculation in waves."""
+    _, _, moe_cfg, moe_params = models("qwen2-moe-a2.7b")
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        ServingEngine(moe_cfg, moe_params, device="cpu", mode="wave",
                       mesh=make_mesh((2, 2), ("data", "model"), "cpu"))
+    _, _, cfg, params = models("mamba2-1.3b")
     with pytest.raises(ValueError, match="continuous"):
         ServingEngine(cfg, params, device="cpu",
                       mesh=cpu_mesh(2), spec_decode="ngram")
