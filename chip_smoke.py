@@ -91,7 +91,8 @@ outside the repository.  Phases, each of which raises on failure:
      (``prefill_slots`` over 5 tokens behind a cached context) against
      five ``decode_step``s from a copy of the same pool, within the model
      checks' limit on bf16 and int8 pools, with a wrong-block control that
-     must fail it; the 12-request trace at temperature 0 with speculation
+     must fail it; the 12-request trace's first SPEC_REQUESTS (6; cut in
+     PR 29 for the whole script's time) at temperature 0 with speculation
      off and on (``spec_k`` 4) on bf16, int8 and f8 pools (no decode-kernel
      launch under speculation, prefill-kernel launches 22 x (chunks +
      verify passes),
@@ -112,8 +113,10 @@ outside the repository.  Phases, each of which raises on failure:
      tokens (internvl2-26b also on f8 stripes), and for qwen2-moe-a2.7b a
      profiled decode step (device time
      of each MoE stage); stablelm-1.6b, phi3-medium-14b and granite-3-8b
-     through the model checks on a bf16 pool and a 4-request run of 16
-     new tokens; each run's launch counts as the 12-request runs';
+     on DENSE_DEPTH's half of their layers (cut in PR 29 for the whole
+     script's time) through the model checks on a bf16 pool and a
+     4-request run of 16 new tokens; each run's launch counts as the
+     12-request runs';
      internvl2-26b also serves 4 requests (two behind images) greedy
      with speculation off and on, checked as in phase 8;
  10. the recurrent families at full width, one at a time as in phase 9
@@ -256,7 +259,8 @@ outside the repository.  Phases, each of which raises on failure:
      the card d x m times (``run_data_serving``; one controller, lanes
      cut by their slot over data, each data place on its own replica of
      the paged pool, whose written rows are gathered to the others):
-     full-width tinyllama-1.1b at (2, 1) and (2, 2) — K1 and K2 at one
+     full-width tinyllama-1.1b on DATA_DEPTH's 11 of its 22 layers (cut
+     in PR 29 for the whole script's time) at (2, 1) and (2, 2) — K1 and K2 at one
      place's shapes (4 lanes of 8; q (4, 32, 64) and (4, 16, 64)) against
      their plain versions as in phase 3, and K1, K2 and K3 launched once
      per data place on its lanes against one launch on all 8 (within
@@ -264,7 +268,7 @@ outside the repository.  Phases, each of which raises on failure:
      ``decode_step`` logits against the meshless run's within the model
      checks' limit on bf16, int8 and f8 pools, every data replica of the
      pool bit for bit the others after a chunk, K1 and K2 launched d x m
-     x 22 times a step or chunk, the bytes of each call equal to
+     x 11 times a step or chunk, the bytes of each call equal to
      ``dryrun.serve_collectives``; a lane on data place 1 reading a
      shared prefix that place 0 wrote, within the limit, and beyond it
      with the gather skipped (the control); the 12-request trace greedy
@@ -282,7 +286,33 @@ outside the repository.  Phases, each of which raises on failure:
      and K3 launched once a place a block or layer, a control handing
      data place 1 place 0's stripes or states, which must fail the
      limit, and 4 greedy requests meshless and over the mesh;
- 17. each phase's seconds, a ``{"kernels": [...]}`` line, the card
+ 17. the moe family served over a (data, model) mesh with data axes
+     above 1, naming the card d x m times (``run_moe_data_serving``; the
+     experts cut on E over data as the serve rule places them, each
+     call dispatched in the reference's groups of its rows): full-width
+     qwen2-moe-a2.7b on MOE_DATA_DEPTH's 12 of its 24 layers at (2, 1)
+     and (2, 2) — K1 and K2 at one place's shapes against their plain
+     versions and each place's launch against one launch on all 8 lanes
+     (K3 too; bit for bit printed), each place holding only its E / d
+     experts' d / m slice, ``prefill_slots`` and ``decode_step`` logits
+     on bf16 and int8 pools against the meshless run under the same data
+     axes (``hint_of``: the same groups) within 5% of the range, the
+     meshless run's expert choices replayed by token (``by_places``),
+     the replicas bit for bit, K1 / K2 launched once a place a layer,
+     the bytes equal to ``dryrun.serve_collectives``; a cohort of lanes
+     0 and 1 (one data place) at capacity factor MOE_CONTROL_FACTOR
+     within the limit, and beyond it with slots formed by data place
+     (the group control); the 12-request trace greedy on both pools at
+     both meshes (ms a decode step, peak memory, launches); waves at (2,
+     2): K3 at one place's 2 rows, ``prefill`` and two ``decode_step``s
+     against the meshless run with the choices replayed, K3 launched
+     once a place a layer, 4 requests; then qwen3-moe-235b-a22b on
+     QWEN3_DEPTH's 4 of its 94 layers (about 22 GB) at (4, 1) and (2,
+     2): K1 and K2 at rep 16, D 128 (one place's heads) as above, a
+     first chunk, a continuation and QWEN3_DECODES decode steps against
+     the meshless run under the same data axes within 5% of the range,
+     launches and bytes as above, ms a decode step and peak memory;
+ 18. each phase's seconds, a ``{"kernels": [...]}`` line, the card
      line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -674,6 +704,9 @@ F8_BLOCK_BYTES = 22 * 16 * 4 * 64 * 2
 PATCH_PREFIX = 16  # the patch-prefix case's prefix
 VLM_PREFIX = 256   # internvl2-26b's patch prefix (num_patches)
 SPEC_K = 4         # drafts per verify pass: P = SPEC_K + 1 rows per lane
+#: Phase 8's spec runs serve the trace's first 6 requests (from PR 29:
+#: the whole script's time).
+SPEC_REQUESTS = 6
 VERIFY = "verify"  # check_prefill's case of the speculative verify pass
 
 
@@ -1844,6 +1877,11 @@ def profile_decode(torch, eng, cfg, card, moe_spans=False):
 #: other dense configs on a short continuous run.
 MOE_ARCH, VLM_ARCH = "qwen2-moe-a2.7b", "internvl2-26b"
 DENSE_ARCHS = ("stablelm-1.6b", "phi3-medium-14b", "granite-3-8b")
+#: Phase 9's dense configs on half their layers (from PR 29: the whole
+#: script's time): stablelm-1.6b 12 of 24, phi3-medium-14b and
+#: granite-3-8b 20 of 40.
+DENSE_DEPTH = {"stablelm-1.6b": 12, "phi3-medium-14b": 20,
+               "granite-3-8b": 20}
 
 
 def images(cfg, n):
@@ -1868,11 +1906,14 @@ def run_family(torch, arch, card):
     the stub), a wave run of 4 requests of distinct lengths and 8 new
     tokens (vlm: again on f8 stripes), (moe) a profiled decode step and
     (vlm) 4 requests of 16 greedy tokens with speculation off and on
-    (``run_spec``).  Dense: bf16 pool, 4 requests of 16 new tokens.
-    Returns {run: launches}."""
+    (``run_spec``).  Dense: on DENSE_DEPTH layers, bf16 pool, 4 requests
+    of 16 new tokens.  Returns {run: launches}."""
+    from dataclasses import replace
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     cfg = get_config(arch)
+    if arch in DENSE_DEPTH:
+        cfg = replace(cfg, num_layers=DENSE_DEPTH[arch])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3394,15 +3435,16 @@ def wave_cfg(arch):
     return cfg
 
 
-def wave_steps(torch, cfg, params, mesh=None, control=False):
+def wave_steps(torch, cfg, params, mesh=None, control=False, axes=None):
     """A wave's prefill (4 rows of WAVE_S tokens, 64 by default; whisper
     behind zero frames) and two decode steps, kernels on, over ``mesh``
     (``params`` placed there).  ``control``: after the prefill place 1's
     parts of every stripe and Mamba-2 state take place 0's (model shard
     1 reads shard 0's heads); ``control="data"`` the first place of data
     index 1 takes them (data place 1 reads place 0's rows).  The mesh's
-    byte counters are cleared before the last decode step.  Returns
-    (logits, prefill launches, decode launches)."""
+    byte counters are cleared before the last decode step.  ``axes``: the
+    axis state to run under (default: the mesh's).  Returns (logits,
+    prefill launches, decode launches)."""
     from dataclasses import replace
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding
@@ -3421,7 +3463,7 @@ def wave_steps(torch, cfg, params, mesh=None, control=False):
     counts = []
     for w in wrappers.values():
         w.launches = 0
-    with sharding.use_axes(mesh):
+    with sharding.use_axes(mesh if axes is None else axes):
         first, cache = M.prefill(c, params, batch, S + 8, mesh=mesh)
         torch.cuda.synchronize()
         counts.append({k: w.launches for k, w in wrappers.items()})
@@ -3959,6 +4001,9 @@ DATA_POOLS = ("bf16", "int8", "f8")
 DATA_TRACE_POOLS = ("bf16", "int8")
 #: internvl2-26b at (2, 1) on 12 of its 48 layers (every width full).
 DATA_VLM_DEPTH = 12
+#: The paged part's tinyllama-1.1b on 11 of its 22 layers (from PR 29:
+#: the whole script's time, phase 17 added).
+DATA_DEPTH = 11
 #: Waves over a (data, model) mesh: (config, (data, model)); the
 #: recurrent ones on the weights cast to fp32, as in phase 14.
 DATA_WAVES = (("tinyllama-1.1b", (2, 2)), ("mamba2-1.3b", (2, 2)),
@@ -4027,16 +4072,16 @@ def split_vs_one(torch, heads, gen):
     return same
 
 
-def data_kernels(torch, cfg, gen, card):
-    """K1 and K2 on a bf16 pool at tinyllama-1.1b's per-place shapes of
-    DATA_MESHES (data place 1's 4 lanes of 8, every head at (2, 1), one
-    model shard's at (2, 2)) against their plain versions as in phase 3,
-    and ``split_vs_one`` at each.  Returns {(d, m): (heads, K1 result,
-    K2 results)}."""
+def data_kernels(torch, cfg, gen, card, meshes=DATA_MESHES):
+    """K1 and K2 on a bf16 pool at ``cfg``'s per-place shapes of
+    ``meshes`` (4 lanes of 8, data place 1's at d = 2; every head at
+    (d, 1), one model shard's at (2, 2)) against their plain versions as
+    in phase 3, and ``split_vs_one`` at each.  Returns {(d, m): (heads,
+    K1 result, K2 results)}."""
     from dataclasses import replace
     from repro_torch.parallel import sharding
     out = {}
-    for d, m in DATA_MESHES:
+    for d, m in meshes:
         a = sharding.attn_shard_size(card_mesh(m, d=d), cfg.num_kv_heads)
         heads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
         dec = check_decode(torch, replace(cfg, num_heads=heads[0],
@@ -4171,7 +4216,8 @@ def gather_control(torch, cfg, params, placed, mesh, card):
 
 
 def run_data_paged(torch, gen, card):
-    """Phase 16's paged part: full-width tinyllama-1.1b at DATA_MESHES —
+    """Phase 16's paged part: full-width tinyllama-1.1b on DATA_DEPTH of
+    its layers at DATA_MESHES —
     ``data_kernels``; ``data_logits`` on bf16, int8 and f8 pools against
     the meshless run; ``gather_control``; the 12-request trace greedy on
     bf16 and int8 pools meshless and at each mesh (``run_mesh_trace``:
@@ -4186,7 +4232,7 @@ def run_data_paged(torch, gen, card):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding
-    cfg = get_config(ARCH)
+    cfg = replace(get_config(ARCH), num_layers=DATA_DEPTH)
     kernels = data_kernels(torch, cfg, gen, card)
     params = M.init_params(cfg, seed=0, device="cuda")
     want = {kd: model_logits(torch, cfg, params, kd, "on")
@@ -4358,6 +4404,389 @@ def run_data_serving(torch, gen, card):
     for arch, shape in DATA_WAVES:
         entries += run_data_waves(torch, arch, shape, gen, card)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the moe family served over a (data, model) mesh with data axes
+# above 1 — experts cut on E over data, dispatched in the reference's groups
+# ---------------------------------------------------------------------------
+
+#: qwen2-moe-a2.7b at full width on 12 of its 24 layers (every width full;
+#: the whole script's time), its meshes and pools.
+MOE_DATA_DEPTH = 12
+MOE_DATA_MESHES = ((2, 1), (2, 2))
+MOE_DATA_POOLS = ("bf16", "int8")
+#: qwen3-moe-235b-a22b at full width on 4 of its 94 layers (about 22 GB:
+#: 128 experts of 3 x 4096 x 1536 a layer), its meshes and decode steps.
+QWEN3_ARCH, QWEN3_DEPTH = "qwen3-moe-235b-a22b", 4
+QWEN3_MESHES = ((4, 1), (2, 2))
+QWEN3_DECODES = 8
+#: The group control's capacity factor: at 0.5 the capacity's floor of 8
+#: slots binds, so that the slot order decides which tokens keep their
+#: experts (the config's 1.25 drops few of a 64-token row's).
+MOE_CONTROL_FACTOR = 0.5
+
+
+def hint_of(d):
+    """The axis state of d data places: a meshless run's MoE then forms
+    the groups a mesh with d data places forms."""
+    from repro_torch.parallel import sharding
+    return sharding.AxisState((("data", d), ("model", 1)))
+
+
+def by_places(picks, mesh, n, lanes=None):
+    """A meshless run's expert choices (one (n S, k) entry a MoE layer
+    call, tokens in batch order) as a run over ``mesh`` routes them: each
+    call's entry cut into one entry a place holding rows, in place order,
+    that place's rows (``moe._served`` routes each place's own rows; a
+    data place's model shards alike).  The replay then maps choices by
+    token, not by place."""
+    from repro_torch.parallel import sharding
+    split = sharding.split_rows(mesh, lanes, n)
+    di = sharding.axis_index(mesh, sharding.AxisState.from_mesh(mesh).dp)
+    out = []
+    for e in picks:
+        rows = e.reshape(n, -1, e.shape[-1])
+        for q in range(mesh.devices.size):
+            held = list(range(n)) if split is None else list(split.rows[di[q]])
+            if held:
+                out.append(rows[held].reshape(-1, e.shape[-1]))
+    return out
+
+
+def experts_placed(torch, cfg, placed, mesh):
+    """Each place holds only its E / d experts (E over data, d over
+    ``model`` where they divide), every leaf gathering back bit for bit
+    is the CPU tests' (``to_whole`` of a 4.8 GB leaf is skipped here):
+    returns the bytes of one place's experts a layer."""
+    from repro_torch.parallel import sharding
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    E, D = cfg.moe.num_experts, cfg.d_model
+    moe = placed["blocks"]["moe"]
+    size = 0
+    for name in ("w_gate", "w_up", "w_down"):
+        x = moe[name]
+        want = [cfg.num_layers, E // d, D // m, cfg.d_ff] \
+            if name != "w_down" else [cfg.num_layers, E // d, cfg.d_ff,
+                                      D // m]
+        if x.rows != (("data",), 1) or \
+                any(list(p.shape) != want for p in x.parts) or \
+                len(x.distinct_parts()) != d * m:
+            raise AssertionError(f"{cfg.name} {name} at {(d, m)}: placed "
+                                 f"{x.rows} {x.parts[0].shape}, want "
+                                 f"{want} on each of {d * m} places")
+        size += x.parts[0][0].numel() * x.parts[0].element_size()
+    return size
+
+
+def moe_group_control(torch, cfg, params, placed, mesh, card):
+    """A cohort of lanes 0 and 1 (both on data place 0 at d = 2) prefills
+    64 tokens each, every position's logits, at the capacity factor
+    MOE_CONTROL_FACTOR: over ``mesh`` within 5% of the meshless run under
+    the same data axes, the expert choices replayed by token; with each
+    data place's rows taken as one dispatch group (slots by place, not
+    the reference's groups: lane 1's tokens compete with lane 0's for one
+    capacity) beyond it."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    dev = "cuda"
+    c = replace(cfg, attn_kernel="on", moe=replace(
+        cfg.moe, capacity_factor=MOE_CONTROL_FACTOR))
+    rng = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(1, cfg.vocab_size, (2, 64), generator=rng,
+                         device=dev)
+    tbl = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+    lens = torch.tensor([64, 64], dtype=torch.int32, device=dev)
+    lanes = sharding.Lanes((0, 1), B)
+
+    def chunk(p, mesh_, axes):
+        cache = M.init_paged_cache(c, 9, BS, device=dev, mesh=mesh_)
+        with sharding.use_axes(axes):
+            out = M.prefill_slots(c, p, cache, toks, lens, tbl,
+                                  all_logits=True, mesh=mesh_,
+                                  lanes=lanes)[0]
+        torch.cuda.synchronize()
+        return [out.float()]
+
+    d = mesh.shape["data"]
+    picks = []
+    with routing(torch, picks, replay=False):
+        want = chunk(params, None, hint_of(d))
+    name = f"{cfg.name} cohort of lanes 0 and 1, {mesh_name(mesh)} vs none"
+    with routing(torch, by_places(picks, mesh, 2, lanes), replay=True):
+        compare_logits(torch, name, chunk(placed, mesh, mesh), want, 0.05,
+                       card, names=("every position",))
+
+    def by_place(rows, d_):
+        split = rows.split
+        of, pos = [0] * rows.n, [0] * rows.n
+        for i, r in enumerate(split.rows):
+            for k, j in enumerate(r):
+                of[j], pos[j] = i, k
+        return sharding.Groups(d_, max(len(r) for r in split.rows),
+                               tuple(of), tuple(pos))
+
+    keep = sharding.dispatch_groups
+    sharding.dispatch_groups = by_place
+    try:
+        with routing(torch, by_places(picks, mesh, 2, lanes), replay=True):
+            bad = compare_logits(torch, name + " control (slots by data "
+                                 "place)", chunk(placed, mesh, mesh), want,
+                                 0.05, card, enforce=False,
+                                 names=("every position",))
+    finally:
+        sharding.dispatch_groups = keep
+    if bad <= 0.05:
+        raise AssertionError(f"{name}: the check cannot see slots formed "
+                             f"by data place")
+
+
+def moe_data_steps(torch, cfg, params, mesh, axes, decodes, log=None):
+    """A first chunk (4 lanes of 64, 40, 9 and 1 tokens), a continuation
+    (every position's logits) and ``decodes`` decode steps on a bf16
+    pool, kernels on, over ``mesh`` (``params`` placed there) or none,
+    under ``axes``; launch counts set to 0 before and read after; the
+    mesh's bytes read into ``log`` after each call; after the first chunk
+    every data replica of the pool bit for bit the others.  Returns
+    (logits of each call, ms a decode step, launches, peak GiB)."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    dev = "cuda"
+    rng, N, tbl, lens, toks = first_chunk(torch, cfg, 1)
+    nb = len(lens)
+    l2 = torch.tensor([16, 3, 16, 1], dtype=torch.int32, device=dev)
+    t2 = torch.randint(1, cfg.vocab_size, (nb, 16), generator=rng,
+                       device=dev)
+    nxt = torch.randint(1, cfg.vocab_size, (nb, decodes), generator=rng,
+                        device=dev)
+    c = replace(cfg, attn_kernel="on")
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+
+    def read():
+        if mesh is not None and log is not None:
+            log.append(dict(mesh.moved_bytes))
+        if mesh is not None:
+            mesh.moved_bytes.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    with sharding.use_axes(axes):
+        cache = M.init_paged_cache(c, N, BS, device=dev, mesh=mesh)
+        if mesh is not None:
+            mesh.moved_bytes.clear()
+        a, cache = M.prefill_slots(c, params, cache, toks, lens, tbl,
+                                   mesh=mesh)
+        read()
+        if mesh is not None:
+            replicas_equal(torch, cache, mesh, f"{cfg.name} "
+                           f"{mesh_name(mesh)}, after a chunk")
+        b, cache = M.prefill_slots(c, params, cache, t2, l2, tbl,
+                                   start=lens, all_logits=True, mesh=mesh)
+        read()
+        out += [a.float(), b.float()]
+        pos = lens + l2
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for i in range(decodes):
+            d_, cache = M.decode_step(c, params, cache, nxt[:, i:i + 1],
+                                      pos + i, block_tables=tbl, mesh=mesh)
+            read()
+            out.append(d_[:, 0].float())
+        ev[1].record()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return out, ev[0].elapsed_time(ev[1]) / decodes, launches, \
+        torch.cuda.max_memory_allocated() / 2**30
+
+
+def run_qwen3_data(torch, gen, card):
+    """qwen3-moe-235b-a22b at full width on QWEN3_DEPTH layers over
+    QWEN3_MESHES: K1 and K2 at one place's heads (rep 16, D 128: 64 over
+    4 at (4, 1), 32 over 2 at (2, 2)) against their plain versions and
+    per data place against one launch; the experts placed one E / d
+    block a place; ``moe_data_steps`` over each mesh against the
+    meshless run under the same data axes within 5% of the range, the
+    expert choices replayed by token, K2 launched d x m x layers times a
+    chunk and K1 a decode step, the bytes of each call equal to
+    ``dryrun.serve_collectives``.  Returns the kernels-line entries."""
+    from dataclasses import replace
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    cfg = replace(get_config(QWEN3_ARCH), num_layers=QWEN3_DEPTH)
+    kernels = data_kernels(torch, cfg, gen, card, QWEN3_MESHES)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    print(f"params {cfg.name}, {QWEN3_DEPTH} layers [{card}]: "
+          f"{held / 2**30:.2f} GiB, init peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB")
+    entries, L = [], cfg.num_layers
+    src = {"decode": ("src/repro_torch/csrc/paged_decode.cu",
+                      "src/repro/kernels/flash_decode/flash_decode.py:183"),
+           "prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                       "src/repro/kernels/flash_prefill/flash_prefill.py"
+                       ":231")}
+    for d, m in QWEN3_MESHES:
+        mesh = card_mesh(m, d=d)
+        picks = []
+        with routing(torch, picks, replay=False):
+            want, ms0, _, _ = moe_data_steps(torch, cfg, params, None,
+                                             hint_of(d), QWEN3_DECODES)
+        placed = sharding.place_serve(cfg, params, mesh)
+        per = experts_placed(torch, cfg, placed, mesh)
+        log = []
+        with routing(torch, by_places(picks, mesh, 4), replay=True):
+            got, ms, launches, peak = moe_data_steps(
+                torch, cfg, placed, mesh, mesh, QWEN3_DECODES, log)
+        n = mesh.devices.size
+        if launches != {"paged_flash_decode": n * L * QWEN3_DECODES,
+                        "paged_flash_prefill": 2 * n * L,
+                        "flash_decode": 0, "ssd_scan": 0}:
+            raise AssertionError(f"{cfg.name} {(d, m)}: launches {launches}")
+        kw = dict(table_width=T, act=2, token_bytes=8)
+        count = [dryrun.serve_collectives(cfg, mesh, 4, chunk=64,
+                                          written=114, **kw),
+                 dryrun.serve_collectives(cfg, mesh, 4, chunk=16, written=36,
+                                          first=False, all_logits=True,
+                                          **kw)]
+        count += [dryrun.serve_collectives(cfg, mesh, 4, written=4,
+                                           active=False, **kw)] * QWEN3_DECODES
+        if log != count:
+            raise AssertionError(f"{cfg.name} {(d, m)}: moved {log}, count "
+                                 f"{count}")
+        worst = compare_logits(
+            torch, f"{cfg.name} bf16 pool, {mesh_name(mesh)} vs none "
+            f"under the same data axes", got, want, 0.05, card,
+            names=("first chunk", "continuation") + tuple(
+                f"decode {i}" for i in range(QWEN3_DECODES)))
+        print(f"qwen3 over data {cfg.name} {(d, m)} [{card}]: {ms:.2f} ms a "
+              f"decode step ({ms0:.2f} meshless), peak {peak:.2f} GiB, one "
+              f"place's experts {per / 2**20:.1f} MiB a layer; launches "
+              f"{launches} ({n} places x {L} layers a call); bytes of the "
+              f"decode step {log[-1]}; worst share {worst:.4g}")
+        heads, dec, pre = kernels[d, m]
+        tag = f"{cfg.name}, {(d, m)} place, 4 lanes, heads {heads}"
+        entries += [kernel_entry(f"paged_flash_decode[{tag}]",
+                                 *src["decode"],
+                                 launches["paged_flash_decode"], dec),
+                    kernel_entry(f"paged_flash_prefill[{tag}]",
+                                 *src["prefill"],
+                                 launches["paged_flash_prefill"],
+                                 pre["continuation"],
+                                 err=max(r["err"] for r in pre.values()))]
+        del placed
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return entries
+
+
+def run_moe_data_serving(torch, gen, card):
+    """Phase 17: qwen2-moe-a2.7b at full width on MOE_DATA_DEPTH layers
+    over MOE_DATA_MESHES — K1 and K2 at one place's shapes against their
+    plain versions and per data place against one launch; the experts
+    placed one E / d block a place; ``data_logits`` on bf16 and int8
+    pools against the meshless run under the same data axes (the
+    reference's groups), the expert choices replayed by token; the group
+    control at (2, 1); the 12-request trace greedy on both pools at each
+    mesh; waves at (2, 2): K3 at one place's rows, ``wave_steps`` against
+    meshless within WAVE_SHARE with the choices replayed, K3 launched
+    once a place a layer, 4 greedy requests.  Then ``run_qwen3_data``.
+    Returns the kernels-line entries."""
+    from dataclasses import replace
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    cfg = replace(get_config(MOE_ARCH), num_layers=MOE_DATA_DEPTH)
+    kernels = data_kernels(torch, cfg, gen, card, MOE_DATA_MESHES)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    want = {}
+    for kd in MOE_DATA_POOLS:
+        picks = []
+        with sharding.use_axes(hint_of(2)), \
+                routing(torch, picks, replay=False):
+            want[kd] = model_logits(torch, cfg, params, kd, "on"), picks
+    runs, worst = {}, {}
+    for d, m in MOE_DATA_MESHES:
+        mesh = card_mesh(m, d=d)
+        placed = sharding.place_serve(cfg, params, mesh)
+        per = experts_placed(torch, cfg, placed, mesh)
+        print(f"experts {cfg.name} at {(d, m)} [{card}]: each place "
+              f"{per / 2**20:.1f} MiB a layer (its {cfg.moe.num_experts // d}"
+              f" experts' {cfg.d_model // m} columns)")
+        for kd in MOE_DATA_POOLS:
+            logits, picks = want[kd]
+            with sharding.use_axes(mesh), \
+                    routing(torch, by_places(picks, mesh, 4), replay=True):
+                worst[d, m, kd] = data_logits(torch, cfg, placed, kd, mesh,
+                                              logits, card)
+        if m == 1:
+            moe_group_control(torch, cfg, params, placed, mesh, card)
+        for kd in MOE_DATA_POOLS:
+            runs[d, m, kd] = run_mesh_trace(torch, cfg, placed, card, mesh,
+                                            kv_dtype=kd)
+        del placed
+        torch.cuda.empty_cache()
+    print(f"model check {cfg.name} over data axes [{card}]: worst share of "
+          f"the range " + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()))
+
+    # Waves at (2, 2).
+    d, m = 2, 2
+    mesh = card_mesh(m, d=d)
+    a = sharding.attn_shard_size(mesh, cfg.num_kv_heads)
+    wheads = (cfg.num_heads // a, cfg.num_kv_heads // a, cfg.head_dim)
+    k3 = check_dense_decode(torch, wheads, gen, lanes=PLACE_WAVE_ROWS)
+    picks = []
+    with routing(torch, picks, replay=False):
+        wwant = wave_steps(torch, cfg, params, None, axes=hint_of(d))[0]
+    placed = sharding.place_serve(cfg, params, mesh)
+    with routing(torch, by_places(picks, mesh, 4), replay=True):
+        got, pre, dec = wave_steps(torch, cfg, placed, mesh)
+    n = mesh.devices.size
+    name = f"{cfg.name} wave, {(d, m)} vs none under the same data axes"
+    zero = {"paged_flash_decode": 0, "paged_flash_prefill": 0,
+            "ssd_scan": 0}
+    if pre != {**zero, "flash_decode": 0} or \
+            dec != {**zero, "flash_decode": 2 * n * cfg.num_layers}:
+        raise AssertionError(f"{name}: launches prefill {pre}, decode {dec}")
+    compare_logits(torch, name, got, wwant, WAVE_SHARE["moe"], card,
+                   names=("prefill", "decode 1", "decode 2"))
+    wrun = wave_engine(torch, cfg, placed, card, mesh)
+    del placed, params
+    torch.cuda.empty_cache()
+
+    entries = []
+    src = {"decode": ("src/repro_torch/csrc/paged_decode.cu",
+                      "src/repro/kernels/flash_decode/flash_decode.py:183"),
+           "prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                       "src/repro/kernels/flash_prefill/flash_prefill.py"
+                       ":231")}
+    for d, m in MOE_DATA_MESHES:
+        heads, dec, pre = kernels[d, m]
+        launches = runs[d, m, "bf16"][2]
+        tag = f"{cfg.name}, {(d, m)} place, 4 lanes, heads {heads}"
+        entries += [kernel_entry(f"paged_flash_decode[{tag}]",
+                                 *src["decode"],
+                                 launches["paged_flash_decode"], dec),
+                    kernel_entry(f"paged_flash_prefill[{tag}]",
+                                 *src["prefill"],
+                                 launches["paged_flash_prefill"],
+                                 pre["continuation"],
+                                 err=max(r["err"] for r in pre.values()))]
+    entries.append(kernel_entry(
+        f"flash_decode[{cfg.name}, (2, 2) place, 2 rows, heads {wheads}]",
+        "src/repro_torch/csrc/dense_decode.cu",
+        "src/repro/kernels/flash_decode/flash_decode.py:78",
+        wrun[3]["flash_decode"], k3))
+    return entries + run_qwen3_data(torch, gen, card)
 
 
 #: Each phase's seconds, in the order the phases ran.
@@ -4544,7 +4973,8 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}){rates(r)}")
     check_verify_model(torch, cfg, params, card)
-    spec = {kd: run_spec(torch, cfg, params, card, kv_dtype=kd)
+    spec = {kd: run_spec(torch, cfg, params, card, kv_dtype=kd,
+                         reqs=trace(cfg, SPEC_REQUESTS))
             for kd in ("bf16", "int8", "f8")}
     run_launcher(torch, card)
     mark("8. speculation and the async front end")
@@ -4588,7 +5018,11 @@ def main() -> int:
     data = run_data_serving(torch, gen, card)
     mark("16. serving over a (data, model) mesh")
 
-    # 17. Result lines.  The quantized bodies report their int8 times (fp8
+    # 17. The moe family over a (data, model) mesh on the one card.
+    data += run_moe_data_serving(torch, gen, card)
+    mark("17. moe over a (data, model) mesh")
+
+    # Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.
     def runs(kernel, *keys):
         return sum(launches[k][kernel] for k in keys)

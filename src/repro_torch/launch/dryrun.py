@@ -500,18 +500,20 @@ BASIS = {
 def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
                       table_width: int, written: int, act: int = 2,
                       token_bytes: int = 4, first: bool = True,
-                      all_logits: bool = False, active: bool = True
+                      all_logits: bool = False, active: bool = True,
+                      lanes: Optional[sharding.Lanes] = None
                       ) -> Dict[str, int]:
     """Bytes, by kind as ``Mesh.moved_bytes`` counts them, that one paged
-    call of an attention family without experts moves between the places
-    of ``mesh`` (a (data, model) mesh; every cut the sanitized rules keep
-    divides): a ``decode_step`` of ``rows`` rows (``chunk`` None) or a
+    call of an attention family moves between the places of ``mesh`` (a
+    (data, model) mesh; every cut the sanitized rules keep divides): a
+    ``decode_step`` of ``rows`` rows (``chunk`` None) or a
     ``prefill_slots`` chunk of ``rows`` rows of ``chunk`` tokens, row j
-    serving lane j of ``rows``.
+    serving lane j of ``rows`` or, for a chunk, ``lanes``
+    (``sharding.Lanes``).
 
       * the scheduler inputs, each data index's rows to each of its
-        places ("scatter", place 0's own not counted), or, where ``rows``
-        does not divide the data axes, every row to every
+        places ("scatter", place 0's own not counted), or, where the
+        lanes' width does not divide the data axes, every row to every
         place ("broadcast"): decode — tokens (``token_bytes``), positions
         (int32), ``table_width`` int32 table entries and, with
         ``active``, the live-lane mask (bool); a chunk — tokens, lengths
@@ -526,6 +528,8 @@ def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
         logits (all_gather of the vocab, or a psum where it does not
         divide) — a psum 2 (m - 1) times its bytes a data index, an
         all_gather m - 1 times;
+      * a moe layer's collectives instead of the MLP's
+        (``moe_serve_collectives``);
       * the logits of every data index but place 0's to place 0
         ("row_gather");
       * the ``written`` live pool rows (trash block excluded), every
@@ -535,9 +539,11 @@ def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
     st = sharding.AxisState.from_mesh(mesh)
     m = st.size(sharding.TP_AXIS)
     d = sharding.data_size(mesh)
-    cut = d > 1 and rows % d == 0
-    held = rows // d if cut else rows
-    R = d * held
+    split = sharding.split_rows(mesh, lanes if chunk is not None else None,
+                                rows)
+    cut = split is not None
+    held = len(split.rows[0]) if cut else rows  # data index 0's rows
+    R = rows if cut else d * rows  # rows summed over the data indices
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     vlm_first = cfg.family == "vlm" and chunk is not None and first
     prefix = cfg.num_patches if vlm_first else 0
@@ -562,13 +568,19 @@ def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
             out["all_gather"] += (m - 1) * emb
         if prefix and D % m == 0:
             out["all_gather"] += (m - 1) * R * prefix * D * act
-        per_layer = (a > 1) + (cfg.d_ff % m == 0)
+        per_layer = (a > 1) + (cfg.moe is None and cfg.d_ff % m == 0)
         out["psum"] += 2 * (m - 1) * L * per_layer * R * S * D * act
         logit_rows = R * (toks if all_logits else 1)
         if V % m == 0:
             out["all_gather"] += (m - 1) * logit_rows * V * act
         else:
             out["psum"] += 2 * (m - 1) * logit_rows * V * act
+    if cfg.moe is not None:
+        call = sharding.call_rows(lanes if chunk is not None else None, rows,
+                                  split)
+        for kind, n in moe_serve_collectives(cfg, mesh, call, S,
+                                             act).items():
+            out[kind] += L * n
     if cut:
         out["row_gather"] = (rows - held) * (
             toks if all_logits else 1) * V * act
@@ -579,6 +591,65 @@ def serve_collectives(cfg, mesh, rows: int, *, chunk: Optional[int] = None,
         out["pool_gather"] = (d - 1) * m * written * L * row
     return {k: v for k, v in out.items() if v or k in (
         "scatter", "broadcast", "row_gather", "pool_gather")}
+
+
+def moe_serve_collectives(cfg, mesh, call: sharding.CallRows, S: int,
+                          act: int = 2) -> Dict[str, int]:
+    """Bytes, by kind, that one moe layer of a serving call moves between
+    the places of a (data=d, model=m) mesh (``moe.apply_moe(rows=)``):
+    ``call``'s rows of S tokens, ``act``-byte activations, groups of
+    ``sharding.dispatch_groups`` at capacity C of their tokens.
+
+      * the routing choices' all_gather over data, where a group's rows
+        lie on other data places: (n, S, k) int32, d - 1 times a model
+        shard;
+      * experts cut on E over data (E divides d): both all_to_alls of
+        the (G, E, C, d') dispatch buffers (d' = D / m where D divides
+        m), or, where the groups are not the places, the forward one and
+        an all_gather of the outputs — an all_gather alone where every
+        place holds every row; the psums of the gate and up projections'
+        partials over ``model`` at hidden volume (D cut); the output's
+        all_gather of d over ``model``;
+      * experts whole over data: the psum of the down projection's
+        partial outputs over ``model`` (the hidden dim cut);
+      * the shared expert's psum over ``model``.
+
+    A psum moves 2 (m - 1) times its bytes a group, an all_gather g - 1
+    times the gathered bytes."""
+    m_ = cfg.moe
+    st = sharding.AxisState.from_mesh(mesh)
+    m = st.size(sharding.TP_AXIS)
+    d = sharding.data_size(mesh)
+    E, k, D, f = m_.num_experts, m_.num_experts_per_tok, cfg.d_model, \
+        cfg.d_ff
+    grp = sharding.dispatch_groups(call, d)
+    G, C = grp.count, moe_lib.capacity(cfg, grp.per * S)
+    split = call.split
+    tokens = (call.n if split is not None else d * call.n) * S
+    local = sharding.groups_on_places(call, grp)
+    ep = d > 1 and E % d == 0
+    dcut = ep and m > 1 and D % m == 0
+    d_c = D // m if dcut else D
+    buf = G * E * C * d_c * act  # every group's (E, C, d') slots
+    out: Dict[str, int] = defaultdict(int)
+    if split is not None and not local:
+        out["all_gather"] += m * (d - 1) * call.n * S * k * 4
+    if ep:
+        if local:
+            out["all_to_all"] += 2 * m * (d - 1) * buf // d
+        else:
+            if split is not None:
+                out["all_to_all"] += m * (d - 1) * buf
+            out["all_gather"] += m * (d - 1) * buf
+        if dcut:  # a place's E / d experts' slots of every group
+            hid = G * (E // d) * C * f * act
+            out["psum"] += d * 2 * 2 * (m - 1) * hid
+            out["all_gather"] += (m - 1) * tokens * D * act
+    elif m > 1 and f % m == 0:
+        out["psum"] += 2 * (m - 1) * tokens * D * act
+    if m_.shared_d_ff and m > 1 and m_.shared_d_ff % m == 0:
+        out["psum"] += 2 * (m - 1) * tokens * D * act
+    return dict(out)
 
 
 def _cfg_for(arch: str, reduced: bool, kv_dtype: str):

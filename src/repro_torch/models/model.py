@@ -495,20 +495,21 @@ def _attn_qkv(cfg: ModelConfig, blk: Params, x: torch.Tensor,
 
 
 def _attn_block_body(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-                     positions: torch.Tensor, mesh=None):
+                     positions: torch.Tensor, mesh=None, rows=None):
     """One layer over a plain causal window (the wave path's prefill;
     every token routes, as in the reference):
     returns (x_out, k, v) with k/v of this call's tokens in the compute
     dtype (``layers.self_attend``).  Over a ``mesh`` each shard attends
     with its own heads (k/v then cut on their heads) and ``wo`` and the
-    FFN run as ``_attn_post(mesh=)``."""
+    FFN run as ``_attn_post(mesh=)``; ``rows`` a serving call's
+    ``sharding.CallRows`` (the MoE's groups)."""
     lcfg = sharding.shard_cfg(cfg, mesh)
     q, k, v = sharding.smap(
         lambda b_, x_, pos: _attn_qkv(lcfg, b_, x_, pos), blk, x, positions,
         mesh=mesh, dim=_head_dim(cfg, mesh))
     a = sharding.smap(lambda q_, k_, v_: layers.self_attend(lcfg, q_, k_, v_),
                       q, k, v, mesh=mesh)
-    return _attn_post(cfg, blk, x, a, mesh=mesh), k, v
+    return _attn_post(cfg, blk, x, a, mesh=mesh, rows=rows), k, v
 
 
 def _head_dim(cfg: ModelConfig, mesh) -> Optional[int]:
@@ -528,43 +529,46 @@ def _psum_rows(y, w):
 def _attn_post(cfg: ModelConfig, blk: Params, x: torch.Tensor,
                a: torch.Tensor,
                moe_valid: Optional[torch.Tensor] = None,
-               mesh=None) -> torch.Tensor:
+               mesh=None, rows=None) -> torch.Tensor:
     """Residual + output projection, then the FFN half.  Over a ``mesh``
     ``wo`` is row-parallel where the heads are cut: a ``psum`` of the
     shards' partials."""
-    return _attn_post_aux(cfg, blk, x, a, moe_valid, mesh)[0]
+    return _attn_post_aux(cfg, blk, x, a, moe_valid, mesh, rows)[0]
 
 
 def _attn_post_aux(cfg: ModelConfig, blk: Params, x, a, moe_valid=None,
-                   mesh=None):
+                   mesh=None, rows=None):
     """``_attn_post`` and the MoE load-balancing loss (``_ffn_aux``)."""
     y = sharding.smap(lambda a_, wo: a_ @ wo, a, blk["attn"]["wo"],
                       mesh=mesh)
     if sharding.cut_dim(blk["attn"]["wo"]) is not None:
         y = sharding.psum(y)
     return _ffn_aux(cfg, blk, sharding.smap(torch.add, x, y, mesh=mesh),
-                    moe_valid, mesh)
+                    moe_valid, mesh, rows)
 
 
 def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor,
          moe_valid: Optional[torch.Tensor] = None,
-         mesh=None) -> torch.Tensor:
+         mesh=None, rows=None) -> torch.Tensor:
     """x plus the MLP — or, in a moe block, the MoE FFN, with
     ``moe_valid`` (x's leading dims, bool) keeping pads and dead lanes
     out of the expert capacity — of the normed x."""
-    return _ffn_aux(cfg, blk, x, moe_valid, mesh)[0]
+    return _ffn_aux(cfg, blk, x, moe_valid, mesh, rows)[0]
 
 
 def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor,
-             moe_valid: Optional[torch.Tensor] = None, mesh=None):
+             moe_valid: Optional[torch.Tensor] = None, mesh=None,
+             rows=None):
     """``_ffn`` and the MoE load-balancing loss: (x_out, aux), aux None
     for an MLP block.  Over a ``mesh`` the MLP is column- then
     row-parallel (a ``psum`` of the down projection's partials) and the
-    MoE as ``moe.apply_moe(mesh=)``."""
+    MoE as ``moe.apply_moe(mesh=)``.  ``rows``: a serving call's
+    ``sharding.CallRows``, from which the MoE forms the reference's
+    dispatch groups (None: training)."""
     xn = _norm(cfg, blk["ln_mlp"], x, mesh)
     if "moe" in blk:
         y, aux = moe_lib.apply_moe(cfg, blk["moe"], xn, valid=moe_valid,
-                                   mesh=mesh)
+                                   mesh=mesh, rows=rows)
     else:
         y, aux = sharding.smap(lambda p_, x_: layers.apply_mlp(cfg, p_, x_),
                                blk["mlp"], xn, mesh=mesh), None
@@ -708,7 +712,10 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
     them on its replica of the pool, K2 once a (data, model) place with
     rows; a place without rows runs nothing.  The rows each place wrote
     then reach the other replicas (``sharding.gather_writes``), and the
-    logits come back in row order.
+    logits come back in row order.  The MoE dispatches in the reference's
+    groups of the call's rows (``sharding.call_rows``: the rows in order,
+    or, with ``lanes.all_lanes``, every lane of the width — a verify
+    pass), whichever data place holds them, on experts cut over data.
     """
     check_paged(cfg, "prefill_slots")
     Bn, P = tokens.shape
@@ -736,6 +743,7 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
                 kv_dtype=cfg.kv_dtype
                 if kv_quant.is_quantized(cfg.kv_dtype) else None)
     split = sharding.split_rows(mesh, lanes, Bn)
+    rows = sharding.call_rows(lanes, Bn, split)
     bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     if prefix:
@@ -754,7 +762,8 @@ def prefill_slots(cfg: ModelConfig, params: Params, cache: Params,
         a = prefill_ops.prefill_attention(
             q, k, v, cache["k"][layer], cache["v"][layer], lengths, tables,
             kv_scales=_layer_scales(cache, layer), mesh=mesh, **attn)[0]
-        h = _attn_post(cfg, blk, h, a, moe_valid=real_key, mesh=mesh)
+        h = _attn_post(cfg, blk, h, a, moe_valid=real_key, mesh=mesh,
+                       rows=rows)
     _gather_pool_writes(cache, split,
                         _chunk_writes(prefix + P, prefix,
                                       cache["k"].shape[2]),
@@ -806,6 +815,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     pos = (torch.as_tensor(position, dtype=torch.int32, device=tokens.device)
            + prefix).expand(tokens.shape[0])
     split = sharding.split_rows(mesh, None, tokens.shape[0])
+    rows = sharding.call_rows(None, tokens.shape[0], split)
     bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     pos, tables = bc(pos.contiguous()), bc(block_tables)
@@ -817,7 +827,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 else _layer_scales(cache, layer)
             h = _attn_decode(cfg, blk, h, cache["k"][layer],
                              cache["v"][layer], pos, tables, scales, valid,
-                             mesh)
+                             mesh, rows)
         if block_tables is not None:
             _gather_pool_writes(cache, split,
                                 _decode_writes(cache["k"].shape[2]), tables,
@@ -860,14 +870,14 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
 
 def _attn_decode(cfg: ModelConfig, blk: Params, h, k_cache, v_cache, pos,
-                 tables=None, scales=None, valid=None, mesh=None):
+                 tables=None, scales=None, valid=None, mesh=None, rows=None):
     """One attention layer's decode step (norm, ``layers.attention_decode``
     with its cache store, residual, FFN); returns h after the layer."""
     xn = _norm(cfg, blk["ln_attn"], h, mesh)
     a = layers.attention_decode(cfg, blk["attn"], xn, k_cache, v_cache, pos,
                                 tables, kv_scales=scales, mesh=mesh)[0]
     return _ffn(cfg, blk, sharding.smap(torch.add, h, a, mesh=mesh), valid,
-                mesh)
+                mesh, rows)
 
 
 def _cross_attend(cfg: ModelConfig, blk: Params, h, ck, cv, mesh=None):
@@ -1269,6 +1279,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     fam = cfg.family
     dev = tokens.device
     split = sharding.split_rows(mesh, None, B)
+    rows = sharding.call_rows(None, B, split)
     bc = functools.partial(sharding.scatter, mesh=mesh, split=split)
     h = _embed(params["embed"], bc(tokens), mesh)
     if fam == "vlm":
@@ -1338,7 +1349,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
         S = h.shape[1]
         for layer in range(cfg.num_layers):
             h, k, v = _attn_block_body(cfg, layer_params(params, layer), h,
-                                       positions, mesh)
+                                       positions, mesh, rows)
             store("k", (layer, slice(None), slice(S)), k)
             store("v", (layer, slice(None), slice(S)), v)
     return unembed(cfg, params, sharding.smap(lambda x: x[:, -1], h,

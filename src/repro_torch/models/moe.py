@@ -1,9 +1,11 @@
 """Mixture-of-Experts FFN with token-choice top-k routing.
 
 Port of ``repro.models.moe``: the auto-partitioned path (over a mesh:
-``apply_moe(mesh=)``) and the manual-collective path
-(``apply_moe_manual``: experts over the data axes, all-to-alls, the
-expert FFN sliced on d_model over ``model``).  Tokens are dispatched by
+``apply_moe(mesh=)``), the manual-collective path (``apply_moe_manual``:
+experts over the data axes, all-to-alls, the expert FFN sliced on
+d_model over ``model``) and the serving path over a mesh
+(``apply_moe(rows=)``: the reference's dispatch groups under the serving
+mask, on the experts the serve rule places).  Tokens are dispatched by
 gather into per-expert capacity buffers: each (token, k) assignment gets
 a FIFO slot in its expert's buffer (token-major, k-minor), assignments
 past the capacity ``C`` and tokens marked invalid (pads, dead serving
@@ -14,11 +16,14 @@ kept slots' outputs weighted by its renormalised router probabilities.
 
 Groups: one dispatch group per data shard (``_num_groups``: the data
 axes' size under ``sharding.use_axes`` when it divides B, as in the
-reference), so that slot assignment stays local; over a placed mesh each
-data shard holds its own group, and the load-balancing loss is formed
-from the mean router probabilities and top-1 fractions averaged over the
-data shards — the statistics the reference takes over all groups at
-once.
+reference) — contiguous rows of the call, each with its own capacity
+and slot order.  In training over a placed mesh each data shard holds
+its own group, and the load-balancing loss is formed from the mean
+router probabilities and top-1 fractions averaged over the data shards
+— the statistics the reference takes over all groups at once.  In
+serving the data places hold rows by lane slot, which need not be the
+groups' rows: ``_served`` forms each assignment's slot in its group
+whichever place holds the row (``sharding.dispatch_groups``).
 """
 from __future__ import annotations
 
@@ -131,7 +136,8 @@ def _dispatch_indices(cfg: ModelConfig, experts: torch.Tensor, C: int,
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              valid: Optional[torch.Tensor] = None, mesh=None
+              valid: Optional[torch.Tensor] = None, mesh=None,
+              rows: Optional[sharding.CallRows] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss).
 
@@ -139,26 +145,47 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     and get no expert output (the shared expert still runs on them).
     The capacity counts every row and column of ``x``, pads and dead
     lanes included, as the reference's does.  Without a mesh the tokens
-    are dispatched in ``_num_groups`` groups.
+    are dispatched in ``_num_groups`` groups.  rows: a serving call's
+    ``sharding.CallRows`` — the groups are formed on the reference's
+    batch, which holds x's rows at ``rows.at`` (a verify pass's live
+    lanes among all lanes) and empty rows elsewhere.
 
-    mesh: ``p``, ``x`` and ``valid`` are ``sharding.Sharded`` trees, each
-    data shard's x its rows of the batch, whole over ``model`` (its own
-    dispatch group).  Where the manual-collective path applies
-    (``expert_parallel``, no mask) it runs (``apply_moe_manual``).  Otherwise the experts are whole over the
-    data axes (gathered by the caller, or never cut) and either whole
-    over ``model`` or cut on their hidden dim, the router whole: every
-    model shard routes and dispatches alike, a ``psum`` follows the down
-    projection's partial outputs, combined per token; the shared expert
-    is cut as a dense MLP, with its own ``psum``.  The output is equal on
-    every model shard, and so is aux; over several data shards aux is
-    formed from the router statistics averaged over them (a ``psum``
-    over the data axes)."""
+    mesh, ``rows`` given: a serving call (``_served``): x's parts are
+    each data place's rows (``rows.split``; every row where it is None,
+    none where a place holds no lane), whole over ``model``, the experts
+    placed by ``sharding.serve_specs``; the values are the reference's
+    grouped dispatch (``_routed`` with ``dispatch_groups``' groups) and
+    aux is None (serving drops it).
+
+    mesh, no ``rows``: training.  ``p``, ``x`` and ``valid`` are
+    ``sharding.Sharded`` trees, each data shard's x its rows of the
+    batch, whole over ``model`` (its own dispatch group).  Where the
+    manual-collective path applies (``expert_parallel``, no mask) it
+    runs (``apply_moe_manual``).  Otherwise the experts are whole over
+    the data axes (gathered by the caller, or never cut) and either
+    whole over ``model`` or cut on their hidden dim, the router whole:
+    every model shard routes and dispatches alike, a ``psum`` follows
+    the down projection's partial outputs, combined per token; the
+    shared expert is cut as a dense MLP, with its own ``psum``.  The
+    output is equal on every model shard, and so is aux; over several
+    data shards aux is formed from the router statistics averaged over
+    them (a ``psum`` over the data axes)."""
     if mesh is None:
-        G = _num_groups(x.shape[0], x.shape[1])
-        out, me, ce = _routed(cfg, p, x, valid, G)
+        B, S = x.shape[:2]
+        xb, vb = x, valid
+        if rows is not None and not rows.identity:
+            at = torch.tensor(rows.at, device=x.device)
+            xb = _to_slab(x, at, rows.size, 0)
+            vb = _to_slab(torch.ones(B, S, dtype=torch.bool, device=x.device)
+                          if valid is None else valid, at, rows.size, False)
+        out, me, ce = _routed(cfg, p, xb, vb, _num_groups(xb.shape[0], S))
+        if xb is not x:
+            out = out[at]
         out = out if "shared" not in p else out + _shared(cfg, p["shared"],
                                                           x)
         return out, _aux(cfg, me, ce)
+    if rows is not None:
+        return _served(cfg, p, x, valid, mesh, rows), None
     if valid is None and expert_parallel(cfg, mesh, x):
         return apply_moe_manual(cfg, p, x, mesh)
     if any(isinstance(w, sharding.Sharded) and w.rows is not None
@@ -246,24 +273,27 @@ def _expert_ffn(p: Params, expert_in: torch.Tensor) -> torch.Tensor:
 
 
 def _combine(expert_out: torch.Tensor, experts: torch.Tensor,
-             slot: torch.Tensor, weights: torch.Tensor, C: int
-             ) -> torch.Tensor:
+             slot: torch.Tensor, weights: torch.Tensor, C: int,
+             grp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each token's kept slots' outputs, weighted in the compute dtype
-    and summed: (G, T, d).  The reference scatter-adds the weighted
-    slots; this is the same sum written as a gather over the token's k
-    slots, so that no two writes meet (no atomics on the card: the same
-    bits from run to run)."""
+    and summed: expert_out (G, E, C, d); experts / slot / weights the
+    tokens' (..., k) choices, slots and weights; grp each token's group
+    (broadcast over the token dims; None: tokens (G, T, k), group g's in
+    row g).  The reference scatter-adds the weighted slots; this is the
+    same sum written as a gather over the token's k slots, so that no two
+    writes meet (no atomics on the card: the same bits from run to
+    run)."""
     G, E, _, d = expert_out.shape
-    T, k = slot.shape[1:]
-    flat = (experts.long() * C + torch.clamp(slot, max=C - 1).long()) \
-        .reshape(G, T * k, 1)
-    picked = torch.gather(expert_out.reshape(G, E * C, d), 1,
-                          flat.expand(G, T * k, d)).reshape(G, T, k, d)
+    if grp is None:
+        grp = torch.arange(G, device=slot.device)[:, None]
+    flat = (grp.long()[..., None] * E + experts.long()) * C \
+        + torch.clamp(slot, max=C - 1).long()
+    picked = expert_out.reshape(G * E * C, d)[flat]
     contrib = (picked * weights.to(expert_out.dtype)[..., None]) \
         .masked_fill((slot >= C)[..., None], 0)
-    out = contrib[:, :, 0]
-    for j in range(1, k):
-        out = out + contrib[:, :, j]
+    out = contrib[..., 0, :]
+    for j in range(1, contrib.shape[-2]):
+        out = out + contrib[..., j, :]
     return out
 
 
@@ -340,22 +370,22 @@ def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
     axes and on d over ``model``, ``w_down`` (E, f, d) on E and d.  A
     place (data i, model j) takes its tokens' d-slice j, forms partial
     router logits from the router's rows j and ``psum``s them over
-    ``model`` (every model shard then routes alike), dispatches into (E,
-    C, d/tp) buffers at capacity C of its own tokens, ``all_to_all``s
-    them over the data axes to the experts' owners, runs the partial
-    up-projections, ``psum``s them over ``model`` (hidden volume), the
-    exact d-sliced down projection, ``all_to_all``s back and combines
-    locally; an ``all_gather`` over ``model`` rebuilds d (the reference
-    leaves its output d-sharded).  The all-to-alls run over ``data``, the
-    axis the experts are cut over: where a ``pod`` axis holds replicas of
-    them, each pod exchanges among its own data shards (the reference's
-    shard_map reshards them over pod x data).  aux is each data shard's
-    loss, its mean over every place (``psum`` / n).  The shared expert runs as in
+    ``model`` (every model shard then routes alike), dispatches into (1,
+    E, C, d/tp) buffers at capacity C of its own tokens and runs them
+    through ``_exchange`` (``all_to_all`` over the data axes to the
+    experts' owners, the partial up-projections ``psum``'d over
+    ``model`` at hidden volume, the exact d-sliced down projection, the
+    reverse ``all_to_all``), combines locally; an ``all_gather`` over
+    ``model`` rebuilds d (the reference leaves its output d-sharded).
+    The all-to-alls run over ``data``, the axis the experts are cut
+    over: where a ``pod`` axis holds replicas of them, each pod
+    exchanges among its own data shards (the reference's shard_map
+    reshards them over pod x data).  aux is each data shard's loss, its
+    mean over every place (``psum`` / n).  The shared expert runs as in
     ``apply_moe``."""
-    m = cfg.moe
-    tp, ep = sharding.TP_AXIS, ("data",)
-    ep_n, tp_n = sharding.axes_size(mesh, ep), sharding.axes_size(mesh, tp)
-    E, d, n = m.num_experts, cfg.d_model, mesh.devices.size
+    tp = sharding.TP_AXIS
+    tp_n = sharding.axes_size(mesh, tp)
+    d, n = cfg.d_model, mesh.devices.size
     d_loc = d // tp_n
     B, S = x.parts[0].shape[:2]
     T_loc = B * S
@@ -368,20 +398,10 @@ def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
          for k in range(n)]), tp)
     routed = [_route_logits(cfg, lg) for lg in logits.parts]
     disp = [_dispatch_indices(cfg, r[1][None], C) for r in routed]
-    expert_in = x.with_parts([_gather(xt[k][None], disp[k][1])[0]
-                              for k in range(n)])
-    expert_in = sharding.all_to_all(expert_in, ep, 0, 1)  # (E/ep, C ep, d/tp)
-    g_part, u_part = (x.with_parts([torch.einsum(
-        "ecd,edf->ecf", e, w) for e, w in zip(expert_in.parts,
-                                              p[name].parts)])
-        for name in ("w_gate", "w_up"))
-    h = [F.silu(g) * u for g, u in zip(sharding.psum(g_part, tp).parts,
-                                       sharding.psum(u_part, tp).parts)]
-    y = sharding.all_to_all(x.with_parts([torch.einsum(
-        "ecf,efd->ecd", h_, w) for h_, w in zip(h, p["w_down"].parts)]),
-        ep, 1, 0)  # (E, C, d/tp)
+    y = _exchange(p, x.with_parts([_gather(xt[k][None], disp[k][1])
+                                   for k in range(n)]), mesh, "local")
     out = sharding.Sharded(tuple(
-        _combine(y.parts[k][None], routed[k][1][None], disp[k][0],
+        _combine(y.parts[k], routed[k][1][None], disp[k][0],
                  routed[k][0][None], C)[0].reshape(B, S, d_loc)
         for k in range(n)), 2, mesh)
     out = sharding.all_gather(out)
@@ -390,3 +410,227 @@ def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
                         data_shard_axes(mesh) + (tp,))
     aux = sharding.smap(lambda a: a / n, aux, mesh=mesh)
     return _plus_shared(cfg, p, x, out, mesh), aux
+
+
+def _expert_axes(p: Params) -> Tuple[str, ...]:
+    """The axes the routed experts are cut over on E (expert
+    parallelism), () where they are whole over the data axes."""
+    w = p["w_gate"]
+    return w.rows[0] if isinstance(w, sharding.Sharded) and w.rows else ()
+
+
+def _exchange(p: Params, xin, mesh, how: str):
+    """The experts' outputs for every place's dispatch buffer ``xin`` (a
+    ``Sharded``, (G, E, C, d') a place, d' its d slice where the experts
+    are cut on d over ``model``), (G, E, C, d') a place.  Where the
+    experts are cut on E over the data axes, ``how`` says what a buffer
+    holds:
+
+      * "local": its own group (that of its data index), cut on E and
+        sent to the experts' owners by an ``all_to_all`` that stacks the
+        sources' groups on C, and brought back by the reverse
+        ``all_to_all``;
+      * "tokens": its own tokens' slots of every group, zeros elsewhere,
+        cut on E and summed at the owner over the sources (no slot is
+        filled twice);
+      * "experts": every group's slots of the place's own E / d experts
+        (G, E / d, C, d'), run where they are.
+
+    After "tokens" and "experts" the outputs are ``all_gather``'d over
+    the data axes.  Experts whole over data: the FFN on each place's
+    buffer."""
+    ep = _expert_axes(p)
+    if ep and how == "local":
+        y = _ffn_placed(p, sharding.all_to_all(xin, ep, 1, 2), mesh)
+        return sharding.all_to_all(y, ep, 2, 1)
+    if ep and how == "tokens":
+        G = xin.parts[0].shape[0]
+        xin = sharding.all_to_all(xin, ep, 1, 0)
+        xin = xin.with_parts([t.reshape((-1, G) + tuple(t.shape[1:]))
+                              .sum(0) for t in xin.parts])
+    y = _ffn_placed(p, xin, mesh)
+    return sharding.all_gather(y, 1, ep) if ep else y
+
+
+def _ffn_placed(p: Params, xin, mesh):
+    """``_expert_ffn`` on each place's buffer with its parts of the
+    experts.  Where ``w_gate`` / ``w_up`` are cut on d over ``model`` the
+    up projections' partials are ``psum``'d over ``model`` (hidden
+    volume) and the down projection is exact on the place's d slice;
+    where they are cut on f the outputs are partial (summed by the
+    caller)."""
+    if sharding.cut_dim(p["w_gate"]) != 1:
+        experts = {k: p[k] for k in ("w_gate", "w_up", "w_down")}
+        return sharding.smap(_expert_ffn, experts, xin, mesh=mesh)
+    g, u = (sharding.psum(xin.with_parts([
+        torch.einsum("gecd,edf->gecf", e, w)
+        for e, w in zip(xin.parts, p[name].parts)]))
+        for name in ("w_gate", "w_up"))
+    return xin.with_parts([
+        torch.einsum("gecf,efd->gecd", F.silu(a) * b, w)
+        for a, b, w in zip(g.parts, u.parts, p["w_down"].parts)])
+
+
+# ---------------------------------------------------------------------------
+# Serving over a (data, model) mesh: the reference's groups under the
+# serving mask, on the placed experts
+#
+# The reference serves MoE with a validity mask, so it never takes the
+# manual path: it dispatches in ``_num_groups`` groups of contiguous rows
+# of the call, each with its own capacity and FIFO slot order, whatever
+# lanes the rows serve.  The port's data places hold rows by lane slot,
+# which for a prefill cohort need not be the groups' rows.
+# ---------------------------------------------------------------------------
+
+def _served(cfg: ModelConfig, p: Params, x, valid, mesh,
+            rows: sharding.CallRows):
+    """``apply_moe``'s output for a serving call over ``mesh``: the values
+    of ``_routed`` on the reference's batch (``rows``) in
+    ``sharding.dispatch_groups``' groups, on the experts placed by
+    ``sharding.serve_specs``.  Each place routes its own rows (the router
+    whole, fp32 logits: per token, no collective) and each assignment
+    takes its group's slot, FIFO over the group's (row, position, k),
+    pads, dead lanes and the batch's empty rows consuming no capacity:
+
+      * local — every data place's rows lie in the group of its data
+        index (a decode step, a wave, a verify pass; a cohort so laid
+        out): each forms its group's slots alone;
+      * gathered — a group's rows lie on other places (a prefill cohort
+        whose lanes share a data place): the routing choices (int32,
+        invalid tokens marked) are all-gathered over the data axes and
+        every place forms every group's slots, then dispatches its own
+        rows' kept assignments;
+      * replicated — every place holds every row (``rows.split`` None):
+        each forms every group's slots from its rows, and where the
+        experts are cut on E takes only its experts' slots.
+
+    The buffers then go through ``_exchange``; each place combines its
+    rows' tokens in k order and, where the experts are cut on d over
+    ``model``, ``all_gather``s d; where they are cut on f the partial
+    outputs are ``psum``'d.  The shared expert runs as in ``apply_moe``.
+    A place without rows returns None."""
+    m = cfg.moe
+    E, k, D = m.num_experts, m.num_experts_per_tok, cfg.d_model
+    n_pl = mesh.devices.size
+    devs = sharding.grid_devices(mesh)
+    di = sharding.axis_index(mesh, sharding.AxisState.from_mesh(mesh).dp)
+    d = sharding.data_size(mesh)
+    grp = sharding.dispatch_groups(rows, d)
+    S = x.shape[1]
+    T = grp.per * S
+    C = capacity(cfg, T)
+    split = rows.split
+    held = [tuple(range(rows.n)) if split is None else split.rows[i]
+            for i in di]
+    local = sharding.groups_on_places(rows, grp)
+    ep = _expert_axes(p)
+    E_loc = E // sharding.axes_size(mesh, ep)
+    ei = sharding.axis_index(mesh, ep) if ep else (0,) * n_pl
+    tp_n = sharding.axes_size(mesh, sharding.TP_AXIS)
+    d_cut = sharding.cut_dim(p["w_gate"]) == 1
+    d_c = D // tp_n if d_cut else D
+    mi = sharding.axis_index(mesh, sharding.TP_AXIS)
+    xs = [x.parts[q] if x.parts[q] is None or not d_cut
+          else x.parts[q][..., mi[q] * d_c:(mi[q] + 1) * d_c]
+          for q in range(n_pl)]
+    ref = next(t for t in xs if t is not None)
+    # Batch rows of each place's rows: within its group (local), or in
+    # the whole batch.
+    at = [torch.tensor([grp.pos[j] if local else rows.at[j] for j in h],
+                       dtype=torch.long, device=devs[q])
+          for q, h in enumerate(held)]
+    Gs, slab = (1, grp.per) if local else (grp.count, rows.size)
+
+    choices = [None] * n_pl
+    for q in range(n_pl):
+        if xs[q] is None:
+            continue
+        r = x.parts[q].shape[0]
+        w_, e_, _, _ = _route_stats(cfg, sharding.local(p["router"], q),
+                                    x.parts[q].reshape(r * S, D))
+        v_ = torch.ones(r, S, dtype=torch.bool, device=devs[q]) \
+            if valid is None else valid.parts[q].reshape(r, S)
+        choices[q] = (w_.reshape(r, S, k), e_.reshape(r, S, k), v_)
+
+    codes = None
+    if not local and split is not None:
+        # Invalid tokens' choices marked by E added: one int32 tensor.
+        codes = sharding.all_gather(sharding.Sharded(tuple(
+            torch.empty((0, S, k), dtype=torch.int32, device=devs[q])
+            if c is None else (c[1] + E * (~c[2])[..., None]).to(torch.int32)
+            for q, c in enumerate(choices)), None, mesh), 0,
+            sharding.AxisState.from_mesh(mesh).dp).parts
+        order = torch.tensor([rows.at[j] for r in split.rows for j in r],
+                             dtype=torch.long)
+
+    slots, xin = [None] * n_pl, []
+    for q in range(n_pl):
+        if choices[q] is None:  # no rows: every slot of its buffer empty
+            xin.append(torch.zeros((Gs, E, C, d_c), dtype=ref.dtype,
+                                   device=devs[q]))
+            continue
+        if codes is not None:
+            full = torch.full((slab, S, k), E, dtype=torch.int32,
+                              device=devs[q])
+            full[order.to(devs[q])] = codes[q]
+            e_b, v_b = full % E, full[..., 0] < E
+        else:
+            _, e_, v_ = choices[q]
+            e_b = _to_slab(e_, at[q], slab, 0)
+            v_b = _to_slab(v_, at[q], slab, False)
+        slot, buf = _dispatch_indices(cfg, e_b.reshape(Gs, T, k), C,
+                                      v_b.reshape(Gs, T))
+        slots[q] = slot.reshape(slab, S, k)[at[q]]
+        if codes is not None:
+            xin.append(_own_tokens(xs[q], buf, at[q], grp.per, S, slab))
+            continue
+        if ep and not local:
+            buf = buf[:, ei[q] * E_loc:(ei[q] + 1) * E_loc]
+        xin.append(_gather(_to_slab(xs[q], at[q], slab, 0)
+                           .reshape(Gs, T, d_c), buf))
+    y = _exchange(p, sharding.Sharded(tuple(xin), None, mesh), mesh,
+                  "local" if local else "tokens" if codes is not None
+                  else "experts")
+
+    out = []
+    for q in range(n_pl):
+        if choices[q] is None:
+            out.append(None)
+            continue
+        w_, e_, _ = choices[q]
+        g_ = torch.zeros_like(at[q]) if local else at[q] // grp.per
+        out.append(_combine(y.parts[q], e_, slots[q], w_, C, g_[:, None]))
+    out = sharding.Sharded(tuple(out), 2 if d_cut and tp_n > 1 else None,
+                           mesh)
+    if d_cut:
+        out = sharding.all_gather(out)
+    elif sharding.cut_dim(p["w_down"]) is not None:
+        out = sharding.psum(out)
+    return _plus_shared(cfg, p, x, out, mesh)
+
+
+def _to_slab(t: torch.Tensor, at: torch.Tensor, n: int, fill
+             ) -> torch.Tensor:
+    """Rows ``t`` at rows ``at`` of n rows filled with ``fill`` (a call's
+    rows in the reference's batch, or in one group of it)."""
+    out = torch.full((n,) + tuple(t.shape[1:]), fill, dtype=t.dtype,
+                     device=t.device)
+    out[at] = t
+    return out
+
+
+def _own_tokens(xq: torch.Tensor, buf: torch.Tensor, at: torch.Tensor,
+                per: int, S: int, size: int) -> torch.Tensor:
+    """A place's dispatch buffer of every group's slots (G, E, C, d'):
+    the tokens of its own rows ``xq`` (batch rows ``at``) in their slots,
+    zeros in the others'; buf (G, E, C) each slot's token in its group of
+    ``per`` rows of S positions (per S: empty)."""
+    G = buf.shape[0]
+    T = per * S
+    t = torch.clamp(buf.long(), max=T - 1)
+    lmap = torch.full((size,), -1, dtype=torch.long, device=xq.device)
+    lmap[at] = torch.arange(at.numel(), device=xq.device)
+    li = lmap[torch.arange(G, device=xq.device)[:, None, None] * per
+              + t // S]
+    keep = (buf < T) & (li >= 0)
+    return xq[li.clamp(min=0), t % S].masked_fill(~keep[..., None], 0)

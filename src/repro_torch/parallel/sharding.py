@@ -53,7 +53,8 @@ device several times).
     batch by the lanes its rows serve, ``scatter`` hands each place its
     rows, ``gather_rows`` brings results back in batch order and
     ``gather_writes`` copies the pool rows each place wrote to the other
-    data replicas;
+    data replicas; ``call_rows`` / ``dispatch_groups`` give the MoE the
+    reference's dispatch groups of a call;
   * tensors move between places only through the collectives, each over
     an axis (a name or a tuple of names): ``psum`` (partials summed in
     member order), ``all_gather`` (concatenation), ``all_to_all``,
@@ -1231,17 +1232,6 @@ def member_leaves(tree):
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
 
-def check_serve_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` where the port cannot serve ``cfg``
-    over ``mesh``: an MoE config over data axes above 1, whose experts
-    the rule cuts over ``data`` (expert parallelism)."""
-    if cfg.moe is not None and data_size(mesh) > 1:
-        raise NotImplementedError(
-            f"serving {cfg.name} over data axes {mesh.shape}: expert "
-            f"parallelism (the experts over data, apply_moe_manual under "
-            f"the serving mask) is not ported yet")
-
-
 def serve_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
     """``param_specs(mode="serve")`` under ``mesh``'s axes, sanitized,
     with the attention leaves whole where ``attn_shard_size`` is 1: a
@@ -1249,10 +1239,13 @@ def serve_specs(cfg: ModelConfig, params_shape, mesh) -> Any:
     mid-head as GSPMD may cut them.  The Mamba-2 leaves take
     ``mamba_spec`` (head-aligned, by component), not the rule's
     contiguous cut.  Every leaf is whole over the data axes (the
-    weights resident on every data place); an MoE config under data
-    axes above 1, whose experts the rule cuts over ``data`` (expert
-    parallelism), raises ``NotImplementedError`` (``check_serve_mesh``)."""
-    check_serve_mesh(cfg, mesh)
+    weights resident on every data place) but the routed experts, which
+    keep the rule's expert parallelism: where the experts divide the
+    data axes, ``w_gate`` / ``w_up`` (E, d, f) cut on E over ``data``
+    and on d over ``model``, ``w_down`` (E, f, d) on E and d (a place
+    holds its E / d experts' d / m slice); else whole over data and cut
+    on f over ``model``.  The router and the shared expert are whole
+    over data."""
     with use_axes(mesh):
         specs = sanitize_specs(param_specs(cfg, params_shape, mode="serve"),
                                params_shape)
@@ -1466,16 +1459,24 @@ def shard_cfg(cfg: ModelConfig, mesh) -> ModelConfig:
 # its K1 reads and its K2 or decode store writes; ``gather_writes`` copies
 # the rows each place wrote to the other replicas of its model shard, so
 # a lane may read a block another data place wrote (a shared prefix, a
-# recompute after preemption).
+# recompute after preemption).  The routed experts are cut on E over data
+# where E divides it (the serve rule's expert parallelism); the MoE
+# dispatches in the reference's groups of the call's rows
+# (``CallRows``, ``dispatch_groups``), which need not be the places'.
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class Lanes:
     """The lanes a batch's rows serve: row j is lane ``slots[j]`` of
-    ``width`` (an engine's slots, or a wave's rows)."""
+    ``width`` (an engine's slots, or a wave's rows).  ``all_lanes``: the
+    reference runs this call over all ``width`` lanes in slot order, the
+    lanes not in ``slots`` as empty rows (the speculative verify pass),
+    where the port runs only ``slots``; else the reference's batch is
+    these rows in this order (a prefill cohort)."""
     slots: Tuple[int, ...]
     width: int
+    all_lanes: bool = False
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -1527,6 +1528,71 @@ def split_rows(mesh, lanes: Optional[Lanes], n: int) -> Optional[RowSplit]:
     return RowSplit(mesh, tuple(
         tuple(j for j, s in enumerate(lanes.slots) if s // per == i)
         for i in range(d)), n)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CallRows:
+    """A serving call's rows as the reference's batch holds them: row j
+    of the call is row ``at[j]`` of the reference's ``size``-row batch,
+    whose other rows are empty (pads that route nowhere); ``split`` is
+    the data axes' cut of the call (``split_rows``; None: every data
+    place holds every row).  The MoE's dispatch groups are formed on
+    this batch (``dispatch_groups``)."""
+    at: Tuple[int, ...]
+    size: int
+    split: Optional[RowSplit] = None
+
+    @property
+    def n(self) -> int:
+        return len(self.at)
+
+    @property
+    def identity(self) -> bool:
+        """Whether the call's rows are the reference's batch as it is."""
+        return self.size == self.n and self.at == tuple(range(self.n))
+
+
+def call_rows(lanes: Optional[Lanes], n: int,
+              split: Optional[RowSplit] = None) -> CallRows:
+    """The ``CallRows`` of an ``n``-row call serving ``lanes``: the
+    reference's batch is the call's rows unless ``lanes.all_lanes``, where
+    it is every lane of ``lanes.width`` in slot order."""
+    if lanes is None or not lanes.all_lanes:
+        return CallRows(tuple(range(n)), n, split)
+    return CallRows(tuple(lanes.slots), lanes.width, split)
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """A call's MoE dispatch groups: ``count`` groups of ``per``
+    consecutive rows of the reference's batch; ``of[j]`` / ``pos[j]``
+    the group of the call's row j and its row within the group."""
+    count: int
+    per: int
+    of: Tuple[int, ...]
+    pos: Tuple[int, ...]
+
+
+def dispatch_groups(rows: CallRows, d: int) -> Groups:
+    """The reference's dispatch groups of a call (``moe._num_groups``)
+    over d data places: d groups where d divides the reference's batch,
+    else one; group g the batch's rows [g size / G, (g + 1) size / G),
+    whatever lanes they serve and whichever data place holds them.  Each
+    group has its own capacity and its own FIFO slot order."""
+    G = d if rows.size % d == 0 else 1
+    per = rows.size // G
+    return Groups(G, per, tuple(a // per for a in rows.at),
+                  tuple(a % per for a in rows.at))
+
+
+def groups_on_places(rows: CallRows, groups: Groups) -> bool:
+    """Whether every data place's rows of the call lie in the group of
+    its data index (one group a place: each can form its group's slots
+    alone) — a decode step, a wave, a verify pass, a cohort so laid
+    out."""
+    split = rows.split
+    return split is not None and groups.count == len(split.rows) and all(
+        groups.of[j] == i for i, r in enumerate(split.rows) for j in r)
 
 
 def scatter(x, mesh, split: Optional[RowSplit]) -> Sharded:

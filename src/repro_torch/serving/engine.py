@@ -68,7 +68,10 @@ widens the device work.  Over ``model``: the weights cut by
 leaves head-aligned, by component), the pool on its KV heads (payload
 and scales together), the wave path's stripes on their KV heads and its
 Mamba-2 states and windows on their heads (``model.init_cache(mesh=)``).
-Over the data axes: the weights whole on every data place; the lanes
+Over the data axes: the weights whole on every data place but the
+routed experts, cut on E over data where E divides it (expert
+parallelism; the MoE dispatches in the reference's groups of each call's
+rows, ``moe.apply_moe(rows=)``); the lanes
 cut by their slot (lane i to data index i // (max_batch / d): its
 prefill chunks, verify passes, decode rows, sampled tokens and
 positions, its image), the wave rows alike (row j of a B-row wave to
@@ -83,10 +86,6 @@ place's rows.  Logits, sampled tokens and every scheduler input live on
 place 0's device; ``EngineStats`` do not depend on the mesh.  Each
 engine places and runs under its own ``sharding.use_axes``: nothing
 leaks into the ambient axis state.
-
-The engine raises ``NotImplementedError`` for what the port does not
-serve: the moe family over data axes above 1 (expert parallelism;
-``sharding.check_serve_mesh``).
 """
 from __future__ import annotations
 
@@ -404,10 +403,7 @@ class ServingEngine:
 
     @staticmethod
     def _check_mesh(cfg: ModelConfig, mesh, device: DeviceLike) -> None:
-        """What the port serves over a mesh (``sharding.check_serve_mesh``:
-        every family but moe over data axes above 1), on the mesh's shard
-        0 device."""
-        sharding.check_serve_mesh(cfg, mesh)
+        """A mesh is served from its shard 0 device."""
         dev0 = sharding.model_devices(mesh)[0]
         if device is not None and resolve_device(device) != dev0:
             raise ValueError(f"device {device} is not the mesh's shard 0 "
@@ -425,14 +421,14 @@ class ServingEngine:
         """``_call`` on the continuous path's pool."""
         return self._call(fn, self._cache, *args, **kwargs)
 
-    def _lanes(self, lanes: List[int]) -> Dict[str, sharding.Lanes]:
-        """Over a mesh, the ``lanes`` keyword of a model call whose rows
-        serve ``lanes`` of the engine's ``max_batch`` (the data axes' cut
-        of its rows); nothing without one."""
-        if self._mesh is None:
-            return {}
+    def _lanes(self, lanes: List[int], all_lanes: bool = False
+               ) -> Dict[str, sharding.Lanes]:
+        """The ``lanes`` keyword of a model call whose rows serve
+        ``lanes`` of the engine's ``max_batch``: the data axes' cut of its
+        rows over a mesh, and the batch the reference's MoE groups see
+        (``all_lanes``: every lane, the verify pass's)."""
         return {"lanes": sharding.Lanes(tuple(int(i) for i in lanes),
-                                        self.max_batch)}
+                                        self.max_batch, all_lanes)}
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -786,7 +782,7 @@ class ServingEngine:
         tables = torch.from_numpy(self._alloc.block_table()[lanes]).to(dev)
         logits_all, self._cache = self._model(
             M.prefill_slots, tok_d, len_d, tables, start=start_d,
-            all_logits=True, **self._lanes(lanes))
+            all_logits=True, **self._lanes(lanes, all_lanes=True))
         pad = P - len_d
         # Column c holds the token at position (start - pfx) + (c - pad);
         # what decode emits after it samples column c's logits with the

@@ -20,7 +20,9 @@ d = 3 over 8 lanes for the uneven-lanes rule.
     data place 1 reads a prefix block place 0 wrote as zeros — the
     logits leave the limit and the engine's tokens change;
   * uneven lanes: every data place holds every lane (no value changes,
-    nothing gathered); the moe family under data axes above 1 raises.
+    nothing gathered); the moe family's serve specs over data (its
+    serving: ``test_torch_moe_data_serving.py``) and the refusals that
+    stand.
 
 Weights come from the JAX ``init_params`` (fp32) through
 ``torch_parity.pair``; inputs from numpy seeds.  A one-row product
@@ -457,12 +459,47 @@ def test_uneven_lanes_hold_every_lane():
             assert torch.equal(bits(p)[:, 1:], bits(solo._cache[k])[:, 1:])
 
 
-def test_moe_under_data_axes_raises():
-    """The experts over data (expert parallelism) are not ported."""
+def test_moe_serve_specs_cut_experts_and_refusals_stand():
+    """At (2, 2) ``serve_specs`` cuts the routed experts as the reference's
+    serve rule does (E over data, d over model; the router and the shared
+    expert whole over data) — spec for spec the JAX package's sanitized
+    ``param_specs(mode="serve")``; what stays refused: paged caches for
+    ssm, and in training experts cut on d_model off the manual path and a
+    batch that does not divide the data axes."""
+    from repro.configs.base import get_config as jax_config
+    from repro.parallel import sharding as jsh
+    from repro_torch.models import moe as TMOE
+    jcfg = jax_config("qwen2-moe-a2.7b").reduced()
+    jparams = jax.eval_shape(lambda: JM.init_params(
+        jcfg, jax.random.PRNGKey(0)))
     cfg = get_config("qwen2-moe-a2.7b").reduced()
-    params = TM.param_specs(cfg)
-    mesh = mesh_of((2, 1))
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tsh.serve_specs(cfg, params, mesh)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ServingEngine(cfg, params, mesh=mesh, device="cpu", mode="wave")
+    params = TM.init_params(cfg, 0, device="cpu")
+    mesh = mesh_of((2, 2))
+    specs = tsh.serve_specs(cfg, params, mesh)["blocks"]["moe"]
+    with jsh.use_axes(jsh.AxisState((("data", 2), ("model", 2)))):
+        jspecs = jsh.sanitize_specs(
+            jsh.param_specs(jcfg, jparams, mode="serve"), jparams)
+    jmoe = jspecs["blocks"]["moe"]
+    for name in ("w_gate", "w_up", "w_down", "router"):
+        assert tuple(specs[name]) == tuple(jmoe[name]), name
+    for name, spec in specs["shared"].items():
+        assert tuple(spec) == tuple(jmoe["shared"][name]), name
+    assert tuple(specs["w_gate"]) == (None, "data", "model", None)
+    assert tuple(specs["w_down"]) == (None, "data", None, "model")
+    with pytest.raises(NotImplementedError, match="paged"):
+        TM.init_paged_cache(get_config("mamba2-1.3b").reduced(), 4, 4,
+                            device="cpu")
+    train = mesh_of((2, 2))
+    with pytest.raises(NotImplementedError):
+        tsh.place_batch(cfg, {"tokens": torch.zeros(3, 4, dtype=torch.int32)},
+                        train)
+    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()
+             if k != "shared"}
+    m2 = mesh_of((1, 2))
+    layer = {k: tsh.shard(v, tsh.P(None, "model", None), m2)
+             if k != "router" else tsh.shard(v, tsh.P(), m2)
+             for k, v in layer.items()}
+    x = tsh.broadcast(torch.zeros(1, 4, cfg.d_model), m2)
+    valid = tsh.broadcast(torch.ones(1, 4, dtype=torch.bool), m2)
+    with pytest.raises(NotImplementedError, match="manual"):
+        TMOE.apply_moe(cfg, layer, x, valid=valid, mesh=m2)

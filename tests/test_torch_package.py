@@ -139,14 +139,15 @@ def test_unported_options_raise():
     params = M.init_params(cfg, 0, device="cpu")
     two = make_mesh((1, 2), ("data", "model"), "cpu")
     ssm = dataclasses.replace(cfg, family="ssm", ssm=SSMConfig())
-    # Data axes above 1 are served, in either mode, for every family but
-    # moe (expert parallelism is not ported); speculation needs the
+    # Data axes above 1 are served, in either mode, for every family (moe
+    # with its experts cut on E over data); speculation needs the
     # continuous engine, with or without a mesh.
     four = make_mesh((2, 2), ("data", "model"), "cpu")
     moe = get_config("qwen2-moe-a2.7b").reduced()
+    moe_params = M.init_params(moe, 0, device="cpu")
     for kw in (dict(mesh=four), dict(mesh=four, mode="wave")):
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
-            ServingEngine(moe, M.param_specs(moe), device="cpu", **kw)
+        eng = ServingEngine(moe, moe_params, device="cpu", **kw)
+        assert eng.params["blocks"]["moe"]["w_up"].rows == (("data",), 1)
     assert ServingEngine(cfg, params, device="cpu",
                          mesh=four).mode == "continuous"
     for c, kw in ((cfg, dict(mesh=two, mode="wave")), (ssm, dict(mesh=two)),

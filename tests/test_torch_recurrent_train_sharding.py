@@ -217,10 +217,12 @@ def test_cleared_refusals_and_the_ones_that_stay():
     with pytest.raises(NotImplementedError):
         TM.check_paged(cfg, "prefill_slots")
     moe_cfg = get_config("qwen2-moe-a2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ServingEngine(moe_cfg, TM.param_specs(moe_cfg), mesh=mesh,
-                      device="cpu", mode="wave")
-    p = TM.init_params(moe_cfg, 0, device="cpu")["blocks"]["moe"]
+    moe_params = TM.init_params(moe_cfg, 0, device="cpu")
+    # Cleared: the moe family served over data axes above 1.
+    eng = ServingEngine(moe_cfg, moe_params, mesh=mesh, device="cpu",
+                        mode="wave")
+    assert eng.params["blocks"]["moe"]["w_down"].rows == (("data",), 1)
+    p = moe_params["blocks"]["moe"]
     layer = {k: v[0] for k, v in p.items() if k != "shared"}
     m2 = cpu_mesh((1, 2))
     layer = {k: tsh.shard(v, tsh.P(None, "model", None), m2)

@@ -281,12 +281,12 @@ def test_verify_runs_no_decode_step_and_only_live_rows(tiny, monkeypatch):
     real = M.prefill_slots
 
     def spy(cfg_, params_, cache, tokens, lengths, tables, start=None,
-            patch_embeds=None, all_logits=False):
+            patch_embeds=None, all_logits=False, **kw):
         if all_logits:
             rows.append((tuple(tokens.shape), lengths.tolist()))
         return real(cfg_, params_, cache, tokens, lengths, tables,
                     start=start, patch_embeds=patch_embeds,
-                    all_logits=all_logits)
+                    all_logits=all_logits, **kw)
 
     def no_decode(*a, **k):
         raise AssertionError("decode_step ran under speculation")

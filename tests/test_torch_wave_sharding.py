@@ -529,12 +529,13 @@ def test_wave_engine_leaks_no_axis_state():
 
 
 def test_data_axes_and_wave_speculation_still_raise():
-    """What stays refused: the moe family over data axes above 1 (expert
-    parallelism) and speculation in waves."""
+    """The moe family now serves waves over data axes above 1 (its
+    experts cut on E over data); what stays refused: speculation in
+    waves."""
     _, _, moe_cfg, moe_params = models("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        ServingEngine(moe_cfg, moe_params, device="cpu", mode="wave",
-                      mesh=make_mesh((2, 2), ("data", "model"), "cpu"))
+    eng = ServingEngine(moe_cfg, moe_params, device="cpu", mode="wave",
+                        mesh=make_mesh((2, 2), ("data", "model"), "cpu"))
+    assert eng.params["blocks"]["moe"]["w_gate"].rows == (("data",), 1)
     _, _, cfg, params = models("mamba2-1.3b")
     with pytest.raises(ValueError, match="continuous"):
         ServingEngine(cfg, params, device="cpu",
