@@ -168,7 +168,7 @@ outside the repository.  Phases, each of which raises on failure:
  12. tensor-parallel serving over a (data=1, model=m) mesh naming the
      one card m times (each shard its own contiguous weights, pool slice
      and kernel launches; no speedup is expected or claimed): full-width
-     tinyllama-1.1b on 11 of its 22 layers (SHARD_LAYERS: the whole
+     tinyllama-1.1b on 6 of its 22 layers (SHARD_LAYERS: the whole
      script's time) at 2 and 4 shards, ``prefill_slots`` and
      ``decode_step`` logits against the meshless run's within the model
      checks' limit on bf16 and int8 pools, K2 launched m x layers times a
@@ -290,7 +290,7 @@ outside the repository.  Phases, each of which raises on failure:
      above 1, naming the card d x m times (``run_moe_data_serving``; the
      experts cut on E over data as the serve rule places them, each
      call dispatched in the reference's groups of its rows): full-width
-     qwen2-moe-a2.7b on MOE_DATA_DEPTH's 12 of its 24 layers at (2, 1)
+     qwen2-moe-a2.7b on MOE_DATA_DEPTH's 10 of its 24 layers at (2, 1)
      and (2, 2) — K1 and K2 at one place's shapes against their plain
      versions and each place's launch against one launch on all 8 lanes
      (K3 too; bit for bit printed), each place holding only its E / d
@@ -312,7 +312,24 @@ outside the repository.  Phases, each of which raises on failure:
      first chunk, a continuation and QWEN3_DECODES decode steps against
      the meshless run under the same data axes within 5% of the range,
      launches and bytes as above, ms a decode step and peak memory;
- 18. each phase's seconds, a ``{"kernels": [...]}`` line, the card
+ 18. training on a batch that does not divide the data axes
+     (``run_uneven_training``; ``place_batch`` keeps its 3 rows whole on
+     every data place, each computing every row), on meshes naming the
+     card d x m times: full-width tinyllama-1.1b, one AdamW step of a 3
+     x 1024 batch meshless and at (2, 1) and (2, 2) — loss, grad norm,
+     every leaf's first moment and update against the unsplit meshless
+     step by phase 13's ``MESH_*`` limits (worst and median leaf named),
+     the bytes by kind equal to ``dryrun.train_collectives``, ms a step
+     and peak memory printed — and a control that sums the data places'
+     losses, which must fail the limits; mamba2-1.3b on its weights cast
+     to fp32 at (2, 2) on 3 x 512 alike; no kernel launch;
+     qwen2-moe-a2.7b's MoE layer at full width at (2, 2) on 3 x 1024
+     (the manual path on token slices of 1.5 rows, against the plain
+     ``_routed`` in the same two contiguous token groups) and 3 x 1023
+     (T odd: the grouped path on the E / d-cut experts, against the
+     meshless layer in one group), each by phase 13's criterion with its
+     bytes equal to ``dryrun.moe_layer_collectives``;
+ 19. each phase's seconds, a ``{"kernels": [...]}`` line, the card
      line, and the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2828,9 +2845,9 @@ def sharded_entries(cfg, m, heads, dec, pre, kv_dtype, row, launches):
              max(r["err"] for r in pre.values()))]
 
 
-#: Phase 12's tinyllama-1.1b depth: 11 of its 22 layers (every width
-#: full), to hold the whole script's time.
-SHARD_LAYERS = 11
+#: Phase 12's tinyllama-1.1b depth: 6 of its 22 layers (every width
+#: full), to hold the whole script's time (11 until phase 18 came).
+SHARD_LAYERS = 6
 
 
 def run_sharded(torch, gen, card):
@@ -3280,7 +3297,7 @@ def check_moe_manual(torch, gen, card):
     if frac < 0.99 or not aux_err < 0.05:
         raise AssertionError(f"moe manual: {frac}, aux {aux_err}")
     check_bytes(f"moe manual {cfg.name} (2, 2)", dict(mesh.moved_bytes),
-                dryrun.moe_layer_collectives(cfg, MOE_B // 2, MOE_S, mesh),
+                dryrun.moe_layer_collectives(cfg, MOE_B, MOE_S, mesh),
                 card)
 
 
@@ -4411,9 +4428,9 @@ def run_data_serving(torch, gen, card):
 # above 1 — experts cut on E over data, dispatched in the reference's groups
 # ---------------------------------------------------------------------------
 
-#: qwen2-moe-a2.7b at full width on 12 of its 24 layers (every width full;
-#: the whole script's time), its meshes and pools.
-MOE_DATA_DEPTH = 12
+#: qwen2-moe-a2.7b at full width on 10 of its 24 layers (every width full;
+#: the whole script's time: 12 until phase 18 came), its meshes and pools.
+MOE_DATA_DEPTH = 10
 MOE_DATA_MESHES = ((2, 1), (2, 2))
 MOE_DATA_POOLS = ("bf16", "int8")
 #: qwen3-moe-235b-a22b at full width on 4 of its 94 layers (about 22 GB:
@@ -4438,7 +4455,7 @@ def by_places(picks, mesh, n, lanes=None):
     """A meshless run's expert choices (one (n S, k) entry a MoE layer
     call, tokens in batch order) as a run over ``mesh`` routes them: each
     call's entry cut into one entry a place holding rows, in place order,
-    that place's rows (``moe._served`` routes each place's own rows; a
+    that place's rows (``moe._grouped`` routes each place's own rows; a
     data place's model shards alike).  The replay then maps choices by
     token, not by place."""
     from repro_torch.parallel import sharding
@@ -4789,6 +4806,179 @@ def run_moe_data_serving(torch, gen, card):
     return entries + run_qwen3_data(torch, gen, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training on a batch that does not divide the data axes
+# ---------------------------------------------------------------------------
+
+#: The batch (rows x positions) of phase 18's tinyllama-1.1b step: 3 rows
+#: divide no data axis above 1, so ``place_batch`` keeps them whole on
+#: every data place and each computes every row.  The meshes (data,
+#: model), each naming the card d x m times.
+UNEVEN_B, UNEVEN_S = 3, 1024
+UNEVEN_MESHES = ((2, 1), (2, 2))
+#: mamba2-1.3b's batch, fp32 weights (as phase 15), at (2, 2).
+UNEVEN_SSM_S = 512
+#: qwen2-moe-a2.7b's MoE layer at (2, 2) on 3 rows of each length: T =
+#: 3072 takes the manual path on token slices of 1.5 rows; T = 3069 (odd)
+#: the grouped path on the experts cut on E over data and d over model.
+UNEVEN_MOE_S = (1024, 1023)
+
+
+@contextlib.contextmanager
+def losses_summed_over_data():
+    """The control: the R data places' losses summed where the sound step
+    takes their mean (each place's loss is the whole batch's, so the
+    batch counts R times)."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding
+    mean = M.loss_fn
+    M.loss_fn = lambda cfg, p, b, mesh=None: mean(
+        cfg, p, b, mesh=mesh) * sharding.data_size(mesh)
+    try:
+        yield
+    finally:
+        M.loss_fn = mean
+
+
+def uneven_steps(torch, cfg, params, batch, meshes, card, control=False):
+    """One AdamW step meshless and at each mesh from ``params`` on
+    ``batch``, each mesh's against the unsplit meshless step by phase
+    13's limits, its bytes equal to ``dryrun.train_collectives``; with
+    ``control``, the summed-losses control at (2, 1), which must fail
+    them.  -> [(mesh name, ms a step, peak memory)]."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import dryrun
+    B, S = batch["tokens"].shape
+    old = dict(tree_lib.flatten(params))
+    base = mesh_step(torch, cfg, params, batch, None)
+    rows = [("meshless", base[3], base[4])]
+    for d, m in meshes:
+        mesh = card_mesh(m, d=d)
+        got = mesh_step(torch, cfg, params, batch, mesh)
+        compare_step(torch, f"{cfg.name} {B} x {S} {(d, m)} (the batch "
+                     f"whole on each data place) vs meshless", got[:3],
+                     base[:3], old, card)
+        check_bytes(f"train step {cfg.name} {B} x {S} {(d, m)}", got[5],
+                    dryrun.train_collectives(cfg, B, S, mesh, params), card)
+        rows.append((str((d, m)), got[3], got[4]))
+        del got
+        torch.cuda.empty_cache()
+    if control:
+        with losses_summed_over_data():
+            ctrl = mesh_step(torch, cfg, params, batch, card_mesh(1, d=2),
+                             timed=False)
+        if not compare_step(torch, f"{cfg.name} (2, 1) control (the data "
+                            f"places' losses summed) vs meshless", ctrl[:3],
+                            base[:3], old, card, enforce=False)[0]:
+            raise AssertionError("the summed-losses control passed")
+    return rows
+
+
+def check_moe_uneven(torch, gen, card):
+    """qwen2-moe-a2.7b's MoE layer at full width at (2, 2) on 3 rows
+    placed whole on every data place: at S = 1024 (T even) the manual
+    path on each data place's 1536-token slice against the plain
+    ``_routed`` in the same two contiguous token groups, at S = 1023 (T
+    odd) the grouped path against the meshless layer in one group; each
+    by the reference's criterion (99% of tokens within 2% of the
+    output's scale, aux within 0.05) with its bytes equal to
+    ``dryrun.moe_layer_collectives``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M, moe
+    from repro_torch.parallel import sharding
+    cfg = get_config(MOE_ARCH)
+    p = moe_layer(torch, cfg, gen)
+    mesh = card_mesh(2, d=2)
+    experts = ("w_gate", "w_up", "w_down")
+    with torch.no_grad():
+        placed = M._tree_map(lambda v: v[0], sharding.place_train(
+            cfg, {"blocks": {"moe": M._tree_map(lambda v: v[None], p)}},
+            mesh)["blocks"]["moe"])
+        placed = M.gather_data(placed, keep=lambda path: path[-1] in experts
+                               and "shared" not in path)
+    for S in UNEVEN_MOE_S:
+        x = (torch.randn(UNEVEN_B, S, cfg.d_model, device="cuda",
+                         generator=gen) * 0.5).bfloat16()
+        manual = S % 2 == 0
+        with torch.no_grad():
+            if manual:
+                out, me, ce = moe._routed(cfg, p, x, G=2)
+                ref = out + moe._shared(cfg, p["shared"], x)
+                aux_ref = moe._aux(cfg, me, ce)
+            else:
+                ref, aux_ref = moe.apply_moe(cfg, p, x)
+            xs = sharding.place_batch(cfg, {"x": x}, mesh)["x"]
+            if moe.expert_parallel(cfg, mesh, xs) != manual:
+                raise AssertionError(f"S={S}: manual path {not manual}")
+            mesh.moved_bytes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, aux = moe.apply_moe(cfg, placed, xs, mesh=mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        path = "manual, token slices" if manual else "grouped, one group"
+        worst = 1.0
+        for g in sharding.groups(mesh, "model"):
+            tok = ((out.parts[g[0]].float() - ref.float()).abs().amax(-1)
+                   / (ref.float().abs().max() + 1e-9))
+            worst = min(worst, float((tok < 0.02).float().mean()))
+        aux_err = max(abs(float(a) - float(aux_ref)) for a in aux.parts)
+        print(f"moe {cfg.name} {UNEVEN_B} x {S} (2, 2) {path} vs "
+              f"{'_routed in 2 token groups' if manual else 'meshless'} "
+              f"[{card}]: {worst:.4%} of tokens within 2% of scale on the "
+              f"worst data place (>= 99%), aux {float(aux.parts[0]):.5f} vs "
+              f"{float(aux_ref):.5f} (|d| {aux_err:.2e} < 0.05), {ms:.1f} ms "
+              f"host wall")
+        if worst < 0.99 or not aux_err < 0.05:
+            raise AssertionError(f"moe {S}: {worst}, aux {aux_err}")
+        check_bytes(f"moe {cfg.name} {UNEVEN_B} x {S} (2, 2) {path}",
+                    dict(mesh.moved_bytes), dryrun.moe_layer_collectives(
+                        cfg, UNEVEN_B, S, mesh), card)
+
+
+def run_uneven_training(torch, gen, card):
+    """Phase 18: a batch of UNEVEN_B rows, which divides no data axis,
+    whole on every data place.  Full-width tinyllama-1.1b, one AdamW step
+    meshless and at each UNEVEN_MESHES mesh against the unsplit meshless
+    step (phase 13's limits; bytes equal to the dry run's count; ms a
+    step and peak memory), the summed-losses control; mamba2-1.3b on fp32
+    weights at (2, 2); no kernel launch; qwen2-moe-a2.7b's MoE layer on
+    both branches (``check_moe_uneven``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    zero_launches()
+    runs = []
+    for arch, S, cast, meshes in (
+            (ARCH, UNEVEN_S, False, UNEVEN_MESHES),
+            (SSM_ARCH, UNEVEN_SSM_S, True, ((2, 2),))):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        params = M.init_params(cfg, seed=0, device="cuda")
+        if cast:
+            params = as_fp32(params)
+        batch = train_batch(torch, cfg, UNEVEN_B, S)
+        rows = uneven_steps(torch, cfg, params, batch, meshes, card,
+                            control=not cast)
+        runs.append((cfg, S, rows))
+        del params, batch
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the grad path: "
+                             f"{launches}")
+    for cfg, S, rows in runs:
+        print(f"train step {cfg.name} B={UNEVEN_B} S={S} by mesh, the batch "
+              f"whole on each data place [{card}]: " + "; ".join(
+                  f"{n} {ms:.1f} ms/step, peak {pk / 2**30:.2f} GiB"
+                  for n, ms, pk in rows)
+              + " (one card holds every place: no speedup is expected)")
+    check_moe_uneven(torch, gen, card)
+    print(f"uneven-batch training phase [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 #: Each phase's seconds, in the order the phases ran.
 PHASE_SECONDS = {}
 _LAST_MARK = [time.perf_counter()]
@@ -5021,6 +5211,10 @@ def main() -> int:
     # 17. The moe family over a (data, model) mesh on the one card.
     data += run_moe_data_serving(torch, gen, card)
     mark("17. moe over a (data, model) mesh")
+
+    # 18. Training on a batch that does not divide the data axes.
+    run_uneven_training(torch, gen, card)
+    mark("18. training on an uneven batch")
 
     # Result lines.  The quantized bodies report their int8 times (fp8
     # on the lines above) and the launches of both the int8 and fp8 runs.

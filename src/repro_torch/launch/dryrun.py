@@ -258,53 +258,79 @@ def _nb(x: torch.Tensor) -> float:
     return float(x.numel() * x.element_size())
 
 
-def moe_collectives(w: "_Wire", cfg, mesh, B: int, S: int, e: int, specs,
-                    manual: bool, fwd: int, bwd: int) -> None:
-    """Add one MoE layer's collectives (``moe.apply_moe(mesh=)`` on each
-    data shard's B x S tokens in a dtype of ``e`` bytes, the experts laid
-    out by ``specs``) to ``w``, ``fwd`` and ``bwd`` times."""
+def moe_collectives(w: "_Wire", cfg, mesh, batch: int, S: int, e: int,
+                    specs, kept: bool, fwd: int, bwd: int) -> None:
+    """Add one MoE layer's collectives (``moe.apply_moe(mesh=)`` in
+    training on a batch of ``batch`` rows of S tokens placed as
+    ``sharding.place_batch`` places it, in a dtype of ``e`` bytes) to
+    ``w``, ``fwd`` and ``bwd`` times.  The experts are laid out by
+    ``specs`` where ``kept`` (cut over the data axes as they lie), else
+    whole over the data axes (gathered beforehand, not counted)."""
     st = sharding.AxisState.from_mesh(mesh)
     Mn = st.size(sharding.TP_AXIS)
     R = math.prod(st.size(a) for a in st.dp if st.size(a) > 1)
-    E, d = cfg.moe.num_experts, cfg.d_model
-    act = B * S * d * e
-
-    def cut(spec):
-        return sharding._cuts(spec, mesh)[0] is not None
-
-    if manual:  # all-to-alls over ``data``, the experts' axis
-        T = B * S
-        C = moe_lib.capacity(cfg, T)
-        ep = st.size("data")
-        d_loc, E_loc = d // Mn, E // ep
-        w.add("psum", Mn, T * E * 4, fwd, bwd)  # router logits, fp32
-        w.add("all_to_all", ep, E_loc * C * ep * d_loc * e, 2 * fwd,
-              2 * bwd)
-        w.add("psum", Mn, 2 * E_loc * C * ep * cfg.d_ff * e, fwd, bwd)
+    whole = batch % R != 0  # every data place holds every row
+    T = (batch if whole else batch // R) * S  # a place's tokens
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    act = T * d * e
+    if moe_lib.expert_parallel(cfg, mesh, (batch, S)):
+        # The manual path: all-to-alls over ``data``, the experts' axis;
+        # a whole batch's token slices gathered over the data axes.
+        T_loc = T // R if whole else T
+        C = moe_lib.capacity(cfg, T_loc)
+        D = st.size("data")
+        d_loc, E_loc = d // Mn, E // D
+        w.add("psum", Mn, T_loc * E * 4, fwd, bwd)  # router logits, fp32
+        w.add("all_to_all", D, E * C * d_loc * e, 2 * fwd, 2 * bwd)
+        w.add("psum", Mn, 2 * E_loc * C * D * f * e, fwd, bwd)
+        if whole:
+            w.add("all_gather", R, T * d_loc * e, fwd, bwd)
         w.add("all_gather", Mn, act, fwd, bwd)
         w.add("psum", R * Mn, 4, fwd, bwd)  # aux, a 0-d fp32
     else:
-        # The router statistics: mean probabilities (differentiable) and
-        # top-1 fractions (not: no transpose).
-        w.add("psum", R, E * 4, fwd, bwd)
-        w.add("psum", R, E * 4, fwd, 0)
-        if cut(specs["w_down"]):
+        d_cut = moe_lib.expert_cuts(specs["w_gate"], mesh)[0]
+        rows = sharding._cuts(specs["w_gate"], mesh)[1]
+        if kept:  # ``_grouped``: a group a data place, or one in all
+            ep_n = math.prod(st.size(a) for a in rows[0]) if rows else 1
+            d_c, E_loc = (d // Mn if d_cut else d), E // ep_n
+            C = moe_lib.capacity(cfg, T)
+            if not whole:  # to the experts' owners and back
+                w.add("all_to_all", ep_n, E * C * d_c * e, 2 * fwd, 2 * bwd)
+            if d_cut:  # the up projections at hidden volume
+                w.add("psum", Mn, 2 * E_loc * C * (1 if whole else ep_n)
+                      * f * e, fwd, bwd)
+            if whole:  # every expert's outputs on every place
+                w.add("all_gather", ep_n, E * C * d_c * e, fwd, bwd)
+        if d_cut:
+            w.add("all_gather", Mn, act, fwd, bwd)
+        elif sharding._cuts(specs["w_down"], mesh)[0] is not None:
             w.add("psum", Mn, act, fwd, bwd)
-    if "shared" in specs and cut(specs["shared"]["w_down"]):
+        if not whole:
+            # The router statistics' mean over the data places: mean
+            # probabilities (differentiable) and top-1 fractions (not: no
+            # transpose).
+            w.add("psum", R, E * 4, fwd, bwd)
+            w.add("psum", R, E * 4, fwd, 0)
+    if "shared" in specs and sharding._cuts(specs["shared"]["w_down"],
+                                            mesh)[0] is not None:
         w.add("psum", Mn, act, fwd, bwd)
 
 
 def moe_layer_collectives(cfg, batch: int, seq: int, mesh,
                           dtype_bytes: int = 2) -> Dict[str, float]:
     """Global wire bytes, by kind, of one forward of ``moe.apply_moe``
-    over ``mesh`` on each data shard's ``batch`` x ``seq`` tokens, the
-    layer placed by ``sharding.train_specs`` (its router and shared
-    expert gathered over the data axes beforehand, not counted)."""
+    over ``mesh`` on a training batch of ``batch`` rows of ``seq``
+    tokens placed by ``sharding.place_batch``, the layer placed by
+    ``sharding.train_specs``: its router and shared expert gathered over
+    the data axes beforehand (not counted), its experts as placed.  The
+    layer meets them as placed, not gathered as ``train_collectives``'
+    steps gather them where they are not cut on d_model, so experts cut
+    either way (``moe.expert_cuts``) stay cut here."""
     specs = sharding.train_specs(cfg, M.param_specs(cfg), mesh)
+    moe = specs["blocks"]["moe"]
     w = _Wire(mesh.devices.size)
-    moe_collectives(w, cfg, mesh, batch, seq, dtype_bytes,
-                    specs["blocks"]["moe"],
-                    moe_lib.expert_parallel(cfg, mesh, (batch, seq)), 1, 0)
+    moe_collectives(w, cfg, mesh, batch, seq, dtype_bytes, moe,
+                    any(moe_lib.expert_cuts(moe["w_gate"], mesh)), 1, 0)
     return dict(w.by_kind)
 
 
@@ -318,7 +344,11 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
     them.  Each rematerialized block's gathers and psums run twice
     forward (the forward and the recompute) and their transposes once;
     a Mamba-2 block inside a rematerialized hybrid group three times
-    (the group's recompute runs it again before its own)."""
+    (the group's recompute runs it again before its own).  A batch that
+    does not divide the data axes is whole on every data place
+    (``sharding.place_batch``): each place's activations are the whole
+    batch's, and the MoE takes its token slices or its grouped path
+    (``moe_collectives``)."""
     params = M.param_specs(cfg) if params is None else params
     sizes = mesh.shape
     st = sharding.AxisState.from_mesh(mesh)
@@ -326,9 +356,7 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
     Mn = st.size(sharding.TP_AXIS)
     dp = tuple(a for a in st.dp if st.size(a) > 1)
     R = math.prod(st.size(a) for a in dp)
-    if batch % R:
-        raise NotImplementedError(f"batch {batch} does not divide {dp}")
-    B = batch // R
+    B = batch // R if batch % R == 0 else batch  # a place's rows
     specs = sharding.train_placement(cfg, params, mesh)
     w = _Wire(n)
     e = params["embed"].element_size()  # the activations' dtype
@@ -423,16 +451,16 @@ def train_collectives(cfg, batch: int, seq: int, mesh, params=None
     # its transpose once.
     if fam in M.ATTENTION_FAMILIES:
         L = cfg.num_layers
-        manual = cfg.moe is not None and moe_lib.expert_parallel(
-            cfg, mesh, (B, S_pad))
         blocks = specs["blocks"]
+        kept = cfg.moe is not None and moe_lib.expert_cuts(
+            blocks["moe"]["w_gate"], mesh)[0]
         layer(params["blocks"], blocks, L, 2 * L, L, keep=lambda keys: (
-            manual and keys[0] == "moe" and "shared" not in keys
+            kept and keys[0] == "moe" and "shared" not in keys
             and keys[-1] in ("w_gate", "w_up", "w_down")))
         attn_psums(blocks, 2 * L, L)
         if cfg.moe is not None:
-            moe_collectives(w, cfg, mesh, B, S_pad, e, blocks["moe"], manual,
-                            2 * L, L)
+            moe_collectives(w, cfg, mesh, batch, S_pad, e, blocks["moe"],
+                            kept, 2 * L, L)
     elif fam == "ssm":
         L = cfg.num_layers
         layer(params["blocks"], specs["blocks"], L, 2 * L, L)

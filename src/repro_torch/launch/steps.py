@@ -69,8 +69,10 @@ def _make_placed_train_step(cfg: ModelConfig, opt_cfg, mesh):
     def train_step(params, opt_state, batch):
         """The step over ``mesh``: ``params`` and the optimizer moments
         placed by ``sharding.place_train`` (``optimizer.init`` of the
-        placed tree), ``batch`` by ``sharding.place_batch``.  The loss
-        is the mean over data shards of their rows' mean losses."""
+        placed tree), ``batch`` by ``sharding.place_batch`` (cut over
+        the data axes, or whole on every data place where it does not
+        divide them).  The loss is ``model.loss_fn(mesh=)``'s: the
+        batch's mean loss, counted once either way."""
         for what, tree in (("parameters", params), ("batch", batch)):
             if not all(isinstance(x, sharding.Sharded) and x.mesh is mesh
                        for x in tree_lib.leaves(tree)):

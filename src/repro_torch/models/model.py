@@ -1024,7 +1024,7 @@ def _pad_to_multiple(h: torch.Tensor, mult: int):
 def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
              positions: torch.Tensor, remat: bool = False,
              encoder_out: Optional[torch.Tensor] = None,
-             use_kernel: bool = False, mesh=None):
+             use_kernel: bool = False, mesh=None, rows=None):
     """The layer stack on embedded input h (B, S, d), causal over all S
     positions.  ``remat``: each block (and each hybrid group) under
     activation checkpointing.  ``use_kernel`` (``kernel_route``): self-
@@ -1044,7 +1044,13 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
     every group, so its gradient adds over the groups; whisper's decoder
     attending over its own and the encoder's K/V with each shard's
     heads.  A rematerialized block is recomputed whole
-    (``early_stop=False``), its collectives with it."""
+    (``early_stop=False``), its collectives with it.  ``rows``: the
+    batch's placement over the data axes (``sharding.train_rows`` of the
+    placed tokens), which the MoE reads (its groups, its path): h's parts
+    are ``smap``'s, whose shape is a place's, so a cut batch and a whole
+    one look alike here.  The routed experts stay cut where they lie on
+    d_model over ``model`` (``moe.expert_cuts``: the manual path's
+    layout)."""
     fam = cfg.family
     heads_cut = sharding.attn_shard_size(mesh, cfg.num_kv_heads) > 1
     lcfg = sharding.shard_cfg(cfg, mesh)
@@ -1057,7 +1063,7 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
             blk, x, positions, mesh=mesh)
         a = sharding.smap(lambda q_, k_, v_: layers.self_attend(
             lcfg, q_, k_, v_, use_kernel=use_kernel), q, k, v, mesh=mesh)
-        return _attn_post_aux(cfg, blk, x, a, mesh=mesh)
+        return _attn_post_aux(cfg, blk, x, a, mesh=mesh, rows=rows)
 
     def mamba(x, blk):
         blk = _gather_layer(cfg, blk, mesh, heads_cut)
@@ -1073,7 +1079,8 @@ def backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
         (), dtype=torch.float32, device=x.device), h, mesh=mesh)
     if fam in ATTENTION_FAMILIES:
         step = _maybe_remat(functools.partial(
-            attn_layer, experts_kept=moe_lib.expert_parallel(cfg, mesh, h)),
+            attn_layer, experts_kept=cfg.moe is not None and moe_lib.
+            expert_cuts(params["blocks"]["moe"]["w_gate"])[0]),
             remat, early)
         for blk in _unstack(params["blocks"]):
             h, a = step(h, blk)
@@ -1146,7 +1153,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     rematerialized body, so the gathers run again in the backward and
     their transposes are the gradients' reduce-scatters; the attention
     and the scan are the plain ones (no kernel).  Logits and aux are
-    then ``Sharded``, each data shard's rows."""
+    then ``Sharded``, each data shard's rows, or every row on every data
+    place where the batch does not divide the data axes
+    (``sharding.place_batch`` keeps it whole)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     use_kernel = mesh is None and kernel_route(cfg, tokens.device)
@@ -1168,8 +1177,10 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     h = sharding.smap(lambda x: _pad_to_multiple(x, mult)[0], h, mesh=mesh)
     positions = sharding.smap(
         lambda x: torch.arange(x.shape[1], device=x.device), h, mesh=mesh)
+    rows = None if mesh is None else sharding.train_rows(mesh,
+                                                          tokens.shape[0])
     h, aux = backbone(cfg, params, h, positions, remat, encoder_out,
-                      use_kernel, mesh)
+                      use_kernel, mesh, rows)
     h = sharding.smap(lambda x: x[:, prefix:prefix + S], h, mesh=mesh)
     head = {"final_norm": params["final_norm"],
             "embed" if cfg.tie_embeddings else "lm_head":
@@ -1184,10 +1195,21 @@ def loss_fn(cfg: ModelConfig, params: Params,
     loss; the forward runs with ``remat``.
 
     mesh: ``params`` and ``batch`` placed on it (``sharding.place_train``:
-    FSDP over the data axes x TP over ``model``; the batch cut over the
-    data axes) — ``forward(mesh=)``, every family; each data shard
-    computes its rows' mean loss (on its model shard 0) and the loss is
-    the mean of those means, a 0-d tensor on place 0's device."""
+    FSDP over the data axes x TP over ``model``; ``place_batch``: the
+    batch cut over the data axes, or whole on every data place where it
+    does not divide them) — ``forward(mesh=)``, every family; each of
+    the R data places computes its rows' mean loss (on its model shard
+    0) and the loss is the mean of those R losses, a 0-d tensor on place
+    0's device.  Where the batch is cut that is the mean over all rows
+    (the places' rows are equal in number).  Where it is whole, every
+    place's loss is the whole batch's, so their mean is that loss once —
+    not R times (a sum would be R-fold) — and each place's gradient is
+    1/R of the whole: the FSDP gathers' transposes (reduce-scatters) and
+    ``sum_replicas`` add the R places' shares back to the whole gradient
+    — not 1/R of it.  A place's slice of such a replicated activation
+    (the manual MoE's token slices) transposes to a local pad with
+    zeros, never to a ``psum`` over data, which would count that
+    gradient R times."""
     if mesh is None:
         logits, aux = forward(cfg, params, batch, remat=True)
         return _xent(logits, batch["labels"]) + MOE_AUX_COEF * aux

@@ -3,9 +3,10 @@
 Port of ``repro.models.moe``: the auto-partitioned path (over a mesh:
 ``apply_moe(mesh=)``), the manual-collective path (``apply_moe_manual``:
 experts over the data axes, all-to-alls, the expert FFN sliced on
-d_model over ``model``) and the serving path over a mesh
-(``apply_moe(rows=)``: the reference's dispatch groups under the serving
-mask, on the experts the serve rule places).  Tokens are dispatched by
+d_model over ``model``) and the grouped path over a mesh (``_grouped``:
+the reference's dispatch groups on experts kept cut over the data axes
+— every serving call, under the serving mask, and training off the
+manual path).  Tokens are dispatched by
 gather into per-expert capacity buffers: each (token, k) assignment gets
 a FIFO slot in its expert's buffer (token-major, k-minor), assignments
 past the capacity ``C`` and tokens marked invalid (pads, dead serving
@@ -18,12 +19,15 @@ Groups: one dispatch group per data shard (``_num_groups``: the data
 axes' size under ``sharding.use_axes`` when it divides B, as in the
 reference) — contiguous rows of the call, each with its own capacity
 and slot order.  In training over a placed mesh each data shard holds
-its own group, and the load-balancing loss is formed from the mean
-router probabilities and top-1 fractions averaged over the data shards
-— the statistics the reference takes over all groups at once.  In
-serving the data places hold rows by lane slot, which need not be the
-groups' rows: ``_served`` forms each assignment's slot in its group
-whichever place holds the row (``sharding.dispatch_groups``).
+its own group where the batch divides the data axes, and the
+load-balancing loss is formed from the mean router probabilities and
+top-1 fractions averaged over the data shards — the statistics the
+reference takes over all groups at once; where it does not, every data
+place holds the whole batch, one group, as the reference keeps it
+(``sanitize_specs``).  In serving the data places hold rows by lane
+slot, which need not be the groups' rows: ``_grouped`` forms each
+assignment's slot in its group whichever place holds the row
+(``sharding.dispatch_groups``).
 """
 from __future__ import annotations
 
@@ -150,26 +154,36 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     batch, which holds x's rows at ``rows.at`` (a verify pass's live
     lanes among all lanes) and empty rows elsewhere.
 
-    mesh, ``rows`` given: a serving call (``_served``): x's parts are
-    each data place's rows (``rows.split``; every row where it is None,
-    none where a place holds no lane), whole over ``model``, the experts
-    placed by ``sharding.serve_specs``; the values are the reference's
-    grouped dispatch (``_routed`` with ``dispatch_groups``' groups) and
-    aux is None (serving drops it).
+    mesh: ``p``, ``x`` and ``valid`` are ``sharding.Sharded`` trees, x
+    whole over ``model``; ``rows`` says which rows each data place holds
+    (``rows.split``; every row where it is None, none where a place
+    holds no lane) and which call it is.
 
-    mesh, no ``rows``: training.  ``p``, ``x`` and ``valid`` are
-    ``sharding.Sharded`` trees, each data shard's x its rows of the
-    batch, whole over ``model`` (its own dispatch group).  Where the
+    A serving call (``rows`` not ``train``): the experts placed by
+    ``sharding.serve_specs``, the values the reference's grouped
+    dispatch (``_routed`` with ``dispatch_groups``' groups) through
+    ``_grouped``, and aux None (serving drops it).
+
+    Training (``rows.train``; None: ``sharding.train_rows`` of x, which
+    must then be placed by ``place_batch``, whose ``Sharded`` shape is
+    the batch's: an ``smap`` result's is a place's, so ``model.forward``
+    passes the rows of its placed tokens): each data shard's rows of the
+    batch where the batch divides the data axes (its own dispatch
+    group), else every row on every data place (one group).  Where the
     manual-collective path applies (``expert_parallel``, no mask) it
-    runs (``apply_moe_manual``).  Otherwise the experts are whole over
-    the data axes (gathered by the caller, or never cut) and either
+    runs (``apply_moe_manual``).  Experts kept cut on E over the data axes
+    or on d over ``model`` (never gathered: off the manual path, its
+    layout of E / d experts' d / m slice a place) run through
+    ``_grouped``: each place forms its group's slots, its own experts'
+    slots are computed where they lie.  Otherwise the experts are whole
+    over the data axes (gathered by the caller, or never cut) and either
     whole over ``model`` or cut on their hidden dim, the router whole:
     every model shard routes and dispatches alike, a ``psum`` follows
     the down projection's partial outputs, combined per token; the
     shared expert is cut as a dense MLP, with its own ``psum``.  The
-    output is equal on every model shard, and so is aux; over several
-    data shards aux is formed from the router statistics averaged over
-    them (a ``psum`` over the data axes)."""
+    output is equal on every model shard, and so is aux: the
+    load-balancing loss of the reference's statistics over every token
+    (``_load_loss``)."""
     if mesh is None:
         B, S = x.shape[:2]
         xb, vb = x, valid
@@ -184,30 +198,37 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = out if "shared" not in p else out + _shared(cfg, p["shared"],
                                                           x)
         return out, _aux(cfg, me, ce)
-    if rows is not None:
-        return _served(cfg, p, x, valid, mesh, rows), None
-    if valid is None and expert_parallel(cfg, mesh, x):
-        return apply_moe_manual(cfg, p, x, mesh)
-    if any(isinstance(w, sharding.Sharded) and w.rows is not None
-           for w in (p["w_gate"], p["w_up"], p["w_down"])):
-        raise ValueError("apply_moe over a mesh takes experts whole over "
-                         "the data axes (all-gather them first)")
-    if sharding.cut_dim(p["w_gate"]) == 1:
-        raise NotImplementedError(
-            "experts cut on d_model over the model axis run only on the "
-            "manual-collective path (manual_path_available)")
-    routed = {k: v for k, v in p.items() if k != "shared"}
-    out, me, ce = sharding.smap(lambda p_, x_, v_: _routed(cfg, p_, x_, v_),
-                                routed, x, valid, mesh=mesh)
-    dp = data_shard_axes(mesh)
+    if rows is None:
+        rows = sharding.train_rows(mesh, x.shape[0])
+    if not rows.train:
+        return _grouped(cfg, p, x, valid, mesh, rows)[0], None
+    if valid is None and expert_parallel(cfg, mesh, (rows.size, x.shape[1])):
+        return apply_moe_manual(cfg, p, x, mesh, rows)
+    if any(expert_cuts(p["w_gate"])):
+        out, me, ce = _grouped(cfg, p, x, valid, mesh, rows)
+    else:
+        routed = {k: v for k, v in p.items() if k != "shared"}
+        out, me, ce = sharding.smap(
+            lambda p_, x_, v_: _routed(cfg, p_, x_, v_), routed, x, valid,
+            mesh=mesh)
+        if sharding.cut_dim(p["w_down"]) is not None:
+            out = sharding.psum(out)
+        out = _plus_shared(cfg, p, x, out, mesh)
+    return out, _load_loss(cfg, me, ce, mesh, rows)
+
+
+def _load_loss(cfg: ModelConfig, me, ce, mesh, rows: sharding.CallRows):
+    """aux on every place from each place's router statistics (mean
+    probability and top-1 fraction per expert over its rows): where the
+    data places hold their own rows, the statistics' mean over them (a
+    ``psum`` over the data axes), the reference's over every token;
+    where each holds the whole batch, its own."""
+    dp = data_shard_axes(mesh) if rows.split is not None else ()
     if dp:
         n = sharding.axes_size(mesh, dp)
         me, ce = (sharding.smap(lambda a: a / n, sharding.psum(t, dp),
                                 mesh=mesh) for t in (me, ce))
-    aux = sharding.smap(lambda a, b: _aux(cfg, a, b), me, ce, mesh=mesh)
-    if sharding.cut_dim(p["w_down"]) is not None:
-        out = sharding.psum(out)
-    return _plus_shared(cfg, p, x, out, mesh), aux
+    return sharding.smap(lambda a, b: _aux(cfg, a, b), me, ce, mesh=mesh)
 
 
 def _plus_shared(cfg: ModelConfig, p: Params, x, out, mesh):
@@ -345,54 +366,99 @@ def manual_path_available(cfg: ModelConfig, T: int) -> bool:
 
 
 def expert_parallel(cfg: ModelConfig, mesh, x) -> bool:
-    """Whether the manual path runs on ``mesh`` for the placed x (each
-    data shard's rows of the batch; or its local (B, S)):
-    ``manual_path_available`` over the ``data`` and ``model`` axes, the
-    axes the train rule cuts the experts over (a ``pod`` axis holds
-    replicas of them).  The experts then stay cut (never gathered)."""
+    """Whether the manual path runs on ``mesh`` for a training batch of
+    global (B, S) ``x`` (a tuple, or a ``Sharded`` placed by
+    ``sharding.place_batch``) placed as ``place_batch`` places it.  Where
+    B divides the data axes: ``manual_path_available`` over the ``data``
+    and ``model`` axes, the axes the train rule cuts the experts over (a
+    ``pod`` axis holds replicas of them; each data shard's tokens are its
+    own group either way).  Where it does not (the batch whole on every
+    data place): over every axis of the mesh, as the reference decides
+    it, since the token slices then are the reference's groups."""
     if cfg.moe is None or mesh is None:
         return False
-    local = x.parts[0].shape if isinstance(x, sharding.Sharded) else x
-    T = local[0] * local[1] * sharding.axes_size(mesh, data_shard_axes(mesh))
+    B, S = tuple(x.shape[:2]) if isinstance(x, sharding.Sharded) else x
     st = sharding.AxisState.from_mesh(mesh)
-    with sharding.use_axes(sharding.AxisState(tuple(
-            (a, st.size(a)) for a in ("data", sharding.TP_AXIS)))):
-        return manual_path_available(cfg, T)
+    if B % sharding.data_size(mesh) == 0:
+        st = sharding.AxisState(tuple((a, st.size(a))
+                                      for a in ("data", sharding.TP_AXIS)))
+    with sharding.use_axes(st):
+        return manual_path_available(cfg, B * S)
 
 
-def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
-    """x: a ``sharding.Sharded`` (B, S, d) a place — each data shard's
-    rows of the batch, whole over ``model`` — -> (out, aux), both equal
+def expert_cuts(w, mesh=None) -> Tuple[bool, bool]:
+    """How the routed experts lie, read from ``w_gate`` ((E, d, f), or
+    stacked (L, E, d, f)) placed (a ``Sharded``; a plain tensor lies
+    whole) or from its spec on ``mesh``: (cut on d_model over ``model``,
+    cut on E over the data axes).  The first is the manual path's
+    layout, which the train rule gives the experts beside their E cut
+    where E divides the data axes: training keeps such experts cut, never
+    gathered over the data axes (``model.backbone``).  A layer that
+    meets its experts cut either way (``apply_moe`` called on them as
+    placed) runs ``_grouped`` off the manual path."""
+    if isinstance(w, torch.Tensor):
+        return False, False
+    if isinstance(w, sharding.Sharded):
+        return w.dim == len(w.shape) - 2, w.rows is not None
+    dim, rows = sharding._cuts(w, mesh)
+    return dim == len(w) - 2, rows is not None
+
+
+def _token_slices(x, mesh, whole: bool):
+    """Each place's routed tokens of x (B, S, d) a place, flattened to
+    (T', d): all B S of them, or, where the batch is ``whole`` on every
+    data place, its contiguous T / R of them by its index over the R
+    data places, as the reference's ``P(ep, tp)`` cuts the flattened
+    tokens.  A local slice: its transpose pads the place's own cotangent
+    with zeros (no collective: each data place's replicated computation
+    carries its own share of the gradient)."""
+    B, S, d = x.parts[0].shape
+    T = B * S
+    if not whole:
+        return [t.reshape(T, d) for t in x.parts]
+    dp = data_shard_axes(mesh)
+    n = T // sharding.axes_size(mesh, dp)
+    return [t.reshape(T, d)[i * n:(i + 1) * n]
+            for t, i in zip(x.parts, sharding.axis_index(mesh, dp))]
+
+
+def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh,
+                     rows: sharding.CallRows):
+    """x: a ``sharding.Sharded`` (B, S, d) a place, whole over ``model``:
+    each data shard's rows of the batch, or, where ``rows.split`` is
+    None, the whole batch on every data place -> (out, aux), both equal
     on every model shard.  Requires ``expert_parallel``.
 
     ``p`` is placed by the train rule's expert-parallel layout: the
     router whole; ``w_gate`` / ``w_up`` (E, d, f) cut on E over the data
     axes and on d over ``model``, ``w_down`` (E, f, d) on E and d.  A
-    place (data i, model j) takes its tokens' d-slice j, forms partial
-    router logits from the router's rows j and ``psum``s them over
-    ``model`` (every model shard then routes alike), dispatches into (1,
-    E, C, d/tp) buffers at capacity C of its own tokens and runs them
-    through ``_exchange`` (``all_to_all`` over the data axes to the
-    experts' owners, the partial up-projections ``psum``'d over
-    ``model`` at hidden volume, the exact d-sliced down projection, the
-    reverse ``all_to_all``), combines locally; an ``all_gather`` over
-    ``model`` rebuilds d (the reference leaves its output d-sharded).
+    place (data i, model j) takes its tokens (``_token_slices``: a whole
+    batch's slice i of T / R) and their d-slice j, forms partial router
+    logits from the router's rows j and ``psum``s them over ``model``
+    (every model shard then routes alike), dispatches into (1, E, C,
+    d/tp) buffers at capacity C of its own tokens and runs them through
+    ``_exchange`` (``all_to_all`` over the data axes to the experts'
+    owners, the partial up-projections ``psum``'d over ``model`` at
+    hidden volume, the exact d-sliced down projection, the reverse
+    ``all_to_all``), combines locally; a whole batch's token slices are
+    then ``all_gather``'d over the data axes, and an ``all_gather`` over
+    ``model`` rebuilds d (the reference leaves its output cut on both).
     The all-to-alls run over ``data``, the axis the experts are cut
     over: where a ``pod`` axis holds replicas of them, each pod
     exchanges among its own data shards (the reference's shard_map
-    reshards them over pod x data).  aux is each data shard's loss, its
-    mean over every place (``psum`` / n).  The shared expert runs as in
-    ``apply_moe``."""
+    reshards them over pod x data).  aux is each place's loss on its
+    tokens, its mean over every place (``psum`` / n, the reference's
+    ``pmean``).  The shared expert runs as in ``apply_moe``."""
     tp = sharding.TP_AXIS
     tp_n = sharding.axes_size(mesh, tp)
     d, n = cfg.d_model, mesh.devices.size
     d_loc = d // tp_n
     B, S = x.parts[0].shape[:2]
-    T_loc = B * S
-    C = capacity(cfg, T_loc)
+    whole = rows.split is None
     mi = sharding.axis_index(mesh, tp)
     cols = [slice(j * d_loc, (j + 1) * d_loc) for j in mi]
-    xt = [x.parts[k].reshape(T_loc, d)[:, cols[k]] for k in range(n)]
+    xt = [t[:, c] for t, c in zip(_token_slices(x, mesh, whole), cols)]
+    C = capacity(cfg, xt[0].shape[0])
     logits = sharding.psum(x.with_parts(
         [xt[k].float() @ p["router"].parts[k][cols[k]].float()
          for k in range(n)]), tp)
@@ -402,9 +468,11 @@ def apply_moe_manual(cfg: ModelConfig, p: Params, x, mesh):
                                    for k in range(n)]), mesh, "local")
     out = sharding.Sharded(tuple(
         _combine(y.parts[k], routed[k][1][None], disp[k][0],
-                 routed[k][0][None], C)[0].reshape(B, S, d_loc)
-        for k in range(n)), 2, mesh)
-    out = sharding.all_gather(out)
+                 routed[k][0][None], C)[0] for k in range(n)), 1, mesh)
+    if whole:
+        out = sharding.all_gather(out, 0, data_shard_axes(mesh))
+    out = sharding.all_gather(sharding.Sharded(tuple(
+        t.reshape(B, S, d_loc) for t in out.parts), 2, mesh))
     aux = sharding.psum(x.with_parts([_aux(cfg, r[2], r[3])
                                       for r in routed]),
                         data_shard_axes(mesh) + (tp,))
@@ -472,22 +540,28 @@ def _ffn_placed(p: Params, xin, mesh):
 
 
 # ---------------------------------------------------------------------------
-# Serving over a (data, model) mesh: the reference's groups under the
-# serving mask, on the placed experts
+# The grouped path over a (data, model) mesh: the reference's groups on the
+# placed experts
 #
 # The reference serves MoE with a validity mask, so it never takes the
 # manual path: it dispatches in ``_num_groups`` groups of contiguous rows
 # of the call, each with its own capacity and FIFO slot order, whatever
 # lanes the rows serve.  The port's data places hold rows by lane slot,
-# which for a prefill cohort need not be the groups' rows.
+# which for a prefill cohort need not be the groups' rows.  In training
+# off the manual path (a batch whose tokens do not divide the data axes,
+# or a mask) the reference's GSPMD keeps the experts cut on E over data
+# and on d over ``model``, one group where the batch is whole over data.
 # ---------------------------------------------------------------------------
 
-def _served(cfg: ModelConfig, p: Params, x, valid, mesh,
-            rows: sharding.CallRows):
-    """``apply_moe``'s output for a serving call over ``mesh``: the values
-    of ``_routed`` on the reference's batch (``rows``) in
-    ``sharding.dispatch_groups``' groups, on the experts placed by
-    ``sharding.serve_specs``.  Each place routes its own rows (the router
+def _grouped(cfg: ModelConfig, p: Params, x, valid, mesh,
+             rows: sharding.CallRows):
+    """``apply_moe`` over ``mesh`` off the manual path, on experts cut
+    over the data axes or on d over ``model``: (out, each place's mean
+    router probability per expert over its rows, its top-1 fraction per
+    expert).  The values of ``_routed`` on the reference's batch
+    (``rows``) in ``sharding.dispatch_groups``' groups, on the experts
+    as placed (``sharding.serve_specs``, or the train rule's layout kept
+    cut).  Each place routes its own rows (the router
     whole, fp32 logits: per token, no collective) and each assignment
     takes its group's slot, FIFO over the group's (row, position, k),
     pads, dead lanes and the batch's empty rows consuming no capacity:
@@ -508,7 +582,7 @@ def _served(cfg: ModelConfig, p: Params, x, valid, mesh,
     rows' tokens in k order and, where the experts are cut on d over
     ``model``, ``all_gather``s d; where they are cut on f the partial
     outputs are ``psum``'d.  The shared expert runs as in ``apply_moe``.
-    A place without rows returns None."""
+    A place without rows returns None (and no statistics)."""
     m = cfg.moe
     E, k, D = m.num_experts, m.num_experts_per_tok, cfg.d_model
     n_pl = mesh.devices.size
@@ -541,13 +615,14 @@ def _served(cfg: ModelConfig, p: Params, x, valid, mesh,
           for q, h in enumerate(held)]
     Gs, slab = (1, grp.per) if local else (grp.count, rows.size)
 
-    choices = [None] * n_pl
+    choices, stats = [None] * n_pl, [(None, None)] * n_pl
     for q in range(n_pl):
         if xs[q] is None:
             continue
         r = x.parts[q].shape[0]
-        w_, e_, _, _ = _route_stats(cfg, sharding.local(p["router"], q),
-                                    x.parts[q].reshape(r * S, D))
+        w_, e_, me, ce = _route_stats(cfg, sharding.local(p["router"], q),
+                                      x.parts[q].reshape(r * S, D))
+        stats[q] = (me, ce)
         v_ = torch.ones(r, S, dtype=torch.bool, device=devs[q]) \
             if valid is None else valid.parts[q].reshape(r, S)
         choices[q] = (w_.reshape(r, S, k), e_.reshape(r, S, k), v_)
@@ -606,7 +681,8 @@ def _served(cfg: ModelConfig, p: Params, x, valid, mesh,
         out = sharding.all_gather(out)
     elif sharding.cut_dim(p["w_down"]) is not None:
         out = sharding.psum(out)
-    return _plus_shared(cfg, p, x, out, mesh)
+    me, ce = (sharding.Sharded(tuple(t), None, mesh) for t in zip(*stats))
+    return _plus_shared(cfg, p, x, out, mesh), me, ce
 
 
 def _to_slab(t: torch.Tensor, at: torch.Tensor, n: int, fill

@@ -46,7 +46,8 @@ device several times).
     ``place_train`` by ``train_placement`` (``param_specs(mode="train")``
     sanitized, the Mamba-2 leaves cut over ``model`` as ``mamba_spec``
     cuts them beside the rule's cut over ``data``), ``place_batch`` a
-    batch over the data axes;
+    batch over the data axes (whole on every data place where it does
+    not divide them, as ``sanitize_specs`` keeps it);
   * ``smap`` runs a function on each place's parts (a place without
     lanes, whose parts ``scatter`` left None, runs nothing);
   * serving over the data axes (the last section): ``split_rows`` cuts a
@@ -1420,16 +1421,15 @@ def place_train(cfg: ModelConfig, params, mesh) -> Any:
 
 
 def place_batch(cfg: ModelConfig, batch, mesh) -> Any:
-    """A training batch cut on its leading (batch) dim over the data
-    axes (``batch_specs``), whole over ``model``; the batch must divide
-    the data axes (each data shard computes its own rows' loss)."""
+    """A training batch placed by the reference's specs (``batch_specs``,
+    ``sanitize_specs``): every leaf cut on its leading (batch) dim over
+    the data axes where the batch divides them (each data shard its own
+    rows), else whole on every data place (each computes every row);
+    whole over ``model``.  ``train_rows`` describes the placement."""
     with use_axes(mesh):
-        dp = data_axes()
         B = next(iter(batch.values())).shape[0]
-        if B % _axes_size_hint(dp):
-            raise NotImplementedError(
-                f"batch {B} does not divide the data axes {dp}")
-        specs = sanitize_specs(batch_specs(cfg, batch, dp, B), batch)
+        specs = sanitize_specs(batch_specs(cfg, batch, data_axes(), B),
+                               batch)
     return place(batch, specs, mesh)
 
 
@@ -1532,15 +1532,19 @@ def split_rows(mesh, lanes: Optional[Lanes], n: int) -> Optional[RowSplit]:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CallRows:
-    """A serving call's rows as the reference's batch holds them: row j
-    of the call is row ``at[j]`` of the reference's ``size``-row batch,
-    whose other rows are empty (pads that route nowhere); ``split`` is
-    the data axes' cut of the call (``split_rows``; None: every data
-    place holds every row).  The MoE's dispatch groups are formed on
-    this batch (``dispatch_groups``)."""
+    """A call's rows as the reference's batch holds them: row j of the
+    call is row ``at[j]`` of the reference's ``size``-row batch, whose
+    other rows are empty (pads that route nowhere); ``split`` is the
+    data axes' cut of the call (``split_rows``; None: every data place
+    holds every row).  The MoE's dispatch groups are formed on this
+    batch (``dispatch_groups``).  ``train``: a training batch
+    (``train_rows``), whose MoE also forms its load-balancing loss and
+    takes the manual path where the reference does; else a serving
+    call (``call_rows``)."""
     at: Tuple[int, ...]
     size: int
     split: Optional[RowSplit] = None
+    train: bool = False
 
     @property
     def n(self) -> int:
@@ -1560,6 +1564,15 @@ def call_rows(lanes: Optional[Lanes], n: int,
     if lanes is None or not lanes.all_lanes:
         return CallRows(tuple(range(n)), n, split)
     return CallRows(tuple(lanes.slots), lanes.width, split)
+
+
+def train_rows(mesh, batch: int) -> CallRows:
+    """A training batch of ``batch`` rows as ``place_batch`` places it:
+    cut contiguously over the data axes where they divide it (row j on
+    data index j // (batch / d), ``split_rows``' cut), else whole on
+    every data place (``split`` None)."""
+    return CallRows(tuple(range(batch)), batch,
+                    split_rows(mesh, None, batch), train=True)
 
 
 @dataclasses.dataclass(frozen=True)

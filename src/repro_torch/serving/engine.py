@@ -287,8 +287,10 @@ class ServingEngine:
         ``device``: the card by default, ``"cpu"`` on request; ``params``
         must already live there (with a ``mesh``: on its shard 0 device,
         whole or already placed, e.g. ``model.init_params(mesh=)``).
-        Raises ``NotImplementedError`` for what the port does not serve
-        yet (an MoE config under data axes above 1).
+        Every config serves under any (data, model) mesh; what it
+        refuses, the reference refuses too: a paged cache for the ssm,
+        hybrid and audio families (``mode="continuous"`` raises
+        ``ValueError``; they serve in waves).
 
         ``mesh``: a ``launch.mesh.Mesh`` with ``data`` and ``model`` axes
         (see the module docstring); its place 0 device is the engine's,

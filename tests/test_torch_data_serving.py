@@ -50,7 +50,8 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
-from torch_parity import STATS, WAVE_STATS, pair, run, stats_of  # noqa: E402
+from torch_parity import (STATS, WAVE_STATS, masked_d_cut_moe,  # noqa
+                          pair, run, stats_of)
 
 #: fp32 over a mesh vs meshless, a share of the logits' range.
 TOL = 1e-5
@@ -464,11 +465,12 @@ def test_moe_serve_specs_cut_experts_and_refusals_stand():
     serve rule does (E over data, d over model; the router and the shared
     expert whole over data) — spec for spec the JAX package's sanitized
     ``param_specs(mode="serve")``; what stays refused: paged caches for
-    ssm, and in training experts cut on d_model off the manual path and a
-    batch that does not divide the data axes."""
+    ssm.  Cleared: a training batch that does not divide the data axes
+    is placed whole on every data place, and experts cut on d_model off
+    the manual path (a mask, at (1, 2)) equal JAX's masked layer under
+    the mesh's axes, and the meshless port's layer."""
     from repro.configs.base import get_config as jax_config
     from repro.parallel import sharding as jsh
-    from repro_torch.models import moe as TMOE
     jcfg = jax_config("qwen2-moe-a2.7b").reduced()
     jparams = jax.eval_shape(lambda: JM.init_params(
         jcfg, jax.random.PRNGKey(0)))
@@ -489,17 +491,13 @@ def test_moe_serve_specs_cut_experts_and_refusals_stand():
     with pytest.raises(NotImplementedError, match="paged"):
         TM.init_paged_cache(get_config("mamba2-1.3b").reduced(), 4, 4,
                             device="cpu")
-    train = mesh_of((2, 2))
-    with pytest.raises(NotImplementedError):
-        tsh.place_batch(cfg, {"tokens": torch.zeros(3, 4, dtype=torch.int32)},
-                        train)
-    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()
-             if k != "shared"}
-    m2 = mesh_of((1, 2))
-    layer = {k: tsh.shard(v, tsh.P(None, "model", None), m2)
-             if k != "router" else tsh.shard(v, tsh.P(), m2)
-             for k, v in layer.items()}
-    x = tsh.broadcast(torch.zeros(1, 4, cfg.d_model), m2)
-    valid = tsh.broadcast(torch.ones(1, 4, dtype=torch.bool), m2)
-    with pytest.raises(NotImplementedError, match="manual"):
-        TMOE.apply_moe(cfg, layer, x, valid=valid, mesh=m2)
+    toks = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    placed = tsh.place_batch(cfg, {"tokens": toks}, mesh_of((2, 2)))
+    assert placed["tokens"].rows is None
+    assert all(torch.equal(p, toks) for p in placed["tokens"].parts)
+    (out, aux), *refs = masked_d_cut_moe(
+        "qwen2-moe-a2.7b", params["blocks"]["moe"], mesh_of((1, 2)))
+    for ref, aux_ref in refs:  # JAX's layer, then the meshless port's
+        for p, a in zip(out.parts, aux.parts):
+            assert np.abs(p.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+            assert float(a) == pytest.approx(float(aux_ref), rel=1e-6)

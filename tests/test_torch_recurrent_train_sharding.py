@@ -29,6 +29,7 @@ and a tail of one) and whisper-base (audio) through
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -36,7 +37,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.launch import dryrun, mesh as mesh_lib  # noqa: E402
-from repro_torch.models import model as TM, moe as TMOE  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import ssm as TSSM  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -44,7 +45,7 @@ from repro_torch.training import checkpoint as ckpt  # noqa: E402
 
 from test_torch_train_sharding import (_close, _port_steps,  # noqa: E402
                                        cpu_mesh)
-from torch_parity import batches  # noqa: E402
+from torch_parity import batches, masked_d_cut_moe  # noqa: E402
 
 ARCHS = ("mamba2-1.3b", "zamba2-7b", "whisper-base")
 MESHES = ((1, 2), (2, 2), (2, 4))
@@ -210,10 +211,13 @@ def test_cleared_refusals_and_the_ones_that_stay():
     for arch in ARCHS:
         c = reduced(arch)
         assert dryrun.train_collectives(c, B, 64, mesh)["psum"] > 0
-    # The refusals that stay.
+    # Cleared: a batch that does not divide the data axes is placed whole
+    # on every data place.
     tb = batches(cfg, B=3)[1]
-    with pytest.raises(NotImplementedError):
-        tsh.place_batch(cfg, tb, mesh)
+    placed = tsh.place_batch(cfg, tb, mesh)
+    for k, x in placed.items():
+        assert x.rows is None and all(torch.equal(p, tb[k]) for p in x.parts)
+    # The refusal that stays.
     with pytest.raises(NotImplementedError):
         TM.check_paged(cfg, "prefill_slots")
     moe_cfg = get_config("qwen2-moe-a2.7b").reduced()
@@ -222,16 +226,14 @@ def test_cleared_refusals_and_the_ones_that_stay():
     eng = ServingEngine(moe_cfg, moe_params, mesh=mesh, device="cpu",
                         mode="wave")
     assert eng.params["blocks"]["moe"]["w_down"].rows == (("data",), 1)
-    p = moe_params["blocks"]["moe"]
-    layer = {k: v[0] for k, v in p.items() if k != "shared"}
-    m2 = cpu_mesh((1, 2))
-    layer = {k: tsh.shard(v, tsh.P(None, "model", None), m2)
-             if k != "router" else tsh.shard(v, tsh.P(), m2)
-             for k, v in layer.items()}
-    x = tsh.broadcast(torch.zeros(1, 4, moe_cfg.d_model), m2)
-    valid = tsh.broadcast(torch.ones(1, 4, dtype=torch.bool), m2)
-    with pytest.raises(NotImplementedError):
-        TMOE.apply_moe(moe_cfg, layer, x, valid=valid, mesh=m2)
+    # Cleared: experts cut on d_model off the manual path (a mask), held
+    # against JAX's masked layer under the mesh's axes.
+    (out, aux), *refs = masked_d_cut_moe(
+        "qwen2-moe-a2.7b", moe_params["blocks"]["moe"], cpu_mesh((1, 2)))
+    for ref, aux_ref in refs:  # JAX's layer, then the meshless port's
+        for p, a in zip(out.parts, aux.parts):
+            assert np.abs(p.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+            assert float(a) == pytest.approx(float(aux_ref), rel=1e-6)
 
 
 @pytest.mark.parametrize("multi", [False, True])

@@ -20,8 +20,9 @@ from repro.configs.base import get_config as jax_config
 from repro.models import model as JM
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro_torch.configs.base import get_config
-from repro_torch.models import model as TM
+from repro_torch.models import model as TM, moe as TMOE
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.parallel import sharding as tsh
 from repro_torch.serving.engine import ServingEngine
 
 TOL = 1e-4
@@ -190,3 +191,39 @@ def batches(cfg, seed=0, S=S, B=B):
             (B, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in nb.items()},
             {k: torch.from_numpy(v) for k, v in nb.items()})
+
+
+def masked_d_cut_moe(arch, moe_params, mesh):
+    """One MoE layer of the reduced ``arch`` (layer 0 of the port's
+    ``moe_params``, the shared expert left out, fp32) in training with a
+    mask over ``mesh``'s ``model`` axis, the experts cut on d_model as the
+    manual path cuts them (``w_gate`` / ``w_up`` (E, d, f) on d,
+    ``w_down`` (E, f, d) on d), the router whole; x a seeded (1, 4, d)
+    batch with one token masked.  Returns (out, aux) of the layer over
+    the mesh (``Sharded``), of JAX's ``apply_moe(valid=)`` under
+    ``use_axes`` with the mesh's axes and of the meshless port's layer
+    (numpy)."""
+    from repro.models import moe as JMOE
+    from repro.parallel import sharding as jsh
+    cfg = get_config(arch).reduced()
+    whole = {k: v[0].float() for k, v in moe_params.items()
+             if k != "shared"}
+    dims = {"w_gate": 1, "w_up": 1, "w_down": 2}
+    layer = {k: tsh.shard(v, tsh.P(*(("model" if i == dims.get(k) else None)
+                                     for i in range(v.dim()))), mesh)
+             for k, v in whole.items()}
+    x = np.random.default_rng(0).standard_normal(
+        (1, 4, cfg.d_model)).astype(np.float32)
+    valid = np.array([[True, True, False, True]])
+    got = TMOE.apply_moe(cfg, layer, tsh.broadcast(torch.from_numpy(x), mesh),
+                         valid=tsh.broadcast(torch.from_numpy(valid), mesh),
+                         mesh=mesh)
+    with jsh.use_axes(jsh.AxisState(tuple(zip(mesh.axis_names,
+                                              mesh.devices.shape)))):
+        ref = JMOE.apply_moe(jax_config(arch).reduced(),
+                             {k: jnp.asarray(v.numpy())
+                              for k, v in whole.items()},
+                             jnp.asarray(x), valid=jnp.asarray(valid))
+    port = TMOE.apply_moe(cfg, whole, torch.from_numpy(x),
+                          valid=torch.from_numpy(valid))
+    return got, tuple(map(as_np, ref)), tuple(map(as_np, port))
