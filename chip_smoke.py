@@ -14,7 +14,7 @@ outside the repository.  Phases, each of which raises on failure:
      for the tensor-core bodies of the SCLD matmul, flash attention,
      the two decode kernels (``decode_tc_kernel``), the paged prefill
      (``prefill_tc_kernel``) and the SSD scan's chunk-state and
-     chunk-output passes;
+     chunk-output passes (bf16 and, in 3xTF32, fp32);
   3. kernel checks, each kernel against its plain PyTorch version at the
      serving path's shapes (tinyllama heads, 16-token blocks, 8 lanes,
      64-entry tables, mixed lengths, dead lanes, a shared block), bf16
@@ -124,11 +124,14 @@ outside the repository.  Phases, each of which raises on failure:
      layers — seven groups of six and the tail of three, cut for the
      whole script's time — and whisper-base audio): init peak
      memory beside the weights' bytes; the SSD kernel at the model's
-     prefill shapes (8 rows x heads folded into rows, at every wave
-     prompt length, 16-512 positions, fp32, chunk min(256, S)) against
-     its plain version within SSD_TOL and a per-head relative limit of
-     1e-5 that the shifted-decay control must fail, bitwise launch to
-     launch, its bf16 tensor-core body timed beside; the dense decode
+     prefill shapes (8 rows x heads folded into rows, B and C one row a
+     group as the model hands them, at every wave prompt length, 16-512
+     positions, fp32, chunk min(256, S)) against its plain version
+     within SSD_TOL and a per-head relative limit of 1e-5 that the
+     shifted-decay control must fail, bitwise launch to launch and
+     bitwise the same launch on B and C repeated to every row
+     (heads_per_group 1), each pass's device time, its bf16 tensor-core
+     body timed beside; the dense decode
      kernel at zamba2-7b's shared-attention heads (32 over 32 of 112)
      and at whisper-base's (8 over 8 of 64) as in phase 3, with a
      control at 112 (the plain output with columns 96-111 zeroed must
@@ -335,6 +338,7 @@ outside the repository.  Phases, each of which raises on failure:
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -372,6 +376,9 @@ F8_PLANTED = (440.0, 447.0, 448.0, 460.0, 463.9, 464.0, 470.0, 1e3, 1e4,
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peak HBM3 bandwidth, dense bf16 peak below
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12        # fp32 outside the tensor cores
+#: fp32-accurate products on the tensor cores: three TF32 products (495
+#: TFLOP/s dense) for each (the SSD scan's fp32 body).
+TF32X3_OPS_PER_S = 495e12 / 3
 WARMUP, ITERS = 3, 20
 SPIN_CYCLES = 100_000_000     # ~50 ms at the H100's ~2 GHz
 #: The JAX package's kernel tolerances (tests/test_kernels.py): SCLD
@@ -400,6 +407,9 @@ SSD_CASES = {
     "zamba2-7b, chunk 256": (112, 64, 64, 256)}
 SSD_PASSES = ("ssd_chunk_state_tc_kernel", "ssd_state_pass_kernel",
               "ssd_chunk_out_tc_kernel")
+#: The fp32 body's passes (the score pass runs in the first's launch).
+SSD_PASSES_FP32 = ("ssd_chunk_state_tf32_kernel", "ssd_state_pass_kernel",
+                   "ssd_chunk_out_tf32_kernel")
 SEQ = 2048  # positions of the SSD and attention checks
 #: The SCLD example's system section as the JAX package's ``core`` gives
 #: it (tests/test_torch_sclad.py holds the port's copies to it bitwise).
@@ -429,7 +439,9 @@ TENSOR_CORE_BODIES = {"sclad_matmul": ("sclad_matmul_tc_kernel",),
                       "dense_decode": ("decode_tc_kernel",),
                       "paged_prefill": ("prefill_tc_kernel",),
                       "ssd_scan": ("ssd_chunk_state_tc_kernel",
-                                   "ssd_chunk_out_tc_kernel")}
+                                   "ssd_chunk_out_tc_kernel",
+                                   "ssd_chunk_state_tf32_kernel",
+                                   "ssd_chunk_out_tf32_kernel")}
 
 
 def sass_mma_counts(build):
@@ -498,11 +510,20 @@ def ptxas_report(log: str):
 
 
 def short_name(fn: str) -> str:
-    """A mangled kernel name as its stem and template arguments."""
-    stem = re.search(r"\d+([a-z_]+_kernel)", fn)  # <length><name>
+    """A mangled kernel name as its stem and template arguments: the
+    <length><name> piece naming a ``..._kernel`` (the length's digits may
+    follow a hash's)."""
+    stem = None
+    for m in re.finditer(r"\d+", fn):
+        for i in range(m.start(), m.end()):
+            name = fn[m.end():m.end() + int(fn[i:m.end()])]
+            if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+                stem = name
+                break
+        if stem:
+            break
     targs = re.search(r"_kernel(I.+?E)E?v", fn)
-    return (f"{stem.group(1) if stem else fn}"
-            f"{targs.group(1) if targs else ''}")
+    return f"{stem or fn}{targs.group(1) if targs else ''}"
 
 
 def rates(r) -> str:
@@ -1000,16 +1021,21 @@ def ssd_inputs(torch, gen, BH, S, P, N, dtype=None):
             (rnd(BH, S, N) * 0.3).to(dtype), (rnd(BH, S, N) * 0.3).to(dtype))
 
 
-def ssd_work(BH, S, P, N, chunk, elem):
+def ssd_work(BH, S, P, N, chunk, elem, groups=None):
     """(bytes, operations) of one SSD scan: xdt, a, b, c read and y
     written in ``elem``-byte elements, the fp32 state written; the
     chunked form's operations: per chunk, the causal half of (C B^T) and
-    of its product with xdt, C state^T, and the state update."""
-    nbytes = elem * (2 * BH * S * P + BH * S + 2 * BH * S * N) \
+    of its product with xdt and the state update, and for every chunk
+    after the first C h_in^T (the first chunk's h_in is zero).
+    ``groups``: the rows of b and c (BH: one a row), each read once,
+    their causal C B^T formed once a group row and chunk."""
+    G = BH if groups is None else groups
+    nbytes = elem * (2 * BH * S * P + BH * S + 2 * G * S * N) \
         + 4 * BH * P * N
-    q = chunk
-    ops = BH * (S // q) * (q * (q + 1) // 2 * (2 * N + 2 * P)
-                           + 4 * q * P * N)
+    q, nc = chunk, S // chunk
+    tri = q * (q + 1) // 2
+    ops = nc * (BH * (tri * 2 * P + 2 * q * P * N) + G * tri * 2 * N) \
+        + (nc - 1) * BH * 2 * q * P * N
     return nbytes, ops
 
 
@@ -1994,61 +2020,97 @@ RECURRENT_DEPTH = {"zamba2-7b": 45}
 
 def check_ssd_model(torch, cfg, gen, card, ways=1, lens=RECURRENT_LENS,
                     rows=SSD_ROWS):
-    """Kernel 4 at ``cfg``'s prefill shapes: ``rows`` (SSD_ROWS; one data
-    place's) x H heads folded into rows (H / ``ways``: one shard's
-    heads), at every wave
-    prompt length (``lens``), fp32
-    (what the model hands it: the exact fp32 body), chunk
-    min(``ssm.chunk_size``, S) as the model calls it; against the plain
-    recurrence within SSD_TOL and per head within SSD_REL_FP32, which the
-    shifted-decay control must exceed 3x; bitwise equal launch to
-    launch.  The bf16 tensor-core body is timed on the same inputs
-    rounded to bf16, beside it.  Returns {S: result}."""
+    """Kernel 4 at ``cfg``'s prefill shapes as the model hands them to it
+    (``ssm.ssd_via_kernel``): ``rows`` (SSD_ROWS; one data place's) x H
+    heads folded into rows (H / ``ways``: one shard's heads), b and c one
+    row a group (``heads_per_group`` = the heads a group), at every wave
+    prompt length (``lens``), fp32 (the 3xTF32 body), chunk
+    min(``ssm.chunk_size``, S); against the plain recurrence within
+    SSD_TOL and per head within SSD_REL_FP32, which the shifted-decay
+    control must exceed 3x; bitwise equal launch to launch, and bitwise
+    the launch on b and c repeated to every row (``heads_per_group`` 1),
+    timed beside.  Prints each pass's device time and the bound (3xTF32
+    operations with C B^T once a group, each byte once) beside the old
+    one (the CUDA cores' fp32 rate, C B^T a head).  The bf16 tensor-core
+    body, which takes b and c a row, is timed on the same inputs with b
+    and c repeated to every row, rounded to bf16.  Returns {S: result}."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
     s = cfg.ssm
     H = s.nheads(cfg.d_model) // ways
-    BH, P, N = rows * H, s.head_dim, s.state_size
+    G = s.ngroups  # a model shard holds every group (mamba_spec)
+    BH, P, N, hpg = rows * H, s.head_dim, s.state_size, H // G
     results = {}
     for S in lens:
         chunk = min(s.chunk_size, S)
-        xdt, a, b, c = ssd_inputs(torch, gen, BH, S, P, N, torch.float32)
-        y_ref, st_ref = ssd_scan_ref(xdt, a, b, c)
-        y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+        xdt, a = ssd_inputs(torch, gen, BH, S, P, N, torch.float32)[:2]
+        b, c = ssd_inputs(torch, gen, rows * G, S, P, N, torch.float32)[2:]
+        scan = functools.partial(ssd_scan, chunk=chunk, heads_per_group=hpg)
+        y_ref, st_ref = ssd_scan_ref(xdt, a, b, c, heads_per_group=hpg)
+        y, st = scan(xdt, a, b, c)
         torch.cuda.synchronize()
-        what = f"ssd_scan ({cfg.name} prefill, {rows} x {H}, {S}, fp32)"
+        what = (f"ssd_scan ({cfg.name} prefill, {rows} x {H}, {S}, fp32, "
+                f"{hpg} heads a group)")
         err = max(assert_close(torch, what, y, y_ref, SSD_TOL, SSD_TOL),
                   assert_close(torch, what + " state", st, st_ref, SSD_TOL,
                                SSD_TOL))
         same_launches(torch, what, torch.cat([y.flatten(), st.flatten()]),
-                      lambda: torch.cat([t.flatten() for t in ssd_scan(
-                          xdt, a, b, c, chunk=chunk)]))
+                      lambda: torch.cat([t.flatten() for t in scan(
+                          xdt, a, b, c)]))
         rel = max(rel_err(torch, what, y, y_ref, SSD_REL_FP32),
                   rel_err(torch, what + " state", st, st_ref, SSD_REL_FP32))
-        yx, stx = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk)
+        yx, stx = scan(xdt, torch.roll(a, 1, 1), b, c)
         control = min(rel_err(torch, what, o, r, float("inf"))
                       for o, r in ((yx, y_ref), (stx, st_ref)))
         if not control > 3 * SSD_REL_FP32:
             raise AssertionError(f"{what}: the relative check would pass "
                                  f"the shifted-decay control {control}")
-        ms = cuda_ms(lambda: ssd_scan(xdt, a, b, c, chunk=chunk))
-        plain_ms = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c))
-        xb, ab, bb, cb = (t.bfloat16() for t in (xdt, a, b, c))
+        br, cr = (t.repeat_interleave(hpg, 0) for t in (b, c))
+        rows_out = ssd_scan(xdt, a, br, cr, chunk=chunk)
+        if not all(same_bits(torch, o, r)
+                   for o, r in zip(rows_out, (y, st))):
+            raise AssertionError(f"{what}: b and c repeated to every row "
+                                 f"differ from the launch by group")
+        ms = cuda_ms(lambda: scan(xdt, a, b, c))
+        rows_ms = cuda_ms(lambda: ssd_scan(xdt, a, br, cr, chunk=chunk))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                scan(xdt, a, b, c)
+            torch.cuda.synchronize()
+        per_kernel, _ = device_times(torch, prof)
+        split = {stem: sum(v for k, v in per_kernel.items() if stem in k)
+                 / ITERS for stem in SSD_PASSES_FP32}
+        plain_ms = cuda_ms(lambda: ssd_scan_ref(xdt, a, b, c,
+                                                heads_per_group=hpg))
+        xb, ab, bb, cb = (t.bfloat16() for t in (xdt, a, br, cr))
         bf16_ms = cuda_ms(lambda: ssd_scan(xb, ab, bb, cb, chunk=chunk))
-        nbytes, ops = ssd_work(BH, S, P, N, chunk, 4)
-        bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
-        bf16_bound = bound(ssd_work(BH, S, P, N, chunk, 2)[0], ops)
-        print(f"kernel ssd_scan[{cfg.name} prefill, {rows} x {H} rows, "
-              f"{S} positions, chunk {chunk}] "
-              f"[{card}]: max|err| {err:.3g}, per-head relative {rel:.3g} "
-              f"(limit {SSD_REL_FP32:g}; control {control:.3g}); fp32 body "
-              f"{ms:.4f} ms (bound {bound_ms:.6f} ms, {bound_by}), bf16 "
-              f"tensor-core body {bf16_ms:.4f} ms (bound {bf16_bound[0]:.6f}"
-              f" ms, {bf16_bound[1]}), plain {plain_ms:.4f} ms")
+        nbytes, ops = ssd_work(BH, S, P, N, chunk, 4, rows * G)
+        bound_ms, bound_by = bound(nbytes, ops, TF32X3_OPS_PER_S)
+        old_bound = bound(*ssd_work(BH, S, P, N, chunk, 4), FP32_OPS_PER_S)
+        bf16_bound = bound(*ssd_work(BH, S, P, N, chunk, 2))
+        name = (f"ssd_scan[{cfg.name} prefill, {rows} x {H} rows, {S} "
+                f"positions, chunk {chunk}]")
+        print(f"kernel {name} passes [{card}]: "
+              + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+                 if per_kernel else "device time not measured (the "
+                 "profiler recorded no device events)")
+              + f"; bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, "
+              f"{ops} operations at 3xTF32), was {old_bound[0]:.6f} ms "
+              f"({old_bound[1]}, the CUDA cores' fp32, C B^T a head)")
+        print(f"kernel {name} [{card}]: max|err| {err:.3g}, per-head "
+              f"relative {rel:.3g} (limit {SSD_REL_FP32:g}; control "
+              f"{control:.3g}); fp32 body {ms:.4f} ms (b and c a row "
+              f"{rows_ms:.4f} ms; bound {bound_ms:.6f} ms, {bound_by}), "
+              f"bf16 tensor-core body {bf16_ms:.4f} ms (bound "
+              f"{bf16_bound[0]:.6f} ms, {bf16_bound[1]}), plain "
+              f"{plain_ms:.4f} ms")
         results[S] = dict(err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=None, bound_ms=bound_ms,
                           bound_by=bound_by, nbytes=nbytes, ops=ops,
-                          bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound[0])
+                          rows_ms=rows_ms, bf16_ms=bf16_ms,
+                          bf16_bound_ms=bf16_bound[0], passes=split)
     return results
 
 

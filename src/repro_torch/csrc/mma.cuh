@@ -3,8 +3,9 @@
 // decode_attention.cuh): 16- and 4-byte asynchronous copies into shared
 // memory with a zero-fill form, their commit / wait groups, ldmatrix
 // (plain and transposed), the bf16 m16n8k16 tensor-core product with fp32
-// sums, packing two fp32 values into one bf16x2 register, and 2^x on the
-// special-function unit.
+// sums, the TF32 m16n8k8 product and the 3xTF32 split that keeps fp32
+// accuracy on it, packing two fp32 values into one bf16x2 register, and
+// 2^x on the special-function unit.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g < 8, t < 4):
 //   A (16 x 16, row-major):  a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
@@ -12,6 +13,11 @@
 //   B (16 x 8, k x n):       b[0] = (k 2t..2t+1, n g),
 //                            b[1] = (k 8 + 2t..8 + 2t + 1, n g);
 //   C/D (16 x 8, fp32):      d[0..1] = (g, 2t..2t+1), d[2..3] = (g + 8, 2t..).
+// mma.m16n8k8 .tf32 (one 32-bit element a register):
+//   A (16 x 8, row-major):   a[0] = (g, t), a[1] = (g + 8, t),
+//                            a[2] = (g, t + 4), a[3] = (g + 8, t + 4);
+//   B (8 x 8, k x n):        b[0] = (k t, n g), b[1] = (k t + 4, n g);
+//   C/D as m16n8k16's.
 // ldmatrix.x4 gives lane l row l / 4, columns 2 (l % 4)..+1 of each of four
 // 8 x 8 matrices whose row addresses lanes 8i..8i+7 supply; .trans gives the
 // transposed element pair, so a B tile stored k-major (row k, columns n)
@@ -86,6 +92,45 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a @ b: TF32 products (the top 19 bits of each operand), fp32 sums.
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (to nearest, ties away from zero), its low 13 bits
+// clear.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// The 3xTF32 split: x = hi + lo + r with hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in fp32) and |r| <= 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a @ b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, the small
+// terms first; the dropped a_lo b_lo is below 2^-22 of the product.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint32_t b0_hi, uint32_t b1_hi,
+                                           uint32_t b0_lo, uint32_t b1_lo) {
+  mma_tf32(d, a_lo, b0_hi, b1_hi);
+  mma_tf32(d, a_hi, b0_lo, b1_lo);
+  mma_tf32(d, a_hi, b0_hi, b1_hi);
 }
 
 // (lo, hi) rounded to nearest-even bf16, lo in the low half.

@@ -1,71 +1,82 @@
 // Mamba-2 SSD chunk scan for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `ssd_scan` (body `_ssd_kernel`) of
-// src/repro/kernels/ssd_scan/ssd_scan.py.  Inputs, pre-scaled by the caller:
-// xdt (BH, S, P), a (BH, S), b and c (BH, S, N), all fp32 or all bf16.
-// Outputs: y (BH, S, P) in the inputs' type and the final state (BH, P, N)
-// fp32.  Per chunk of Q positions, with cum the inclusive cumsum of a over
-// the chunk:
+// src/repro/kernels/ssd_scan/ssd_scan.py:66.  Inputs, pre-scaled by the
+// caller: xdt (BH, S, P), a (BH, S), b and c (BH / hpg, S, N), all fp32 or
+// all bf16; row bh reads b and c row bh / hpg, its group's (hpg = 1: the
+// reference's per-row b and c).  Outputs: y (BH, S, P) in the inputs' type
+// and the final state (BH, P, N) fp32.  Per chunk of Q positions, with cum
+// the inclusive cumsum of a over the chunk:
 //   y     = ((C B^T) . L) xdt + exp(cum) . (C h_in^T),  L_ij = exp(cum_i - cum_j), i >= j
 //   h_out = exp(cum_last) h_in + (xdt . exp(cum_last - cum))^T B
 //
-// Bound on this card.  The work reads xdt, a, b, c and writes y and the
-// state once; the chunked form does about Q/2 * (2N + 2P) + 4PN operations a
-// position.  At mamba2-1.3b's widths (64 heads, P = 64, N = 128, 2048
-// positions, chunk 256, bf16) that is 103 MB and 10.8 GFLOP: 0.0308 ms at
-// 3.35 TB/s, bytes-bound (chip_smoke.py's check_ssd).
+// Bound on this card.  The work reads xdt, a, each group's b and c, and
+// writes y and the state once; the chunked form does, a chunk, the causal
+// half of C B^T once a group (Q (Q + 1) / 2 * 2N), and a head the causal
+// half of its product with xdt and the state's (Q (Q + 1) / 2 * 2P +
+// 2QPN), and C h_in^T (2QPN) in every chunk after the first.  The served
+// shape (mamba2-1.3b's prefill: 8 rows x 64 heads of P = 64, one group of
+// N = 128, 512 positions, chunk 256, fp32) moves 156 MB and does 10.9
+// GFLOP: 0.047 ms at 3.35 TB/s, 0.066 ms at the 3xTF32 rate (495 / 3
+// TFLOP/s), operations-bound (chip_smoke.py's check_ssd_model).
 //
-// Design: the SSD paper's chunked algorithm (arXiv:2405.21060 §6) in three
-// launches, in place of the TPU's sequential chunk axis and its VMEM state.
+// Design: the SSD paper's chunked algorithm (arXiv:2405.21060 §6) in
+// passes, in place of the TPU's sequential chunk axis and its VMEM state.
 // A chunk's own contribution to the state depends only on its inputs, so
 // only a short scan over chunks is serial.  The wrapper allocates an fp32
-// workspace (ssd_scan.ssd_plan): chunk states (BH, nc, P, N), cum (BH, S)
-// and, for bf16 inputs, h_in (BH, nc, P, N) in bf16.
-//   1. Chunk states, one block per (bh, chunk) (512 blocks at the widths
-//      above): cum by a block scan in fp32, written to the workspace (pass
-//      3 reads it and never recomputes it); s_c = (xdt . exp(cum_last -
-//      cum))^T B, a (P x Q) (Q x N) product, into the chunk states.
+// workspace (ssd_scan.ssd_plan, Args): chunk states (BH, nc, P, N), cum
+// (BH, S), then for bf16 inputs h_in (BH, nc, P, N) in bf16, for fp32 ones
+// the causal 64 x 64 tiles of C B^T a (group row, chunk).
+//   1. Chunk states, one block per (bh, chunk): cum by a block scan in
+//      fp32, written to the workspace (pass 3 reads it and never
+//      recomputes it); s_c = (xdt . exp(cum_last - cum))^T B, a (P x Q)
+//      (Q x N) product, into the chunk states.
 //   2. State pass, one thread per 4 state entries of a bh: walks the
 //      chunks in order, h_in[c] = h, h = exp(cum_last[c]) h + s_c, in fp32
 //      FMAs with no atomics; the last h is the final state.
-//   3. Chunk outputs, one block per (bh, chunk, 64-row query tile) (2048
-//      blocks), each chunk's heaviest query tile first: the key tiles
-//      j0 <= i0 of ((C B^T) . L) xdt, then exp(cum_i) (C h_in^T).  L is
-//      taken only where i >= j, so exp never sees a positive argument,
-//      and element by element only on the diagonal tile.
-// bf16 inputs run passes 1 and 3 on the tensor cores (mma.cuh: mma.sync
-// m16n8k16, fp32 sums), their tiles fed by a 2-stage 16-byte cp.async ring
-// and read through ldmatrix (rows padded by 16 bytes: no bank conflicts).
-// A pass-3 block holds its C tile's fragments in registers for the whole
-// key walk; the C tile arrives in the ring's second slot before the second
-// key tile does, and h_in arrives as the walk's last entry, in the slot
-// after the last key tile, so its copy overlaps that tile's products and
-// needs no shared memory of its own (4 blocks an SM at the widths above).
-// Rounding points, each once to nearest-even bf16: the decayed xdt of pass
-// 1 (xdt . exp(cum_last - cum) in fp32, rounded in shared memory before
-// the product); h_in, which pass 2 writes in bf16 beside the fp32 chain so
-// that pass 3 multiplies C h_in^T on the tensor cores (in fp32 on the CUDA
-// cores that product alone would take ~2 GFLOP at the widths above); the
-// decayed, masked scores, fed back from registers as the A operand of
-// scores @ xdt.  The chunk states, the carried h and the final state stay
-// fp32.  Pass 3 takes exp in base 2 on the special-function unit, cum
-// scaled by log2(e) once.
-// fp32 inputs keep exact fp32 arithmetic (the tests hold them to 1e-4,
-// which TF32 or bf16 products would not meet): the same three passes, with
-// passes 1 and 3 multiplying from shared memory in fp32 FMAs (a 16 x 16
-// thread grid owning register blocks; row strides of N + 1), h_in
-// overwriting the chunk states in place.
+//   3. Chunk outputs, one block per (bh, chunk, 64-row query tile), each
+//      chunk's heaviest query tile first: the key tiles j0 <= i0 of
+//      ((C B^T) . L) xdt, and exp(cum_i) (C h_in^T) for chunks after the
+//      first.  L is taken only where i >= j, so exp never sees a positive
+//      argument, and element by element only on the diagonal tile.
 //
-// Predicted before the design was first timed (PERF.md): 0.07-0.20 ms at
-// the widths above (the three passes move ~190 MB with the workspace),
-// 0.08-0.25 ms at chunk 128, 0.06-0.20 ms at zamba2-7b's widths (112
-// heads of 64, N = 64); target at most 5x the bound.  Measured by
-// chip_smoke.py on an H100 (80GB HBM3, 700 W): 0.1149 / 0.1127 / 0.1291
-// ms, 3.6-3.7x the bound.  Pass 3 is ~2/3 of it.  With its products and exp
-// taken out it kept ~88% of its time at mamba2's widths (moving its tiles
-// bounds it there) but ~76% at zamba2's, where the scores @ xdt products
-// alone are ~1/5 of it.  Deeper rings, two query tiles a block and capped
-// registers were each slower.
+// fp32 inputs (what the model hands the kernel) keep fp32 accuracy on the
+// tensor cores: every product is 3xTF32 (mma.cuh: each operand split into
+// a TF32 high part and a TF32 residual, hi.hi + hi.lo + lo.hi summed in
+// fp32 by mma.sync m16n8k8; the split's residual and the dropped lo.lo are
+// below 2^-22 of the product).  One TF32 product alone would not meet the
+// 1e-5 per-head limit the checks hold fp32 to.  With one group for many
+// heads (both Mamba-2 configs) C B^T is the same for every head of a batch
+// row; only L differs.  So the score pass forms each causal tile of C B^T
+// once a (group row, chunk) and pass 3 reads it from the workspace (4 MB
+// at the served shape, in L2) in place of the N-deep product a head, and
+// b and c are read once a group, never repeated a head.  Pass 1 and the
+// score pass share one launch; with one chunk (prompts up to 256
+// positions) pass 1 writes the final state itself and the state pass is
+// not launched: two launches.  Tiles reach shared memory by 16-byte
+// cp.async (2-stage rings in passes 1 and 3), cum, the decays, the chunk
+// states, h_in and the final state stay fp32, and no operand is rounded to
+// bf16.  A pass-3 tile's scores are decayed by the head's own L as their
+// fragments are formed; chunk 0 skips C h_in^T, whose h_in is zero.
+//
+// bf16 inputs (b and c a head: the wrapper repeats grouped ones; no model hands
+// the kernel bf16) run passes 1 and 3 on the tensor cores (mma.cuh: mma.sync
+// m16n8k16, fp32 sums), their tiles fed by a 2-stage 16-byte cp.async ring and
+// read through ldmatrix (rows padded by 16 bytes: no bank conflicts).  A pass-3
+// block holds its C tile's fragments in registers for the whole key walk; the C
+// tile arrives in the ring's second slot before the second key tile does, and
+// h_in arrives as the walk's last entry, in the slot after the last key tile,
+// so its copy overlaps that tile's products and needs no shared memory of its
+// own (4 blocks an SM at the widths above).  Rounding points, each once to
+// nearest-even bf16: the decayed xdt of pass 1 (xdt . exp(cum_last - cum) in
+// fp32, rounded in shared memory before the product); h_in, which pass 2 writes
+// in bf16 beside the fp32 chain so that pass 3 multiplies C h_in^T on the
+// tensor cores; the decayed, masked scores, fed back from registers as the A
+// operand of scores @ xdt.  The chunk states, the carried h and the final state
+// stay fp32.  Pass 3 takes exp in base 2 on the special-function unit, cum
+// scaled by log2(e) once.  Measured by chip_smoke.py on an H100 (80GB HBM3,
+// 700 W) at mamba2-1.3b's widths over 2048 positions (bf16, chunk 256):
+// 0.1149 ms, 3.7x its bytes bound (PERF.md, row 4); pass 3 is ~2/3 of it.
 #include <cmath>
 
 #include "mma.cuh"
@@ -148,22 +159,41 @@ __global__ void __launch_bounds__(kStateThreads)
   state_out[static_cast<long long>(bh) * pn4 + e] = h;
 }
 
-// ---- bf16: the tensor-core bodies of passes 1 and 3.
+// ---- bf16: the tensor-core bodies of passes 1 and 3.  b and c one row a
+// head (hpg = 1; the wrapper repeats grouped ones).
 
-// `rows` rows of `width` bf16 (width / 8 16-byte pieces) from global row
-// `row0` of `src` into `dst` (row stride `stride`) by cp.async; rows at or
-// past `valid` are zero-filled.
-template <int kThreads>
-__device__ __forceinline__ void copy_rows(bf16* dst, int stride,
-                                          const bf16* __restrict__ src,
+// `rows` rows of `width` elements (16-byte pieces: 8 bf16 or 4 fp32) from
+// global row `row0` of `src` into `dst` (row stride `stride`) by cp.async;
+// rows at or past `valid` are zero-filled.
+template <int kThreads, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int stride,
+                                          const T* __restrict__ src,
                                           long long row0, int width, int rows,
                                           int valid) {
-  const int pieces = width / 8;
+  constexpr int kPer = 16 / sizeof(T);
+  const int pieces = width / kPer;
   for (int e = threadIdx.x; e < rows * pieces; e += kThreads) {
-    const int r = e / pieces, k = (e % pieces) * 8;
+    const int r = e / pieces, k = (e % pieces) * kPer;
     const bool in = r < valid;
     mma::cp_async16(dst + r * stride + k,
                     in ? src + (row0 + r) * width + k : src, in);
+  }
+}
+
+// copy_rows of the first `width` columns of rows `src_stride` elements
+// long.
+template <int kThreads, typename T>
+__device__ __forceinline__ void copy_cols(T* dst, int stride,
+                                          const T* __restrict__ src,
+                                          long long row0, int src_stride,
+                                          int width, int rows, int valid) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int pieces = width / kPer;
+  for (int e = threadIdx.x; e < rows * pieces; e += kThreads) {
+    const int r = e / pieces, k = (e % pieces) * kPer;
+    const bool in = r < valid;
+    mma::cp_async16(dst + r * stride + k,
+                    in ? src + (row0 + r) * src_stride + k : src, in);
   }
 }
 
@@ -471,214 +501,477 @@ __global__ void __launch_bounds__(kOutThreads)
   }
 }
 
-// ---- fp32: the exact bodies of passes 1 and 3, on the CUDA cores.
-constexpr int kThreads = 256;
-constexpr int kMaxPer = kMaxPN / 16;
-constexpr int kScStride = kTile + 1;
 
-// Rows [0, n) of a (rows, width) slice of `src` starting at element `off`
-// into `dst` (row stride `stride`); each element times `scale(row)`.
-template <typename Scale>
-__device__ __forceinline__ void load_rows(float* dst, int stride,
-                                          const float* __restrict__ src,
-                                          long long off, int n, int width,
-                                          Scale scale) {
-  for (int e = threadIdx.x; e < n * width; e += kThreads) {
-    const int i = e / width, k = e % width;
-    dst[i * stride + k] = src[off + e] * scale(i);
+// ---- fp32: 3xTF32 bodies of pass 1, the score pass and pass 3.
+//
+// Every product of an fp32 call runs on the tensor cores in 3xTF32
+// (mma.cuh): a warp holds the split A fragments of a slice of its rows,
+// and each 8-column output tile sums its slice's products in registers of
+// its own before they are added to the warp's fp32 sums, so the tensor
+// cores' chained sums stay at most 24 products deep.  Operands reach the
+// fragments from shared memory by 32-bit loads (pass 3's scores from L2,
+// stored in fragment order): a tile stored with its contraction index
+// along the row (C, B and h_in rows) takes a row stride of 4 mod 32
+// floats, one stored with it down the columns (xdt, B in pass 1) a stride
+// of 8 mod 32; both read without bank conflicts.  An operand that every
+// warp reads (the xdt tile of pass 3, the B tile of pass 1) is split once
+// a block into its high parts and a plane of residuals.
+constexpr int kStateKeys = 32;  // key rows of a pass-1 tile
+constexpr int kStateStages = 3;  // pass 1's ring: two tiles in flight
+
+// The split A fragments of one 16 x 8 slice, and the two B values of one
+// 8 x 8 output tile of a slice ((k t, n g) and (k t + 4, n g)).
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1,
+                                        float a2, float a3) {
+  mma::split_tf32(a0, f.hi[0], f.lo[0]);
+  mma::split_tf32(a1, f.hi[1], f.lo[1]);
+  mma::split_tf32(a2, f.hi[2], f.lo[2]);
+  mma::split_tf32(a3, f.hi[3], f.lo[3]);
+}
+
+// A fragments of `kSteps` slices of 8 columns of a 16-row operand whose
+// element (m, k) is `elem(m, k)`, m < 16, k < 8 kSteps.
+template <int kSteps, typename Elem>
+__device__ __forceinline__ void load_a(FragA (&f)[kSteps], Elem elem) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+    split_a(f[s], elem(g, 8 * s + t), elem(g + 8, 8 * s + t),
+            elem(g, 8 * s + t + 4), elem(g + 8, 8 * s + t + 4));
+}
+
+// B values of a slice pre-split in shared memory: the high parts over the
+// tile, the residuals in a plane of the same layout; element (k, n) at
+// k * stride + n of each.
+struct SplitB {
+  const float* hi;
+  const float* lo;
+  int stride;
+  __device__ __forceinline__ void operator()(int k, int n, FragB& b) const {
+    const int lane = threadIdx.x % 32;
+    const int i0 = (k + lane % 4) * stride + n + lane / 4;
+    const int i1 = i0 + 4 * stride;
+    b.hi[0] = __float_as_uint(hi[i0]);
+    b.hi[1] = __float_as_uint(hi[i1]);
+    b.lo[0] = __float_as_uint(lo[i0]);
+    b.lo[1] = __float_as_uint(lo[i1]);
+  }
+};
+
+// o[j] += A @ B[:, 8j, 8j + 8) for the output tiles j < `tiles` (of
+// kTiles), A the 16 x 8 kSteps operand of `a`; `load_b(k0, n0, b)` gives
+// the B values of the slice at depth k0 and tile column n0.  Four tiles at
+// a time (more cost pass 1 its second block an SM), each summed over the
+// slices in registers of its own (the tensor cores' chained sums stay 3
+// kSteps products deep), then added to o[j]; a slice's three products are
+// issued tile after tile, so that consecutive mma are independent.
+template <int kSteps, int kTiles, typename LoadB>
+__device__ __forceinline__ void product_3xtf32(float (&o)[kTiles][4],
+                                               const FragA (&a)[kSteps],
+                                               int tiles, LoadB load_b) {
+  constexpr int kGroup = kTiles < 4 ? kTiles : 4;
+#pragma unroll
+  for (int j0 = 0; j0 < kTiles; j0 += kGroup) {
+    if (j0 >= tiles) break;
+    float d[kGroup][4];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      FragB b[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (j0 + j < tiles) load_b(8 * s, 8 * (j0 + j), b[j]);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (j0 + j < tiles) mma::mma_tf32(d[j], a[s].lo, b[j].hi[0], b[j].hi[1]);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (j0 + j < tiles) mma::mma_tf32(d[j], a[s].hi, b[j].lo[0], b[j].lo[1]);
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+        if (j0 + j < tiles) mma::mma_tf32(d[j], a[s].hi, b[j].hi[0], b[j].hi[1]);
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j)
+      if (j0 + j < tiles)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j0 + j][e] += d[j][e];
   }
 }
 
-// Pass 1: thread (hi, lo) of a 16 x 16 grid owns state entries
-// p = hi + 16 r, n = lo + 16 q.
-inline size_t state_exact_floats(int P, int N) {
-  return kMaxChunk + 8 + size_t(kTile) * (N + 1) + size_t(kTile) * P;
+// Split `rows` x `width` fp32 of `tile` (row stride `stride`, 16-byte
+// aligned) in place into their high parts, the residuals into `lo` (same
+// layout), 4 elements a thread at a time.
+template <int kThreads>
+__device__ __forceinline__ void split_tile(float* tile, float* lo, int stride,
+                                           int rows, int width) {
+  const int pieces = width / 4;
+  for (int e = threadIdx.x; e < rows * pieces; e += kThreads) {
+    const int at = (e / pieces) * stride + (e % pieces) * 4;
+    float4 v = *reinterpret_cast<float4*>(tile + at);
+    uint32_t h[4], l[4];
+    mma::split_tf32(v.x, h[0], l[0]);
+    mma::split_tf32(v.y, h[1], l[1]);
+    mma::split_tf32(v.z, h[2], l[2]);
+    mma::split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(tile + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssd_chunk_state_kernel(const float* __restrict__ xdt,
-                           const float* __restrict__ a,
-                           const float* __restrict__ b,
-                           float* __restrict__ cum_out,
-                           float* __restrict__ states, int S, int P, int N,
-                           int Q, int nc) {
-  extern __shared__ __align__(16) float sx_smem[];
-  float* cum = sx_smem;         // [kMaxChunk]
-  float* wsum = cum + kMaxChunk;  // [8]
-  float* bt = wsum + 8;         // [kTile][N + 1]
-  float* xt = bt + kTile * (N + 1);  // [kTile][P]
-  const int tid = threadIdx.x, hi = tid / 16, lo = tid % 16;
-  const int np = P / 16, nn = N / 16, Ns = N + 1;
+// Pass 1 and the score pass share one launch.  A pass-1 block (bh, chunk)
+// has eight warps; warp w owns m tile w % (kP / 16) of P and a
+// kN / (128 / kP)-column range of N of the (P, N) chunk state, summed over
+// kStateKeys-row key tiles of a 3-stage cp.async ring (the chunk's xdt
+// comes from device memory: two tiles stay in flight); each arriving B
+// tile is split once for every warp.  A score block (group row, chunk,
+// tile pair qt >= kt) forms the 64 x 64 tile of C B^T; warp w owns its
+// rows 16 (w % 4).. and key columns 32 (w / 4)...
+template <int kP, int kN>
+struct Tf32StateShape {
+  static constexpr int kWarpsM = kP / 16;
+  static constexpr int kWarpsN = 8 / kWarpsM;
+  static constexpr int kCols = kN / kWarpsN;
+  static size_t bytes(int P, int N) {
+    // cum, dec [kMaxChunk], wsum [8], kStateStages x {x [32][P + 8],
+    // b [32][N + 8]}, b's residuals [32][N + 8]; a score block's c and b
+    // [64][N + 4].
+    const size_t state = 2 * kMaxChunk + 8 +
+                         size_t(kStateStages) * kStateKeys * (P + 8 + N + 8) +
+                         size_t(kStateKeys) * (N + 8);
+    const size_t score = 2 * size_t(kTile) * (N + 4);
+    return (state > score ? state : score) * sizeof(float);
+  }
+};
+
+// The score pass's block `blk`: tile pair p = qt (qt + 1) / 2 + kt of
+// chunk ch of group row gr, written at tile p of that (gr, ch)'s scores in
+// the fragment order pass 3 reads: element (r, c) of the tile at
+// ((r / 16) * 8 + c / 8) * 128 + 4 lane + e, lane = 4 (r % 8) + c % 4,
+// e = (r % 16) / 8 + 2 ((c % 8) / 4) (mma.cuh's A layout).
+__device__ __forceinline__ void score_tile(const float* __restrict__ b,
+                                           const float* __restrict__ c,
+                                           float* __restrict__ scores,
+                                           float* smem, int S, int N, int Q,
+                                           int nc, int nqt, int blk) {
+  const int npairs = nqt * (nqt + 1) / 2;
+  const int pair = blk % npairs, rest = blk / npairs;
+  const int ch = rest % nc, gr = rest / nc;
+  int qt = 0;
+  while ((qt + 1) * (qt + 2) / 2 <= pair) ++qt;
+  const int kt = pair - qt * (qt + 1) / 2;
+  const int NS = N + 4;
+  float* cs = smem;
+  float* bs = cs + kTile * NS;
+  const long long r0 = static_cast<long long>(gr) * S +
+                       static_cast<long long>(ch) * Q;
+  copy_rows<kChunkThreads>(cs, NS, c, r0 + qt * kTile, N, kTile,
+                           Q - qt * kTile);
+  copy_rows<kChunkThreads>(bs, NS, b, r0 + kt * kTile, N, kTile,
+                           Q - kt * kTile);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const float* cw = cs + (warp % 4) * 16 * NS;
+  const float* bw = bs + (warp / 4) * 32 * NS;
+  float o[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int k0 = 0; k0 < N; k0 += 16) {
+    FragA f[2];
+    load_a<2>(f, [&](int m, int k) { return cw[m * NS + k0 + k]; });
+    product_3xtf32<2, 4>(o, f, 4, [&](int k, int n, FragB& v) {
+      const float* p = bw + (n + g) * NS + k0 + k + t;
+      mma::split_tf32(p[0], v.hi[0], v.lo[0]);
+      mma::split_tf32(p[4], v.hi[1], v.lo[1]);
+    });
+  }
+  float* dst = scores +
+               ((static_cast<long long>(gr) * nc + ch) * npairs + pair) *
+                   kTile * kTile +
+               ((warp % 4) * 8 + (warp / 4) * 4) * 128;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = 2 * t + (e & 1);  // column within the 8-column step
+      dst[j * 128 + 4 * (4 * g + kk % 4) + e / 2 + 2 * (kk / 4)] = o[j][e];
+    }
+}
+
+// Blocks [0, n_state) are pass 1's (bh, chunk); the rest the score pass's.
+// With one chunk `states` is the final state itself.  Two blocks an SM
+// (the registers capped at 128).
+template <int kP, int kN>
+__global__ void __launch_bounds__(kChunkThreads, 2)
+    ssd_chunk_state_tf32_kernel(const float* __restrict__ xdt,
+                                const float* __restrict__ a,
+                                const float* __restrict__ b,
+                                const float* __restrict__ c,
+                                float* __restrict__ cum_out,
+                                float* __restrict__ states,
+                                float* __restrict__ scores, int S, int P,
+                                int N, int Q, int nc, int nqt, int hpg,
+                                int n_state) {
+  using Sh = Tf32StateShape<kP, kN>;
+  extern __shared__ __align__(16) float sf_smem[];
+  if (static_cast<int>(blockIdx.x) >= n_state) {
+    score_tile(b, c, scores, sf_smem, S, N, Q, nc, nqt,
+               blockIdx.x - n_state);
+    return;
+  }
+  float* cum = sf_smem;             // [kMaxChunk]
+  float* dec = cum + kMaxChunk;     // [kMaxChunk]
+  float* wsum = dec + kMaxChunk;    // [8]
+  float* ring = wsum + 8;  // kStateStages x {x [32][PS], b [32][NS]}
+  const int PS = P + 8, NS = N + 8;
+  const int slot = kStateKeys * (PS + NS);
+  float* b_lo = ring + kStateStages * slot;  // [32][NS]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int ch = blockIdx.x % nc, bh = blockIdx.x / nc;
   const long long r0 = static_cast<long long>(bh) * S +
                        static_cast<long long>(ch) * Q;
+  const long long rb = static_cast<long long>(bh / hpg) * S +
+                       static_cast<long long>(ch) * Q;
+  const int ntiles = (Q + kStateKeys - 1) / kStateKeys;
+  auto load = [&](int t) {
+    if (t >= ntiles) return;
+    float* xs = ring + (t % kStateStages) * slot;
+    const int j0 = t * kStateKeys, valid = min(kStateKeys, Q - j0);
+    copy_rows<kChunkThreads>(xs, PS, xdt, r0 + j0, P, kStateKeys, valid);
+    copy_rows<kChunkThreads>(xs + kStateKeys * PS, NS, b, rb + j0, N,
+                             kStateKeys, valid);
+  };
+#pragma unroll
+  for (int t = 0; t < kStateStages - 1; ++t) {
+    load(t);
+    mma::cp_async_commit();
+  }
+
   chunk_cum(a, r0, Q, cum, wsum);
   if (tid < Q) cum_out[r0 + tid] = cum[tid];
-  const float c_last = cum[Q - 1];
-  auto one = [](int) { return 1.f; };
+  dec[tid] = tid < Q ? expf(cum[Q - 1] - cum[tid]) : 0.f;
 
-  float st[kMaxPer][kMaxPer];
+  const int mi = warp % Sh::kWarpsM;
+  const int n_base = (warp / Sh::kWarpsM) * Sh::kCols;
+  const bool active = mi < P / 16 && n_base < N;
+  const int tiles = min(Sh::kCols, N - n_base) / 8;
+  float acc[Sh::kCols / 8][4];
 #pragma unroll
-  for (int r = 0; r < kMaxPer; ++r)
+  for (int j = 0; j < Sh::kCols / 8; ++j)
 #pragma unroll
-    for (int q = 0; q < kMaxPer; ++q) st[r][q] = 0.f;
-  for (int j0 = 0; j0 < Q; j0 += kTile) {
-    const int nk = min(kTile, Q - j0);
-    if (j0 > 0) __syncthreads();  // the previous key tile is consumed
-    load_rows(bt, Ns, b, (r0 + j0) * N, nk, N, one);
-    const float* cj = cum + j0;
-    load_rows(xt, P, xdt, (r0 + j0) * P, nk, P,
-              [=](int j) { return expf(c_last - cj[j]); });
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      float xv[kMaxPer], bv[kMaxPer];
-#pragma unroll
-      for (int r = 0; r < kMaxPer; ++r)
-        xv[r] = r < np ? xt[j * P + hi + 16 * r] : 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxPer; ++q)
-        bv[q] = q < nn ? bt[j * Ns + lo + 16 * q] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kMaxPer; ++r)
-#pragma unroll
-        for (int q = 0; q < kMaxPer; ++q) st[r][q] = fmaf(xv[r], bv[q], st[r][q]);
-    }
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    mma::cp_async_wait<kStateStages - 2>();
+    __syncthreads();  // tile t is in (and dec written); tile t - 1's slot
+                      // and b_lo are free
+    load(t + kStateStages - 1);
+    mma::cp_async_commit();
+    float* xs = ring + (t % kStateStages) * slot;
+    float* bs = xs + kStateKeys * PS;
+    split_tile<kChunkThreads>(bs, b_lo, NS, kStateKeys, N);
+    __syncthreads();  // the B tile is split
+    if (!active) continue;
+    const float* dj = dec + t * kStateKeys;
+    // A (p, q) = xdt[q][p] exp(cum_last - cum_q), decayed in fp32.
+    FragA f[kStateKeys / 8];
+    load_a<kStateKeys / 8>(
+        f, [&](int m, int k) { return xs[k * PS + mi * 16 + m] * dj[k]; });
+    product_3xtf32<kStateKeys / 8, Sh::kCols / 8>(
+        acc, f, tiles, SplitB{bs + n_base, b_lo + n_base, NS});
   }
-  float* dst = states + (static_cast<long long>(bh) * nc + ch) * P * N;
+  if (!active) return;
+  float* dst = states + ((static_cast<long long>(bh) * nc + ch) * P + mi * 16 +
+                         lane / 4) * N + n_base + 2 * (lane % 4);
 #pragma unroll
-  for (int r = 0; r < kMaxPer; ++r)
-#pragma unroll
-    for (int q = 0; q < kMaxPer; ++q)
-      if (r < np && q < nn) dst[(hi + 16 * r) * N + lo + 16 * q] = st[r][q];
+  for (int j = 0; j < Sh::kCols / 8; ++j) {
+    if (j >= tiles) break;
+    *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(dst + 8 * N + 8 * j) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
-// Pass 3: one 64-row query tile; thread (hi, lo) owns rows i = hi * 4 + r
-// and columns p = lo + 16 q.
-inline size_t out_exact_floats(int P, int N) {
-  return size_t(P) * (N + 1) + kMaxChunk + 2 * size_t(kTile) * (N + 1) +
-         size_t(kTile) * P + size_t(kTile) * kScStride;
+// Pass 3: one block per (bh, chunk, 64-row query tile), heaviest first;
+// four warps of 16 query rows, the (16, P) output summed in fp32.  The
+// inter-chunk term first (chunks after the first): C of the group row and
+// h_in, 64 columns of N at a time ([.][68] in the walk's space), o =
+// exp(cum_i) (C h_in^T).
+// Then the key tiles kt <= qt: the xdt rows [64][P + 8] through a 2-stage
+// cp.async ring, each split once for the four warps on arrival; the score
+// tile of the group row read by each warp in fragment order (16-byte
+// loads, L2), every score decayed by this head's exp(cum_i - cum_j)
+// (masked on the diagonal tile) as its fragment is formed.
+constexpr int kInterCols = 64;  // N columns of a C h_in^T slice
+
+inline size_t out_tf32_bytes(int P) {
+  const size_t walk = size_t(kStages + 1) * kTile * (P + 8);
+  const size_t inter = size_t(kTile + P) * (kInterCols + 4);
+  return (kMaxChunk + (walk > inter ? walk : inter)) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssd_chunk_out_kernel(const float* __restrict__ xdt,
-                         const float* __restrict__ b,
-                         const float* __restrict__ c,
-                         const float* __restrict__ cum_in,
-                         const float* __restrict__ h_in,
-                         float* __restrict__ y, int S, int P, int N, int Q,
-                         int nqt, int nc) {
-  extern __shared__ __align__(16) float ox_smem[];
-  const int Ns = N + 1;
-  float* st = ox_smem;                // [P][N + 1]  h_in of the chunk
-  float* cum = st + P * Ns;           // [kMaxChunk]
-  float* ct = cum + kMaxChunk;        // [kTile][N + 1]
-  float* bt = ct + kTile * Ns;        // [kTile][N + 1]
-  float* xt = bt + kTile * Ns;        // [kTile][P]
-  float* sc = xt + kTile * P;         // [kTile][kTile + 1]
-  const int tid = threadIdx.x, hi = tid / 16, lo = tid % 16;
-  const int np = P / 16;
+// At P <= 64 three blocks an SM (the registers capped at 168).
+template <int kP>
+__global__ void __launch_bounds__(kOutThreads, kP == 64 ? 3 : 1)
+    ssd_chunk_out_tf32_kernel(const float* __restrict__ xdt,
+                              const float* __restrict__ c,
+                              const float* __restrict__ cum,
+                              const float* __restrict__ h_in,
+                              const float* __restrict__ scores,
+                              float* __restrict__ y, int S, int P, int N,
+                              int Q, int nqt, int nc, int hpg) {
+  extern __shared__ __align__(16) float of_smem[];
+  float* cl = of_smem;            // [kMaxChunk] cum
+  float* ring = cl + kMaxChunk;   // kStages x xdt [64][XS], then residuals
+  const int XS = P + 8, NS = kInterCols + 4;
+  const int slot = kTile * XS;
+  float* x_lo = ring + kStages * slot;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;
   const int qt = nqt - 1 - static_cast<int>(blockIdx.x % nqt);
   const int rest = blockIdx.x / nqt;
-  const int ch = rest % nc, bh = rest / nc;
+  const int ch = rest % nc, bh = rest / nc, gr = bh / hpg;
   const int i0 = qt * kTile;
-  const int nq = min(kTile, Q - i0);
   const long long r0 = static_cast<long long>(bh) * S +
                        static_cast<long long>(ch) * Q;
-  auto one = [](int) { return 1.f; };
+  const int npairs = nqt * (nqt + 1) / 2;
+  // Tile (qt, kt)'s 16-byte pieces at sf + kt * 1024; this warp's at
+  // + (warp * 8 + step) * 32 + lane.
+  const float4* sf = reinterpret_cast<const float4*>(scores) +
+                     ((static_cast<long long>(gr) * nc + ch) * npairs +
+                      qt * (qt + 1) / 2) * (kTile * kTile / 4) +
+                     warp * 8 * 32 + lane;
+  const int ntiles = qt + 1;
+  const int tiles = P / 8;
+  for (int i = tid; i < i0 + kTile; i += kOutThreads)
+    cl[i] = i < Q ? cum[r0 + i] : 0.f;
 
-  const float* h = h_in + (static_cast<long long>(bh) * nc + ch) * P * N;
-  for (int e = tid; e < P * N; e += kThreads) st[(e / N) * Ns + e % N] = h[e];
-  const int k_end = i0 + nq;
-  for (int i = tid; i < k_end; i += kThreads) cum[i] = cum_in[r0 + i];
-  load_rows(ct, Ns, c, (r0 + i0) * N, nq, N, one);
-  __syncthreads();
+  float o[kP / 8][4];
+#pragma unroll
+  for (int j = 0; j < kP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  // Inter-chunk: exp(cum_i) * (c_i . h_p).
-  float acc[4][kMaxPer];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < kMaxPer; ++q) acc[r][q] = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float cv[4], sv[kMaxPer];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) cv[r] = ct[(hi * 4 + r) * Ns + n];
-#pragma unroll
-    for (int q = 0; q < kMaxPer; ++q)
-      sv[q] = q < np ? st[(lo + 16 * q) * Ns + n] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < kMaxPer; ++q) acc[r][q] = fmaf(cv[r], sv[q], acc[r][q]);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = hi * 4 + r;
-    const float g = i < nq ? expf(cum[i0 + i]) : 0.f;
-#pragma unroll
-    for (int q = 0; q < kMaxPer; ++q) acc[r][q] *= g;
-  }
-
-  // Intra-chunk: key tiles up to the tile's last query row.
-  for (int j0 = 0; j0 < k_end; j0 += kTile) {
-    const int nk = min(kTile, k_end - j0);
-    __syncthreads();  // the previous key tile is consumed
-    load_rows(bt, Ns, b, (r0 + j0) * N, nk, N, one);
-    load_rows(xt, P, xdt, (r0 + j0) * P, nk, P, one);
-    __syncthreads();
-
-    // Scores: thread (hi, lo) owns i = hi * 4 + r, j = lo + 16 * q.
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[r][q] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float cv[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) cv[r] = ct[(hi * 4 + r) * Ns + n];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = bt[(lo + 16 * q) * Ns + n];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[r][q] = fmaf(cv[r], bv[q], s[r][q]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = hi * 4 + r, j = lo + 16 * q;
-        const int qi = i0 + i, kj = j0 + j;
-        sc[i * kScStride + j] = (i < nq && j < nk && kj <= qi)
-                                    ? s[r][q] * expf(cum[qi] - cum[kj])
-                                    : 0.f;
+  if (ch > 0) {  // chunk 0 enters with a zero state
+    float* cs = ring;              // [64][NS]
+    float* hs = ring + kTile * NS;  // [P][NS]
+    const float* cw = cs + warp * 16 * NS;
+    for (int n0 = 0; n0 < N; n0 += kInterCols) {
+      const int w = min(kInterCols, N - n0);
+      if (n0 > 0) __syncthreads();  // every warp is done with the last slice
+      copy_cols<kOutThreads>(cs, NS, c + n0,
+                             static_cast<long long>(gr) * S +
+                                 static_cast<long long>(ch) * Q + i0,
+                             N, w, kTile, Q - i0);
+      copy_cols<kOutThreads>(
+          hs, NS, h_in + (static_cast<long long>(bh) * nc + ch) * P * N + n0,
+          0, N, w, P, P);
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+      __syncthreads();  // the slices (and cl) are in
+      for (int k0 = 0; k0 < w; k0 += 16) {
+        FragA f[2];
+        load_a<2>(f, [&](int m, int k) { return cw[m * NS + k0 + k]; });
+        product_3xtf32<2, kP / 8>(o, f, tiles, [&](int k, int n, FragB& v) {
+          const float* p = hs + (n + g) * NS + k0 + k + t4;
+          mma::split_tf32(p[0], v.hi[0], v.lo[0]);
+          mma::split_tf32(p[4], v.hi[1], v.lo[1]);
+        });
       }
-    __syncthreads();
+    }
+    const float e0 = expf(cl[i0 + warp * 16 + g]);
+    const float e1 = expf(cl[i0 + warp * 16 + g + 8]);
+#pragma unroll
+    for (int j = 0; j < kP / 8; ++j) {
+      o[j][0] *= e0;
+      o[j][1] *= e0;
+      o[j][2] *= e1;
+      o[j][3] *= e1;
+    }
+  }
 
-    // acc += scores @ xdt.
-    for (int j = 0; j < nk; ++j) {
-      float sv[4], xv[kMaxPer];
+  auto fetch = [&](int u) {
+    if (u >= ntiles) return;
+    const int j0 = u * kTile;
+    copy_rows<kOutThreads>(ring + (u % kStages) * slot, XS, xdt, r0 + j0, P,
+                           kTile, min(kTile, Q - j0));
+  };
+  __syncthreads();  // every warp is done with C and h_in (and cl is in)
+  fetch(0);
+  mma::cp_async_commit();
+  const int rw = i0 + warp * 16;  // the warp's first query row
+  const float cli[2] = {cl[rw + g], cl[rw + g + 8]};
+  for (int u = 0; u < ntiles; ++u) {
+    // This tile's score fragments (half of them at a time), ahead of the
+    // split of its xdt rows.
+    float4 v[kTile / 16];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sv[r] = sc[(hi * 4 + r) * kScStride + j];
+    for (int s = 0; s < kTile / 16; ++s) v[s] = __ldg(sf + u * 1024 + s * 32);
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile u is in; the other slot, tile u - 1's, and
+                      // the residual plane are free
+    fetch(u + 1);
+    mma::cp_async_commit();
+    float* xs = ring + (u % kStages) * slot;
+    split_tile<kOutThreads>(xs, x_lo, XS, kTile, P);
+    __syncthreads();  // the xdt tile is split
+    const int j0 = u * kTile;
+    const bool diag = u == qt;
 #pragma unroll
-      for (int q = 0; q < kMaxPer; ++q)
-        xv[q] = q < np ? xt[j * P + lo + 16 * q] : 0.f;
+    for (int half = 0; half < 2; ++half) {
+      FragA f[kTile / 16];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int s = 0; s < kTile / 16; ++s) {
+        const int ja = j0 + 8 * (4 * half + s) + t4;  // keys ja, ja + 4
+        const float in[4] = {v[s].x, v[s].y, v[s].z, v[s].w};
+        float w[4];
 #pragma unroll
-        for (int q = 0; q < kMaxPer; ++q) acc[r][q] = fmaf(sv[r], xv[q], acc[r][q]);
+        for (int e = 0; e < 4; ++e) {
+          const int i = rw + g + 8 * (e % 2), j = ja + 4 * (e / 2);
+          w[e] = i >= Q || (diag && j > i)
+                     ? 0.f
+                     : in[e] * mma::fast_exp2((cli[e % 2] - cl[j]) * kLog2e);
+        }
+        split_a(f[s], w[0], w[1], w[2], w[3]);
+      }
+      if (half == 0) {
+#pragma unroll
+        for (int s = 0; s < kTile / 16; ++s)
+          v[s] = __ldg(sf + u * 1024 + (s + kTile / 16) * 32);
+      }
+      product_3xtf32<kTile / 16, kP / 8>(
+          o, f, tiles,
+          SplitB{xs + half * (kTile / 2) * XS,
+                 x_lo + half * (kTile / 2) * XS, XS});
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = hi * 4 + r;
-    if (i >= nq) continue;
-    float* yr = y + (r0 + i0 + i) * P;
+  for (int h = 0; h < 2; ++h) {
+    const int row = rw + g + 8 * h;
+    if (row >= Q) continue;
+    float* dst = y + (r0 + row) * P + 2 * t4;
 #pragma unroll
-    for (int q = 0; q < kMaxPer; ++q)
-      if (q < np) yr[lo + 16 * q] = acc[r][q];
+    for (int j = 0; j < kP / 8; ++j) {
+      if (j >= tiles) break;
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    }
   }
 }
 
@@ -688,21 +981,27 @@ struct Args {
   const void *xdt, *a, *b, *c;
   void* y;
   float *state, *ws;
-  int BH, S, P, N, Q;
+  int BH, S, P, N, Q, hpg;
+  bool half;  // bf16 inputs
   cudaStream_t stream;
   int nc() const { return S / Q; }
   int nqt() const { return (Q + kTile - 1) / kTile; }
+  int npairs() const { return nqt() * (nqt() + 1) / 2; }
+  // The workspace (ssd_scan.ssd_plan): the chunk states (none for fp32
+  // inputs in one chunk, where pass 1 writes the final state), cum
+  // rounded up to 4 floats, then for bf16 inputs h_in in bf16, for fp32
+  // ones the score tiles; each part 16-byte aligned.
   long long n_states() const {
-    return static_cast<long long>(BH) * nc() * P * N;
+    return !half && nc() == 1 ? 0
+                              : static_cast<long long>(BH) * nc() * P * N;
   }
   float* states() const { return ws; }
   float* cum() const { return ws + n_states(); }
-  // bf16 inputs: h_in in bf16 after cum, whose length is rounded up to 4
-  // floats so that h_in rows stay 16-byte aligned.
-  bf16* h_in16() const {
-    return reinterpret_cast<bf16*>(
-        cum() + (static_cast<long long>(BH) * S + 3) / 4 * 4);
+  float* tail() const {
+    return cum() + (static_cast<long long>(BH) * S + 3) / 4 * 4;
   }
+  bf16* h_in16() const { return reinterpret_cast<bf16*>(tail()); }
+  float* scores() const { return tail(); }
 };
 
 template <typename H>
@@ -742,56 +1041,67 @@ int launch_tc(const Args& g) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_exact(const Args& g) {
+// fp32: pass 1 with the score pass, the state pass (more than one chunk),
+// pass 3.
+template <int kP, int kN>
+int launch_tf32(const Args& g) {
+  using Sh = Tf32StateShape<kP, kN>;
   static bool set1 = false, set3 = false;
-  cudaError_t err = allow_smem(ssd_chunk_state_kernel,
-                               state_exact_floats(kMaxPN, kMaxPN) * sizeof(float),
-                               set1);
+  cudaError_t err = allow_smem(ssd_chunk_state_tf32_kernel<kP, kN>,
+                               Sh::bytes(kP, kN), set1);
   if (err == cudaSuccess)
-    err = allow_smem(ssd_chunk_out_kernel,
-                     out_exact_floats(kMaxPN, kMaxPN) * sizeof(float), set3);
+    err = allow_smem(ssd_chunk_out_tf32_kernel<kP>, out_tf32_bytes(kP), set3);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* xdt = static_cast<const float*>(g.xdt);
   const float* b = static_cast<const float*>(g.b);
-  ssd_chunk_state_kernel<<<g.BH * g.nc(), kThreads,
-                           state_exact_floats(g.P, g.N) * sizeof(float),
-                           g.stream>>>(xdt, static_cast<const float*>(g.a), b,
-                                       g.cum(), g.states(), g.S, g.P, g.N,
-                                       g.Q, g.nc());
+  const float* c = static_cast<const float*>(g.c);
+  const int nc = g.nc(), n_state = g.BH * nc;
+  const int n_score = g.BH / g.hpg * nc * g.npairs();
+  ssd_chunk_state_tf32_kernel<kP, kN>
+      <<<n_state + n_score, kChunkThreads, Sh::bytes(g.P, g.N), g.stream>>>(
+          xdt, static_cast<const float*>(g.a), b, c, g.cum(),
+          nc == 1 ? g.state : g.states(), g.scores(), g.S, g.P, g.N, g.Q, nc,
+          g.nqt(), g.hpg, n_state);
   int code = static_cast<int>(cudaGetLastError());
   if (code) return code;
-  code = launch_state_pass(g, reinterpret_cast<float4*>(g.states()));
-  if (code) return code;
-  ssd_chunk_out_kernel<<<g.BH * g.nc() * g.nqt(), kThreads,
-                         out_exact_floats(g.P, g.N) * sizeof(float),
-                         g.stream>>>(xdt, b, static_cast<const float*>(g.c),
-                                     g.cum(), g.states(),
-                                     static_cast<float*>(g.y), g.S, g.P, g.N,
-                                     g.Q, g.nqt(), g.nc());
+  if (nc > 1) {
+    code = launch_state_pass(g, reinterpret_cast<float4*>(g.states()));
+    if (code) return code;
+  }
+  ssd_chunk_out_tf32_kernel<kP>
+      <<<g.BH * nc * g.nqt(), kOutThreads, out_tf32_bytes(g.P), g.stream>>>(
+          xdt, c, g.cum(), g.states(), g.scores(), static_cast<float*>(g.y),
+          g.S, g.P, g.N, g.Q, g.nqt(), nc, g.hpg);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// xdt, y: (BH, S, P); a: (BH, S); b, c: (BH, S, N); all fp32 (bf16 = 0) or
-// all bf16, bf16 xdt, b and c 16-byte aligned (cp.async); state: (BH, P, N) fp32; ws: the fp32
-// workspace of ssd_scan.ssd_plan (BH * nc * P * N chunk states, then
-// BH * S cum rounded up to a multiple of 4, then for bf16 BH * nc * P * N
-// bf16 h_in).  P and N multiples
-// of 16 up to 128, chunk up to 256 dividing S.  Three launches on
-// `stream`; returns the first cudaError_t code that is not 0.
+// xdt, y: (BH, S, P); a: (BH, S); b, c: (BH / hpg, S, N), row bh reading
+// b and c row bh / hpg (its group); all fp32 (bf16 = 0) or all bf16; xdt,
+// b and c 16-byte aligned (cp.async); state: (BH, P, N) fp32; ws: the
+// fp32 workspace of ssd_scan.ssd_plan (Args).  P and N multiples of 16 up
+// to 128, chunk up to 256 dividing S, hpg dividing BH (bf16: hpg 1).
+// bf16: three launches; fp32: three, two in one chunk; on `stream`.  Returns the
+// first cudaError_t code that is not 0.
 extern "C" int repro_ssd_scan(const void* xdt, const void* a, const void* b,
                               const void* c, void* y, float* state, float* ws,
                               int BH, int S, int P, int N, int chunk, int bf16,
-                              void* stream) {
+                              int hpg, void* stream) {
   using namespace repro_torch;
   if (BH <= 0 || S <= 0 || chunk <= 0 || chunk > kMaxChunk || S % chunk ||
-      P <= 0 || P > kMaxPN || P % 16 || N <= 0 || N > kMaxPN || N % 16)
+      P <= 0 || P > kMaxPN || P % 16 || N <= 0 || N > kMaxPN || N % 16 ||
+      hpg <= 0 || BH % hpg || (bf16 && hpg != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args g{xdt, a, b, c, y, state, ws, BH, S, P, N, chunk,
+  const Args g{xdt, a, b, c, y, state, ws, BH, S, P, N, chunk, hpg, bf16 != 0,
                static_cast<cudaStream_t>(stream)};
-  if (!bf16) return launch_exact(g);
+  if (!bf16) {
+    if (P <= 64 && N <= 64) return launch_tf32<64, 64>(g);
+    if (P <= 64) return launch_tf32<64, 128>(g);
+    if (N <= 64) return launch_tf32<128, 64>(g);
+    return launch_tf32<128, 128>(g);
+  }
   if (P <= 64 && N <= 64) return launch_tc<64, 64>(g);
   if (P <= 64) return launch_tc<64, 128>(g);
   if (N <= 64) return launch_tc<128, 64>(g);

@@ -47,7 +47,7 @@ ENTRY_POINTS = {
     "paged_prefill": ("repro_paged_prefill", [_P] * 11 + [_I] * 11 + [_P]),
     "dense_decode": ("repro_dense_decode", [_P] * 6 + [_I] * 8 + [_P]),
     "sclad_matmul": ("repro_sclad_matmul", [_P] * 5 + [_I] * 8 + [_P]),
-    "ssd_scan": ("repro_ssd_scan", [_P] * 7 + [_I] * 6 + [_P]),
+    "ssd_scan": ("repro_ssd_scan", [_P] * 7 + [_I] * 7 + [_P]),
     "flash_attention": ("repro_flash_attention", [_P] * 4 + [_I] * 8 + [_P]),
 }
 #: (cache dtype, has scales) -> the ``kv_kind`` code of the kernels'

@@ -844,6 +844,9 @@ def main(argv=None):
     ap.add_argument("--serving-smoke", action="store_true",
                     help="run the serving parity smoke (a sharded reduced "
                          "engine vs the meshless one) instead of the sweep")
+    ap.add_argument("--model-parallel", type=int, default=2,
+                    help="[--serving-smoke] model-axis width of the "
+                         "mesh the sharded engine runs on")
     ap.add_argument("--device", default=None,
                     help="[--serving-smoke] the device the mesh names: "
                          "the card by default, 'cpu' for the CPU")
@@ -851,7 +854,8 @@ def main(argv=None):
     out_dir = Path(args.out)
 
     if args.serving_smoke:
-        rec = run_serving_smoke(out_dir, device=args.device)
+        rec = run_serving_smoke(out_dir, model_parallel=args.model_parallel,
+                                device=args.device)
         print(json.dumps(rec, indent=2))
         return 0 if rec["status"] == "ok" else 1
 

@@ -164,10 +164,10 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dispatch (``_routed`` with ``dispatch_groups``' groups) through
     ``_grouped``, and aux None (serving drops it).
 
-    Training (``rows.train``; None: ``sharding.train_rows`` of x, which
-    must then be placed by ``place_batch``, whose ``Sharded`` shape is
-    the batch's: an ``smap`` result's is a place's, so ``model.forward``
-    passes the rows of its placed tokens): each data shard's rows of the
+    Training (``rows.train``; None: ``sharding.train_rows`` of x's
+    global batch, ``sharding.global_batch``: x's placement, cut on its
+    rows or whole, and the call raises where the placement shows an
+    ``smap`` result's rows, one place's): each data shard's rows of the
     batch where the batch divides the data axes (its own dispatch
     group), else every row on every data place (one group).  Where the
     manual-collective path applies (``expert_parallel``, no mask) it
@@ -198,8 +198,8 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = out if "shared" not in p else out + _shared(cfg, p["shared"],
                                                           x)
         return out, _aux(cfg, me, ce)
-    if rows is None:
-        rows = sharding.train_rows(mesh, x.shape[0])
+    if rows is None:  # raises where x's global batch cannot be read
+        rows = sharding.train_rows(mesh, sharding.global_batch(x, mesh))
     if not rows.train:
         return _grouped(cfg, p, x, valid, mesh, rows)[0], None
     if valid is None and expert_parallel(cfg, mesh, (rows.size, x.shape[1])):

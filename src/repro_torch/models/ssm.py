@@ -8,7 +8,7 @@ kernels are picked; the full-sequence forward only with grad disabled,
 since the kernel has no backward):
 
   * the kernel route: the scan goes through ``kernels.ssd_scan.ops.ssd``,
-    the hand-written SSD kernel, in fp32 (its exact fp32 bodies), from a
+    the hand-written SSD kernel, in fp32 (its 3xTF32 bodies), from a
     zero state (``ssd_via_kernel``);
   * the plain route: ``ssd_chunked``, a twin of the reference's chunked
     algorithm in fp32, and the training path's (plain autograd, as the
@@ -189,22 +189,22 @@ def ssd_via_kernel(x, dt, A, B, C, chunk: int):
     """The scan through ``ops.ssd`` (the SSD kernel on CUDA tensors, its
     plain recurrence on CPU ones), from a zero state, in fp32: heads
     folded into the kernel's rows, (b, S, H, P) -> (b * H, S, P), B and
-    C broadcast from G groups to H heads, chunk ``min(chunk, S)``.  Same
-    arguments and results as ``ssd_chunked`` without ``initial_state``."""
+    C by group, (b, S, G, N) -> (b * G, S, N) with H / G heads a group
+    (row bh reads group row bh // (H / G); never repeated a head), chunk
+    ``min(chunk, S)``.  Same arguments and results as ``ssd_chunked``
+    without ``initial_state``."""
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     Q = _chunk_of(S, chunk)
     f32 = torch.float32
 
-    def rows(t):  # (b, S, H, ...) -> (b * H, S, ...)
-        return t.to(f32).movedim(2, 1).reshape(b * H, S, *t.shape[3:]) \
-            .contiguous()
-
-    def heads(t):  # (b, S, G, N) -> (b * H, S, N)
-        return rows(t.repeat_interleave(H // G, dim=2))
+    def rows(t):  # (b, S, K, ...) -> (b * K, S, ...)
+        return t.to(f32).movedim(2, 1).reshape(
+            b * t.shape[2], S, *t.shape[3:]).contiguous()
 
     y, state = ssd_ops.ssd(rows(x), rows(dt), A.to(f32).repeat(b),
-                           heads(B), heads(C), chunk=Q)
+                           rows(B), rows(C), chunk=Q,
+                           heads_per_group=H // G)
     return (y.reshape(b, H, S, P).movedim(1, 2),
             state.reshape(b, H, P, N))
 

@@ -1197,15 +1197,25 @@ def _absent(args, i: int) -> bool:
     return any(isinstance(a, Sharded) and a.parts[i] is None for a in args)
 
 
-def smap(fn: Callable, *args, mesh, dim=None):
+def smap(fn: Callable, *args, mesh, dim=None, rows=False):
     """``fn`` on each place's view of ``args`` (``local``), in place
     order: a ``Sharded`` of the results cut along ``dim`` over ``model``
     (None: whole), or a tuple of them when ``fn`` returns a tuple
-    (``dim`` then one for all, or a tuple of one each).  A place without
-    rows (``_absent``) runs nothing and its results are None.  Without a
-    mesh: ``fn(*args)``."""
+    (``dim`` then one for all, or a tuple of one each).  ``rows``: ``fn``
+    keeps dim 0 as the rows of the one cut of dim 0 among ``args``
+    (``Sharded.rows``), and the results are cut alike; else they carry no
+    ``rows`` cut.  A place without rows (``_absent``) runs nothing and
+    its results are None.  Without a mesh: ``fn(*args)``."""
     if mesh is None:
         return fn(*args)
+    cut = None
+    if rows:
+        cuts = {a.rows for a in args
+                if isinstance(a, Sharded) and a.rows and a.rows[1] == 0}
+        if len(cuts) != 1:
+            raise ValueError("smap(rows=True) needs one cut of dim 0 among "
+                             f"its arguments, not {len(cuts)}")
+        cut = cuts.pop()
     outs = [None if _absent(args, i) else fn(*local(list(args), i))
             for i in range(mesh.devices.size)]
     ref = next(o for o in outs if o is not None)
@@ -1213,9 +1223,28 @@ def smap(fn: Callable, *args, mesh, dim=None):
         n = len(ref)
         dims = dim if isinstance(dim, tuple) else (dim,) * n
         return tuple(Sharded(tuple(None if o is None else o[j]
-                                   for o in outs), dims[j], mesh)
+                                   for o in outs), dims[j], mesh, cut)
                      for j in range(n))
-    return Sharded(tuple(outs), dim, mesh)
+    return Sharded(tuple(outs), dim, mesh, cut)
+
+
+def global_batch(x, mesh) -> int:
+    """The global batch (dim 0) of an activation ``x`` on ``mesh``: its
+    ``shape[0]``, which for a ``Sharded`` is the whole tensor's (cut on
+    dim 0 by ``rows``, or whole over the data axes).  An ``smap`` result
+    on a batch cut over the data axes, made without ``rows=True``, is
+    neither: each data place holds its own rows.  Raises where the
+    placement shows that (data places on one device holding distinct
+    parts: places holding one piece on one device share one object)."""
+    if isinstance(x, Sharded) and x.rows is None and data_size(mesh) > 1:
+        for g in groups(mesh, AxisState.from_mesh(mesh).dp):
+            held = {(mesh.devices.flat[i], id(x.parts[i])) for i in g}
+            if len(held) > len({dev for dev, _ in held}):
+                raise ValueError(
+                    "cannot read the global batch of a Sharded whose data "
+                    "places hold distinct parts (an smap result made "
+                    "without rows=True): pass the call's rows")
+    return x.shape[0]
 
 
 def member_leaves(tree):

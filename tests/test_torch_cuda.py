@@ -20,6 +20,7 @@ on an H100, and 7.9e-2 or more with a shifted by one position, the
 control ``test_ssd_kernel_matches_plain`` repeats at its shapes).
 """
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -565,29 +566,38 @@ def test_dense_decode_at_112_keeps_every_column(gen, dtype):
 
 
 #: mamba2-1.3b's and zamba2-7b's prefill scans as the model hands them to
-#: the kernel (8 rows x heads folded into rows, fp32, chunk 256):
-#: (rows, S, P, N).
-MODEL_SSD = [(512, 256, 64, 128), (512, 512, 64, 128),
-             (896, 256, 64, 64), (896, 512, 64, 64)]
+#: the kernel (8 rows x heads folded into rows, b and c one row a group
+#: of 64 / 112 heads, fp32, chunk min(256, S)): (rows, heads a group, S,
+#: P, N); and b and c one a row (heads a group 1).
+MODEL_SSD = [(512, 64, 256, 64, 128), (512, 64, 512, 64, 128),
+             (896, 112, 256, 64, 64), (896, 112, 512, 64, 64),
+             (512, 64, 16, 64, 128), (512, 1, 512, 64, 128)]
 
 
-@pytest.mark.parametrize("BH,S,P,N", MODEL_SSD)
-def test_ssd_kernel_at_the_models_prefill_shapes(gen, BH, S, P, N):
+@pytest.mark.parametrize("BH,hpg,S,P,N", MODEL_SSD)
+def test_ssd_kernel_at_the_models_prefill_shapes(gen, BH, hpg, S, P, N):
     """The fp32 body at the model's shapes against the plain recurrence
-    (per head to 1e-5 relative), bitwise launch to launch, and the
-    shifted-decay control."""
+    (per head to 1e-5 relative), bitwise launch to launch and bitwise the
+    launch on b and c repeated to every row, and the shifted-decay
+    control."""
     rng = np.random.default_rng(BH + S)
     mk = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).cuda()
+    G, chunk = BH // hpg, min(256, S)
     xdt, a = mk(BH, S, P) * 0.1, -mk(BH, S).abs() * 0.1
-    b, c = mk(BH, S, N) * 0.3, mk(BH, S, N) * 0.3
-    y, st = ssd_scan(xdt, a, b, c, chunk=256)
-    yr, sr = ssd_scan_ref(xdt, a, b, c)
+    b, c = mk(G, S, N) * 0.3, mk(G, S, N) * 0.3
+    y, st = ssd_scan(xdt, a, b, c, chunk=chunk, heads_per_group=hpg)
+    yr, sr = ssd_scan_ref(xdt, a, b, c, heads_per_group=hpg)
     assert max(ssd_rel(y, yr), ssd_rel(st, sr)) <= SSD_REL[torch.float32]
-    y2, st2 = ssd_scan(xdt, a, b, c, chunk=256)
+    y2, st2 = ssd_scan(xdt, a, b, c, chunk=chunk, heads_per_group=hpg)
     assert torch.equal(y.view(torch.int32), y2.view(torch.int32))
     assert torch.equal(st.view(torch.int32), st2.view(torch.int32))
-    y3, st3 = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=256)
+    y4, st4 = ssd_scan(xdt, a, b.repeat_interleave(hpg, 0),
+                       c.repeat_interleave(hpg, 0), chunk=chunk)
+    assert torch.equal(y.view(torch.int32), y4.view(torch.int32))
+    assert torch.equal(st.view(torch.int32), st4.view(torch.int32))
+    y3, st3 = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk,
+                       heads_per_group=hpg)
     assert min(ssd_rel(y3, yr), ssd_rel(st3, sr)) > 3 * SSD_REL[torch.float32]
 
 
@@ -680,53 +690,59 @@ def test_sclad_kernel_matches_plain(gen, M, K, N, C, block_m, x_dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,S,P,N,chunk", [
-    (3, 384, 64, 128, 128), (2, 768, 32, 64, 256),
-    (2, 288, 48, 16, 96),  # partial 64-row tiles, P/16 = 3
-    (3, 256, 64, 128, 256),  # one chunk: the state pass is trivial
-    (5, 256, 64, 64, 256),
-    (3, 4096, 64, 64, 256),  # 16 chunks
-    (2, 4096, 64, 128, 128),  # 32 chunks
-    (5, 2048, 48, 64, 64),  # 32 chunks, P/16 = 3
-    (7, 480, 128, 128, 96),  # widest P and N, a partial query tile
-    (3, 70, 16, 32, 7)])  # chunk under one mma tile
-def test_ssd_kernel_matches_plain(gen, BH, S, P, N, chunk, dtype):
-    """One chunk up to 32: the carried state is held too.  Outputs and
-    state are bitwise equal from launch to launch (fixed summation order,
-    no atomics); one wrapper call counts one launch.  The relative check
-    rejects the kernel's own outputs for a shifted by one position."""
+@pytest.mark.parametrize("BH,S,P,N,chunk,hpg", [
+    (3, 384, 64, 128, 128, 1), (2, 768, 32, 64, 256, 1),
+    (2, 288, 48, 16, 96, 1),  # partial 64-row tiles, P/16 = 3
+    (3, 256, 64, 128, 256, 1),  # one chunk: no state pass in fp32
+    (5, 256, 64, 64, 256, 1),
+    (3, 4096, 64, 64, 256, 1),  # 16 chunks
+    (2, 4096, 64, 128, 128, 1),  # 32 chunks
+    (5, 2048, 48, 64, 64, 1),  # 32 chunks, P/16 = 3
+    (7, 480, 128, 128, 96, 1),  # widest P and N, a partial query tile
+    (3, 70, 16, 32, 7, 1),  # chunk under one mma tile
+    (8, 512, 64, 128, 256, 4),  # b and c one row a group of 4 heads
+    (8, 256, 32, 64, 128, 2),
+    (6, 480, 128, 128, 96, 3)])
+def test_ssd_kernel_matches_plain(gen, BH, S, P, N, chunk, hpg, dtype):
+    """One chunk up to 32: the carried state is held too; b and c one a
+    row or one a group (``hpg`` heads).  Outputs and state are bitwise
+    equal from launch to launch (fixed summation order, no atomics); one
+    wrapper call counts one launch.  The relative check rejects the
+    kernel's own outputs for a shifted by one position."""
     rng = np.random.default_rng(2)
     mk = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32))
     xdt = (mk(BH, S, P) * 0.1).to("cuda", dtype)
     a = (-mk(BH, S).abs() * 0.1).to("cuda", dtype)
-    b = (mk(BH, S, N) * 0.3).to("cuda", dtype)
-    c = (mk(BH, S, N) * 0.3).to("cuda", dtype)
+    b = (mk(BH // hpg, S, N) * 0.3).to("cuda", dtype)
+    c = (mk(BH // hpg, S, N) * 0.3).to("cuda", dtype)
+    ssd_scan_ = functools.partial(ssd_scan, heads_per_group=hpg)
     before = ssd_scan.launches
-    y, st = ssd_scan(xdt, a, b, c, chunk=chunk)
+    y, st = ssd_scan_(xdt, a, b, c, chunk=chunk)
     assert ssd_scan.launches == before + 1
-    yr, str_ = ssd_scan_ref(xdt, a, b, c)
+    yr, str_ = ssd_scan_ref(xdt, a, b, c, heads_per_group=hpg)
     tol = 5 * ATTN_TOL[dtype]
     assert y.dtype == dtype and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(st, str_, atol=tol, rtol=tol)
     assert max(ssd_rel(y, yr), ssd_rel(st, str_)) <= SSD_REL[dtype]
-    y2, st2 = ssd_scan(xdt, a, b, c, chunk=chunk)
+    y2, st2 = ssd_scan_(xdt, a, b, c, chunk=chunk)
     assert ssd_scan.launches == before + 2
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(y.view(bits), y2.view(bits))
     assert torch.equal(st.view(torch.int32), st2.view(torch.int32))
-    y3, st3 = ssd_scan(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk)
+    y3, st3 = ssd_scan_(xdt, torch.roll(a, 1, 1), b, c, chunk=chunk)
     assert min(ssd_rel(y3, yr), ssd_rel(st3, str_)) > 3 * SSD_REL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BH,S,P,N,chunk", [
-    (5, 480, 48, 64, 96), (3, 70, 16, 32, 7), (2, 512, 128, 128, 256)])
+    (5, 480, 48, 64, 96), (3, 70, 16, 32, 7), (2, 512, 128, 128, 256),
+    (4, 256, 64, 128, 256)])  # one chunk: fp32 launches twice
 def test_ssd_plan_matches_the_kernels_launches(gen, tmp_path, BH, S, P, N,
                                                chunk, dtype):
-    """``ssd_plan``'s grids are the blocks each of the three passes
-    starts, as the profiler's trace records them (three calls: the
+    """``ssd_plan``'s launches are the kernels each call starts, with
+    the blocks the profiler's trace records for each (three calls: the
     tracer may miss the first launch it sees)."""
     from torch.profiler import ProfilerActivity, profile
     xdt = torch.randn(BH, S, P, generator=gen, device="cuda").to(dtype)
@@ -741,11 +757,12 @@ def test_ssd_plan_matches_the_kernels_launches(gen, tmp_path, BH, S, P, N,
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     plan = ssd_plan(BH, S, P, N, chunk, dtype == torch.bfloat16)
-    for stem, grid in zip(("ssd_chunk_state", "ssd_state_pass",
-                           "ssd_chunk_out"), plan.grids):
+    for stem in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"):
         seen = {tuple(e["args"]["grid"]) for e in events
                 if e.get("cat") == "kernel" and stem in e.get("name", "")}
-        assert seen == {(grid, 1, 1)}, stem
+        want = {(grid, 1, 1) for name, grid in plan.launches
+                if name.startswith(stem)}
+        assert seen == want, stem
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -848,7 +865,8 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(gen):
         ssd_scan(off, a[:1].bfloat16(), bn[:1].bfloat16(), bn[:1].bfloat16(),
                  chunk=64)
     off32 = torch.zeros(128 * 32 + 1, device="cuda")[1:].view(1, 128, 32)
-    ssd_scan(off32, a[:1], bn[:1], bn[:1], chunk=64)  # fp32: read by element
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_scan(off32, a[:1], bn[:1], bn[:1], chunk=64)
     q = torch.zeros(1, 256, 4, 64, device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no key"):

@@ -102,6 +102,18 @@ def test_serving_smoke(tmp_path):
     assert (tmp_path / "serving_smoke__mp2.json").exists()
 
 
+def test_serving_smoke_cli_takes_model_parallel(tmp_path, capsys):
+    """The reference's ``--model-parallel`` reaches ``run_serving_smoke``
+    through the port's CLI: the smoke at 4 model shards on the CPU."""
+    rc = dryrun.main(["--serving-smoke", "--model-parallel", "4",
+                      "--device", "cpu", "--out", str(tmp_path)])
+    rec = json.loads(capsys.readouterr().out)
+    assert rc == 0 and rec["status"] == "ok"
+    assert rec["greedy_identical"] and rec["stats_identical"]
+    assert (tmp_path / "serving_smoke__mp4.json").exists()
+    assert not (tmp_path / "serving_smoke__mp2.json").exists()
+
+
 # ---------------------------------------------------------------------------
 # Roofline (twins of tests/test_sharding.py's)
 # ---------------------------------------------------------------------------

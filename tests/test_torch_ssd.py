@@ -1,8 +1,12 @@
 """The port's SSD chunk scan against the JAX package: the plain
 recurrence against JAX's ``ssd_scan_ref`` and against the Pallas
-``ssd_scan`` in interpret mode, and ``ops.ssd`` against JAX's; the CUDA
-kernel's three-pass split (chunk states, state pass, chunk outputs, with
-its bf16 rounding points) written out in torch against both, and its
+``ssd_scan`` in interpret mode, and ``ops.ssd`` against JAX's, also with
+b and c given per group (``heads_per_group``) against JAX on b and c
+repeated by hand; the CUDA kernel's split (chunk states, the score pass
+of C B^T once a group row, the state pass, chunk outputs; the bf16
+body's rounding points, the fp32 body's 3xTF32 products, emulated bit
+for bit as ``cvt.rna.tf32.f32`` splits) written out in torch against
+both, a single-TF32 control the relative check must reject, and its
 launch plan ``ssd_plan``; and the relative check the card's SSD checks
 add to the tolerances below, with a planted fault it must reject.
 
@@ -26,6 +30,8 @@ suite's ``test_ssd_scan``) and handed to both frameworks.  Tolerances:
   ``tests/test_torch_cuda.py`` repeat on the card and that
   ``test_relative_check_rejects_a_shifted_decay`` repeats here.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -42,6 +48,7 @@ from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ssd_scan import (  # noqa: E402
     STATE_THREADS, TILE, ssd_plan, ssd_scan)
+from repro_torch.models import ssm as TS  # noqa: E402
 
 TOL_REF = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_PALLAS = {"float32": 1e-4, "bfloat16": 1e-1}
@@ -131,52 +138,103 @@ def test_ssd_scan_chunk_contract():
         ssd_scan(*t, chunk=64)
 
 
-# The kernel's three-pass split (csrc/ssd_scan.cu), written out in torch
-# on the CPU: chunk states, the state pass over chunks, chunk outputs per
-# query tile, passes 1 and 2 walking the blocks of ``ssd_plan``, and with
-# the bf16 bodies' rounding points (the decayed xdt, h_in, the masked scores).
-# It is held against JAX's recurrence and the interpret-mode Pallas kernel
-# with the tolerances above: the split computes the same function.
+# The kernel's split (csrc/ssd_scan.cu), written out in torch on the CPU:
+# chunk states, for fp32 inputs the score pass (each causal 64 x 64 tile
+# of C B^T once a (group row, chunk)), the state pass over chunks (fp32 in
+# one chunk: none, pass 1's state is the final one), chunk outputs per
+# query tile, each pass walking the blocks of ``ssd_plan``; with the bf16
+# body's rounding points (the decayed xdt, h_in, the masked scores) or
+# the fp32 body's products (``products``: "3xtf32", each operand split
+# into a TF32 high part and a TF32 residual; "tf32", the high parts
+# alone, the control).  It is held against JAX's recurrence and the
+# interpret-mode Pallas kernel with the tolerances above: the split
+# computes the same function.
 
-def _split_model(xdt, a, b, c, chunk):
+def _tf32(t):
+    """``cvt.rna.tf32.f32`` with the low 13 bits cleared: 0x1000 added to
+    the fp32 bits (to nearest, ties away from zero), the low 13 bits
+    cleared."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(x, w, products=None):
+    """x @ w with the kernel's products: exact fp32 (None), 3xTF32
+    (lo.hi + hi.lo + hi.hi, the small terms first, summed in fp32) or
+    one TF32 product."""
+    if products is None:
+        return x @ w
+    xh, wh = _tf32(x), _tf32(w)
+    if products == "tf32":
+        return xh @ wh
+    assert products == "3xtf32"
+    return (_tf32(x - xh) @ wh + xh @ _tf32(w - wh)) + xh @ wh
+
+
+def _split_model(xdt, a, b, c, chunk, heads_per_group=1, products=None):
     bf16 = xdt.dtype == torch.bfloat16
     rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    mm = functools.partial(_mm, products=products)
     x, a, b, c = (t.float() for t in (xdt, a, b, c))
     BH, S, P = x.shape
     N = b.shape[2]
-    plan = ssd_plan(BH, S, P, N, chunk, bf16)
-    nc, Q = plan.chunks, chunk
+    hpg = heads_per_group
+    plan = ssd_plan(BH, S, P, N, chunk, bf16, hpg)
+    nc, Q, nqt = plan.chunks, chunk, plan.query_tiles
+    names = [n for n, _ in plan.launches]
     states = torch.empty(plan.states)
     cum = torch.empty(BH, S)
-    for blk in range(plan.grids[0]):  # pass 1: one block per (bh, chunk)
+    for blk in range(BH * nc):  # pass 1: one block per (bh, chunk)
         ch, bh = blk % nc, blk // nc
         rows = slice(ch * Q, (ch + 1) * Q)
         cm = torch.cumsum(a[bh, rows], 0)
         cum[bh, rows] = cm
         xd = rnd(x[bh, rows] * torch.exp(cm[-1] - cm)[:, None])
-        states[bh, ch] = xd.T @ b[bh, rows]
-    h = torch.zeros(BH, P, N)  # pass 2: h_in[c] = h, h = g h + s_c
-    h_in = torch.empty(plan.states)
-    for ch in range(nc):
-        h_in[:, ch] = h
-        h = torch.exp(cum[:, ch * Q + Q - 1])[:, None, None] * h \
-            + states[:, ch]
+        states[bh, ch] = mm(xd.T, b[bh // hpg, rows])
+    scores = {}
+    pairs = nqt * (nqt + 1) // 2
+    for blk in range(plan.score_blocks):  # the score pass (fp32)
+        pair, rest = blk % pairs, blk // pairs
+        ch, gr = rest % nc, rest // nc
+        qt = max(q for q in range(nqt) if q * (q + 1) // 2 <= pair)
+        kt = pair - qt * (qt + 1) // 2
+        assert (gr, ch, qt, kt) not in scores
+        qi = slice(ch * Q + qt * TILE, ch * Q + min((qt + 1) * TILE, Q))
+        kj = slice(ch * Q + kt * TILE, ch * Q + min((kt + 1) * TILE, Q))
+        scores[gr, ch, qt, kt] = mm(c[gr, qi], b[gr, kj].T)
+    if "ssd_state_pass" in names:  # pass 2: h_in[c] = h, h = g h + s_c
+        h = torch.zeros(BH, P, N)
+        h_in = torch.empty(plan.states)
+        for ch in range(nc):
+            h_in[:, ch] = h
+            h = torch.exp(cum[:, ch * Q + Q - 1])[:, None, None] * h \
+                + states[:, ch]
+    else:  # one fp32 chunk: pass 1 wrote the final state
+        assert nc == 1 and not bf16
+        h, h_in = states[:, 0], torch.zeros(plan.states)
     h_in = rnd(h_in)
     y = torch.full((BH, S, P), float("nan"))
-    tiles = [(bh, ch, qt * TILE) for bh in range(BH) for ch in range(nc)
-             for qt in range(plan.query_tiles)]
-    assert len(tiles) == plan.grids[2]
-    for bh, ch, i0 in tiles:  # pass 3: one block per query tile
+    tiles = [(bh, ch, qt) for bh in range(BH) for ch in range(nc)
+             for qt in range(nqt)]
+    assert len(tiles) == plan.launches[-1][1]
+    for bh, ch, qt in tiles:  # pass 3: one block per query tile
+        i0 = qt * TILE
         r = torch.arange(i0, min(i0 + TILE, Q))
         k = torch.arange(0, min(i0 + TILE, Q))
         cm = cum[bh, ch * Q:(ch + 1) * Q]
         keep = k[None, :] <= r[:, None]
         diff = torch.where(keep, cm[r][:, None] - cm[k][None, :], 0.)
-        cq = c[bh, ch * Q + r]
-        scores = rnd(torch.where(keep, (cq @ b[bh, ch * Q + k].T)
-                                 * torch.exp(diff), 0.))
-        y[bh, ch * Q + r] = scores @ x[bh, ch * Q + k] \
-            + torch.exp(cm[r])[:, None] * (cq @ h_in[bh, ch].T)
+        cq = c[bh // hpg, ch * Q + r]
+        if bf16:  # the bf16 body forms its scores itself
+            cb = cq @ b[bh // hpg, ch * Q + k].T
+        else:  # the fp32 body reads the score pass's tiles
+            cb = torch.cat([scores[bh // hpg, ch, qt, kt]
+                            for kt in range(qt + 1)], dim=1)
+        s_ = rnd(torch.where(keep, cb * torch.exp(diff), 0.))
+        y[bh, ch * Q + r] = mm(s_, x[bh, ch * Q + k])
+        if bf16 or ch > 0:  # the fp32 body skips chunk 0's zero h_in
+            y[bh, ch * Q + r] += torch.exp(cm[r])[:, None] \
+                * mm(cq, h_in[bh, ch].T)
     return y.to(xdt.dtype), h
 
 
@@ -187,8 +245,10 @@ def _split_model(xdt, a, b, c, chunk):
     (1, 256, 32, 64, 16),  # sixteen chunks
     (1, 288, 48, 128, 96)])  # three chunks, a partial query tile
 def test_split_model_matches_jax(BH, S, P, N, chunk, dtype):
+    """Each body as it multiplies: fp32 in 3xTF32."""
     j, t = _both(_inputs(BH, S, P, N, seed=7), dtype)
-    y, st = _split_model(*t, chunk)
+    y, st = _split_model(*t, chunk, products=None if dtype == "bfloat16"
+                         else "3xtf32")
     assert y.dtype == t[0].dtype and not torch.isnan(y.float()).any()
     yr, sr = jax_ssd_ref(*j)
     _close(y, yr, TOL_REF[dtype])
@@ -210,35 +270,155 @@ def test_relative_check_rejects_a_shifted_decay(BH, S, P, N, chunk, dtype):
     j, t = _both(_inputs(BH, S, P, N, seed=7), dtype)
     yr, sr = jax_ssd_ref(*j)
     xdt, a, b, c = t
-    y, st = _split_model(xdt, torch.roll(a, 1, 1), b, c, chunk)
+    y, st = _split_model(xdt, torch.roll(a, 1, 1), b, c, chunk,
+                         products=None if dtype == "bfloat16" else "3xtf32")
     if dtype == "bfloat16":
         _close(y, yr, TOL_PALLAS[dtype])
     assert min(_rel(y, yr), _rel(st, sr)) > 3 * REL[dtype]
+
+
+#: (batch rows, heads, groups, S, P, N, chunk): heads_per_group 1 (one
+#: group a head), 4 (one group: both Mamba-2 configs) and 2 (G = 2).
+GROUP_CASES = [(2, 2, 2, 192, 16, 32, 64), (2, 4, 1, 192, 32, 64, 64),
+               (2, 4, 2, 128, 16, 32, 128), (1, 4, 1, 288, 48, 16, 96)]
+
+
+def _group_inputs(b, H, G, S, P, N, seed):
+    """xdt and a for b x H rows, b and c for b x G group rows, and b and c
+    repeated by hand to every row (row bh reads group row bh // (H / G))."""
+    xdt, a, bg, cg = _inputs(b * H, S, P, N, seed=seed)
+    bg, cg = bg[:b * G], cg[:b * G]
+    hpg = H // G
+    return (xdt, a, bg, cg), (xdt, a, np.repeat(bg, hpg, 0),
+                              np.repeat(cg, hpg, 0)), hpg
+
+
+@pytest.mark.parametrize("b,H,G,S,P,N,chunk", GROUP_CASES)
+def test_3xtf32_split_model_by_group_matches_jax(b, H, G, S, P, N, chunk):
+    """The fp32 body's split, b and c given per group and its products in
+    3xTF32, against JAX's recurrence and the interpret-mode Pallas kernel
+    on b and c repeated by hand: within TOL_REF, TOL_PALLAS and REL.  The
+    same split with one TF32 product (the high parts alone) fails REL:
+    the check tells the two apart."""
+    grouped, repeated, hpg = _group_inputs(b, H, G, S, P, N, seed=11)
+    j, _ = _both(repeated, "float32")
+    _, t = _both(grouped, "float32")
+    y, st = _split_model(*t, chunk, heads_per_group=hpg, products="3xtf32")
+    assert not torch.isnan(y).any() and st.shape == (b * H, P, N)
+    yr, sr = jax_ssd_ref(*j)
+    _close(y, yr, TOL_REF["float32"])
+    _close(st, sr, TOL_REF["float32"])
+    assert max(_rel(y, yr), _rel(st, sr)) <= REL["float32"]
+    yp, sp = pallas_ssd(*j, chunk=chunk, interpret=True)
+    _close(y, yp, TOL_PALLAS["float32"])
+    _close(st, sp, TOL_PALLAS["float32"])
+    y1, st1 = _split_model(*t, chunk, heads_per_group=hpg, products="tf32")
+    assert max(_rel(y1, yr), _rel(st1, sr)) > REL["float32"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,H,G,S,P,N,chunk", GROUP_CASES[1:3])
+def test_ref_and_op_by_group_match_jax(b, H, G, S, P, N, chunk, dtype):
+    """``ssd_scan_ref`` and ``ops.ssd`` with ``heads_per_group`` against
+    JAX's on b and c repeated by hand; the wrapper on CPU tensors runs the
+    plain version, and refuses b and c that are not one row a group."""
+    grouped, repeated, hpg = _group_inputs(b, H, G, S, P, N, seed=13)
+    j, _ = _both(repeated, dtype)
+    _, t = _both(grouped, dtype)
+    y, st = ssd_scan_ref(*t, heads_per_group=hpg)
+    yr, sr = jax_ssd_ref(*j)
+    _close(y, yr, TOL_REF[dtype])
+    _close(st, sr, 1e-5)
+    y2, st2 = ssd_scan(*t, chunk=chunk, heads_per_group=hpg)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+    with pytest.raises(ValueError, match="group rows"):
+        ssd_scan(*t[:2], *(torch.cat([v, v]) for v in t[2:]), chunk=chunk,
+                 heads_per_group=hpg)
+    with pytest.raises(ValueError, match="does not divide"):
+        ssd_scan(*t, chunk=chunk, heads_per_group=b * H + 1)
+    rng = np.random.default_rng(5)
+    dt = (np.log1p(np.exp(rng.standard_normal((b * H, S)))) * 0.1
+          ).astype(np.float32)
+    A = -np.exp(rng.standard_normal(b * H)).astype(np.float32)
+    x = (np.asarray(repeated[0]) * 10).astype(np.float32)
+    jo, to = _both((x, dt, A, repeated[2], repeated[3]), dtype)
+    _, tg = _both((grouped[2], grouped[3]), dtype)
+    yo, so = ops.ssd(*to[:3], *tg, chunk=chunk, heads_per_group=hpg)
+    yj, sj = jax_ops.ssd(*jo, chunk=chunk)
+    _close(yo, yj, TOL_REF[dtype])
+    _close(so, sj, 1e-5 if dtype == "float32" else TOL_REF[dtype])
 
 
 @pytest.mark.parametrize("BH,S,P,N,chunk", [
     (1, 256, 64, 128, 256), (64, 2048, 64, 128, 256),
     (64, 2048, 64, 128, 128), (112, 2048, 64, 64, 256),
     (3, 288, 48, 16, 96), (5, 70, 16, 32, 7), (7, 480, 128, 128, 96),
-    (2, 4096, 64, 128, 128)])
+    (2, 4096, 64, 128, 128), (512, 512, 64, 128, 256),
+    (896, 256, 64, 64, 256), (8, 16, 64, 128, 16)])
 def test_ssd_plan_covers_every_query_tile_once(BH, S, P, N, chunk):
     """From shapes only: pass 1 one block per (bh, chunk), pass 2 threads
     for every 4 state entries of each bh, pass 3 one block per (bh, chunk,
     query tile), the tiles covering the chunk, and the workspace the
     kernel lays out (chunk states, cum rounded up to 4 floats so that the
-    bf16 h_in stays 16-byte aligned, h_in)."""
-    plan = ssd_plan(BH, S, P, N, chunk)
+    bf16 h_in and the fp32 score tiles stay 16-byte aligned, then h_in or
+    the score tiles).  fp32: the score pass in pass 1's launch, one block
+    per causal tile pair of each (group row, chunk), whatever the rows a
+    group; in one chunk no state pass and no chunk states."""
     nc = S // chunk
-    assert plan.chunks == nc and plan.states == (BH, nc, P, N)
-    assert plan.query_tiles == -(-chunk // TILE)
-    assert plan.grids[0] == BH * nc
-    per_bh = plan.grids[1] // BH
-    assert plan.grids[1] % BH == 0
-    assert (per_bh - 1) * STATE_THREADS < P * N // 4 <= per_bh * STATE_THREADS
-    assert plan.grids[2] == BH * nc * plan.query_tiles
-    assert (plan.query_tiles - 1) * TILE < chunk <= plan.query_tiles * TILE
+    nqt = -(-chunk // TILE)
     n_states, n_cum = BH * nc * P * N, -(-BH * S // 4) * 4
+    per_bh = -(-(P * N // 4) // STATE_THREADS)
+    assert (per_bh - 1) * STATE_THREADS < P * N // 4 <= per_bh * STATE_THREADS
+    assert (nqt - 1) * TILE < chunk <= nqt * TILE
     assert n_cum % 4 == 0 and n_cum >= BH * S
+    plan = ssd_plan(BH, S, P, N, chunk)
+    assert plan.chunks == nc and plan.states == (BH, nc, P, N)
+    assert plan.query_tiles == nqt and plan.score_blocks == 0
+    assert plan.launches == (("ssd_chunk_state_tc", BH * nc),
+                             ("ssd_state_pass", BH * per_bh),
+                             ("ssd_chunk_out_tc", BH * nc * nqt))
     assert plan.workspace == n_states + n_cum + n_states // 2
-    assert ssd_plan(BH, S, P, N, chunk, bf16=False).workspace \
-        == n_states + n_cum
+    pairs = {(q, k) for q in range(nqt) for k in range(q + 1)}
+    assert len(pairs) == nqt * (nqt + 1) // 2
+    for hpg in sorted({1, BH} | ({4} if BH % 4 == 0 else set())):
+        f = ssd_plan(BH, S, P, N, chunk, bf16=False, heads_per_group=hpg)
+        assert f.score_blocks == BH // hpg * nc * len(pairs)
+        first = ("ssd_chunk_state_tf32", BH * nc + f.score_blocks)
+        out = ("ssd_chunk_out_tf32", BH * nc * nqt)
+        if nc == 1:
+            assert f.launches == (first, out)
+            assert f.workspace == n_cum + f.score_blocks * TILE * TILE
+        else:
+            assert f.launches == (first, ("ssd_state_pass", BH * per_bh),
+                                  out)
+            assert f.workspace == n_states + n_cum \
+                + f.score_blocks * TILE * TILE
+
+
+def test_kernel_route_hands_the_op_b_and_c_by_group(monkeypatch):
+    """``ssd_via_kernel`` hands ``ops.ssd`` b and c as (b * G, S, N) with
+    H / G heads a group: never repeated a head."""
+    seen = []
+    ssd = ops.ssd
+
+    def spy(x, dt, A, b, c, **kw):
+        seen.append((tuple(x.shape), tuple(b.shape), tuple(c.shape), kw))
+        return ssd(x, dt, A, b, c, **kw)
+
+    monkeypatch.setattr(TS.ssd_ops, "ssd", spy)
+    for G in (1, 2):
+        rng = np.random.default_rng(G)
+        bsz, S, H, P, N = 2, 32, 4, 8, 16
+        x = torch.from_numpy(rng.standard_normal((bsz, S, H, P))
+                             .astype(np.float32))
+        dt = torch.from_numpy(rng.uniform(0.05, 0.5, (bsz, S, H))
+                              .astype(np.float32))
+        A = -torch.from_numpy(rng.uniform(1, 4, H).astype(np.float32))
+        B, C = (torch.from_numpy(rng.standard_normal((bsz, S, G, N))
+                                 .astype(np.float32)) for _ in range(2))
+        y, st = TS.ssd_via_kernel(x, dt, A, B, C, 16)
+        yw, sw = TS.ssd_chunked(x, dt, A, B, C, 16)
+        assert seen[-1] == ((bsz * H, S, P), (bsz * G, S, N), (bsz * G, S, N),
+                            {"chunk": 16, "heads_per_group": H // G})
+        for got, want in ((y, yw), (st, sw)):
+            assert (got - want).norm() / want.norm() <= 1e-5

@@ -97,8 +97,8 @@ def test_ssd_chunked_matches_jax(S, init, G):
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("S", [5, CHUNK, 3 * CHUNK])
 def test_kernel_route_matches_ssd_chunked(S, G):
-    """The kernel route's adapter (heads folded into rows, B and C
-    broadcast from groups to heads, chunk min(chunk, S)) through
+    """The kernel route's adapter (heads folded into rows, B and C one
+    row a group with H / G heads a group, chunk min(chunk, S)) through
     ``ops.ssd`` — on the CPU its plain recurrence — against the twin."""
     b, H, P, N = 2, 4, 8, 8
     args = _torch(*_scan_inputs(S + 10 * G, b, S, H, P, G, N))
@@ -381,3 +381,53 @@ def test_launcher_serves_reduced_on_cpu(arch, capsys):
                       "--requests", "3", "--max-new", "4"])
     assert len(out) == 3 and all(len(t) == 4 for t in out.values())
     assert "wave engine" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("groups,m", [(1, None), (2, None), (1, 2), (2, 2)])
+def test_kernel_route_by_group_in_the_block(groups, m, monkeypatch):
+    """The block's kernel route hands ``ops.ssd`` b and c one row a group,
+    (rows x G, S, N) with H / G heads a group (never repeated a head), and
+    equals the plain route within the fp32 limit: the reduced mamba2-1.3b
+    and the same with two groups, meshless and at a ``model`` shard of 2
+    (one group: each shard's H / 2 heads share it; two groups: the block
+    stays whole, every shard runs every head)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as tsh
+    jcfg = jax_config("mamba2-1.3b").reduced()
+    tcfg = get_config("mamba2-1.3b").reduced()
+    if groups != 1:
+        jcfg = dataclasses.replace(jcfg, ssm=dataclasses.replace(
+            jcfg.ssm, ngroups=groups))
+        tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(
+            tcfg.ssm, ngroups=groups))
+    jp = JS.init_mamba_block(jcfg, jax.random.PRNGKey(3))
+    tp = {k: tensor_from_numpy(np.asarray(v, np.float32))
+          for k, v in jp.items()}
+    S = 2 * tcfg.ssm.chunk_size
+    x = torch.from_numpy(np.random.default_rng(groups).standard_normal(
+        (2, S, tcfg.d_model)).astype(np.float32))
+    seen = []
+    ssd = TS.ssd_ops.ssd
+
+    def spy(x_, dt, A, b, c, **kw):
+        seen.append((tuple(x_.shape), tuple(b.shape), tuple(c.shape), kw))
+        return ssd(x_, dt, A, b, c, **kw)
+
+    monkeypatch.setattr(TS.ssd_ops, "ssd", spy)
+    mesh = None if m is None else make_mesh((1, m), ("data", "model"), "cpu")
+    want, wc = TS.apply_mamba_block(tcfg, tp, x)
+    if mesh is None:
+        got, gc = TS.apply_mamba_block(tcfg, tp, x, use_kernel=True)
+        state, places = gc["state"], 1
+    else:
+        placed = {k: tsh.shard(v, tsh.mamba_spec(tcfg, mesh, k, v.dim()),
+                               mesh) for k, v in tp.items()}
+        got, gc = TS.apply_mamba_block(tcfg, placed, tsh.broadcast(x, mesh),
+                                       use_kernel=True, mesh=mesh)
+        got, state, places = got.parts[0], tsh.gather(gc["state"]), m
+    _, H, G, N, P, _ = TS.dims(tcfg)
+    Hs = H // tsh.mamba_shard_size(mesh, tcfg)
+    assert seen == [((2 * Hs, S, P), (2 * G, S, N), (2 * G, S, N),
+                     {"chunk": tcfg.ssm.chunk_size,
+                      "heads_per_group": Hs // G})] * places
+    assert _rel(got, want) <= 1e-5 and _rel(state, wc["state"]) <= 1e-5

@@ -497,3 +497,45 @@ def test_jax_checkpoint_restores_onto_a_port_mesh(tmp_path):
     for (path, a), b in zip(tree_lib.flatten(got), tree_lib.leaves(want)):
         assert a.mesh is mesh
         assert torch.equal(tsh.to_whole(a), b), path
+
+
+@pytest.mark.parametrize("shape", [(4, 2)])
+def test_moe_rows_none_reads_the_global_batch(shape):
+    """``apply_moe(mesh=, rows=None)`` on an ``smap``-made x (each data
+    place's part one place's rows) made with ``rows=True`` reads the
+    global batch from the result's cut: the collectives' bytes equal the
+    dry run's count for the whole batch, and the output equals the call
+    on the placed batch.  The same ``smap`` without ``rows=True`` makes
+    the call raise."""
+    tcfg = get_config("qwen3-moe-235b-a22b").reduced()
+    jcfg = jax_config("qwen3-moe-235b-a22b").reduced()
+    p = JMOE.init_moe(jcfg, jax.random.PRNGKey(0))
+    mesh = cpu_mesh(shape)
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(
+        torch.float32 if k == "router" else torch.bfloat16)
+        for k, v in p.items()}
+    placed = tsh.place_train(tcfg, {"blocks": {"moe": {
+        k: v[None] for k, v in tp.items()}}}, mesh)["blocks"]["moe"]
+    placed = {k: v[0] for k, v in placed.items()}
+    placed["router"] = tsh.all_gather(placed["router"], axis="data")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 32, tcfg.d_model)).astype(np.float32) * 0.5).bfloat16()
+    xs = tsh.place_batch(tcfg, {"x": x}, mesh)["x"]
+    assert xs.rows is not None and xs.parts[0].shape[0] == 1
+    made = tsh.smap(lambda t: t * 1.0, xs, mesh=mesh, rows=True)
+    assert made.rows == xs.rows and made.parts[0].shape[0] == 1 \
+        and made.shape == xs.shape
+    want = {k: int(round(v)) for k, v in
+            dryrun.moe_layer_collectives(tcfg, 4, 32, mesh).items()}
+    mesh.moved_bytes.clear()
+    ref, _ = TMOE.apply_moe(tcfg, placed, xs, mesh=mesh)
+    assert mesh.moved_bytes == want
+    mesh.moved_bytes.clear()
+    out, _ = TMOE.apply_moe(tcfg, placed, made, mesh=mesh)
+    assert mesh.moved_bytes == want and mesh.moved_bytes["all_to_all"] > 0
+    for a, b in zip(out.parts, ref.parts):
+        assert torch.equal(a, b)
+    blind = tsh.smap(lambda t: t * 1.0, xs, mesh=mesh)
+    assert blind.rows is None and blind.shape[0] == 1
+    with pytest.raises(ValueError, match="global batch"):
+        TMOE.apply_moe(tcfg, placed, blind, mesh=mesh)
